@@ -1,0 +1,103 @@
+"""Architecture config dataclasses for the ESS path (own copy of the
+fields of ``repro.configs.base`` that the port uses).
+
+``param_dtype`` is a ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def latent_dim(self) -> int:           # cached per token: c_kv ++ k_rope
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class DSAConfig:
+    """DeepSeek Sparse Attention (V3.2-Exp lightning indexer)."""
+    index_heads: int = 64
+    index_dim: int = 128
+    index_topk: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 16
+    top_k: int = 4
+    d_expert: int = 2048            # per-expert intermediate dim
+    num_shared: int = 0             # shared (always-on) experts
+    first_dense_layers: int = 0     # leading dense layers (deepseek: 3)
+    dense_d_ff: int = 0             # d_ff of those dense layers
+    capacity_factor: float = 1.25   # fixed-capacity dispatch
+    router_bias: bool = False       # aux-loss-free bias routing (deepseek)
+    routed_scale: float = 1.0       # deepseek routed_scaling_factor
+    norm_topk: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ESSOptions:
+    """Paper technique switches (see repro_torch.core)."""
+    sparse_memory_ratio: float = 0.3   # pool entries / context entries
+    max_miss_ratio: float = 0.25       # miss buffer size / top-k
+    warmup_windows: int = 32
+    overlap: str = "da"                # none | da | layerwise
+    offload_kv: bool = True            # host tier for the full cache
+    pool_min_entries: int = 6400       # paper: ">= 6.4K" recommendation
+    paged_host: bool = True            # global page pool + block tables
+    host_page_rows: int = 16           # latent rows per host page
+    host_cache_dtype: str = "bf16"     # only "bf16" is ported
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The fields of the reference's ``ArchConfig`` that the ESS path reads."""
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    d_ff: int
+    vocab_size: int
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    act: str = "silu"
+    norm_eps: float = 1e-6
+    mla: Optional[MLAConfig] = None
+    dsa: Optional[DSAConfig] = None
+    moe: Optional[MoEConfig] = None
+    ess: ESSOptions = ESSOptions()
+    param_dtype: Any = torch.bfloat16
+    mtp_depth: int = 0                 # multi-token-prediction modules
+
+
+_REGISTRY: dict[str, Any] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str, **overrides) -> ArchConfig:
+    if name not in _REGISTRY:
+        import repro_torch.configs  # noqa: F401  (registration side effect)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    cfg = _REGISTRY[name]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

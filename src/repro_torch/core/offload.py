@@ -1,0 +1,163 @@
+"""Host tier of the latent cache and the FlashTrans transfers (paper
+section 3.1; counterpart of ``repro.core.offload``, bf16 tier).
+
+On the card the tier is a **pinned** CPU tensor (this replaces the
+reference's ``pinned_host`` memory kind).  Both directions run as CUDA
+kernels on the caller's stream through the tier's UVA mapping:
+
+* :func:`host_gather_rows` translates positions to physical rows on the
+  device and calls the row-gather kernel, which reads the pinned rows
+  directly (no host-side gather, no staging copy);
+* :func:`host_scatter_rows` writes new rows with the scatter kernel, so a
+  layer's write is ordered before that layer's gather by the stream alone,
+  with no host synchronisation.
+
+The scatters update the tier **in place** and return it.  Two layouts, as
+in the reference: dense ``[L,B,S,D]`` and paged ``[L,NP,R,D]`` with block
+tables ``[B,NB]``.  A quantized tier (``host_scales``) is not ported yet
+and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gather_cache import ops as gops
+
+
+def _batch_slice(t: torch.Tensor, batch_offset: int, B: int) -> torch.Tensor:
+    # dynamic_slice semantics: the start is clamped so the slice fits
+    start = min(max(int(batch_offset), 0), t.shape[0] - B)
+    return t[start:start + B]
+
+
+def _paged_phys(ids: torch.Tensor, block_table: torch.Tensor, page_rows: int,
+                num_pages: int, batch_offset: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequence positions -> physical rows of the flat ``[NP*R, D]`` pool.
+
+    ids [B,M] (-1 padding), block_table [B_total, NB].  Returns (phys [B,M],
+    valid [B,M] — in range *and* mapped)."""
+    B = ids.shape[0]
+    bt = _batch_slice(block_table, batch_offset, B)
+    cap = bt.shape[1] * page_rows
+    safe = ids.clamp(0, cap - 1)
+    page = bt.gather(1, safe // page_rows)
+    valid = (ids >= 0) & (ids < cap) & (page >= 0)
+    phys = page.clamp(0, num_pages - 1) * page_rows + safe % page_rows
+    return phys, valid
+
+
+def _layer_flat(host_cache: torch.Tensor, layer: int) -> torch.Tensor:
+    """One layer of the tier ([L,...] stacked or not) as a flat [rows, D]
+    view."""
+    cl = host_cache[layer] if host_cache.dim() == 4 else host_cache
+    return cl.reshape(-1, cl.shape[-1])
+
+
+def _dense_flat_ids(ids: torch.Tensor, S: int, B_total: int,
+                    batch_offset: int, valid: torch.Tensor) -> torch.Tensor:
+    B = ids.shape[0]
+    start = min(max(int(batch_offset), 0), B_total - B)
+    b = torch.arange(B, device=ids.device)[:, None] + start
+    return torch.where(valid, b * S + ids.clamp(0, S - 1), -1)
+
+
+def host_gather_rows(host_cache: torch.Tensor, ids: torch.Tensor, *,
+                     layer: int = 0, batch_offset: int = 0,
+                     block_table: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """FlashTrans fetch: ids [B,M] (-1 padding) -> rows [B,M,D] on
+    ``ids.device``; unmapped or padding rows are zero.
+
+    dense: host_cache [B,S,D] / [L,B,S,D]; paged: [NP,R,D] / [L,NP,R,D]
+    with ``block_table``."""
+    if block_table is not None:
+        R, NP = host_cache.shape[-2], host_cache.shape[-3]
+        phys, valid = _paged_phys(ids, block_table, R, NP, batch_offset)
+        flat_ids = torch.where(valid, phys, -1)
+    else:
+        S, Bt = host_cache.shape[-2], host_cache.shape[-3]
+        flat_ids = _dense_flat_ids(ids, S, Bt, batch_offset, ids >= 0)
+    return gops.gather_rows(_layer_flat(host_cache, layer), flat_ids)
+
+
+def _scatter_targets(host_cache, ids, block_table, batch_offset, drop_oob):
+    if block_table is not None:
+        R, NP = host_cache.shape[-2], host_cache.shape[-3]
+        phys, valid = _paged_phys(ids, block_table, R, NP, batch_offset)
+        return torch.where(valid, phys, -1), NP * R
+    S, Bt = host_cache.shape[-2], host_cache.shape[-3]
+    valid = ids >= 0
+    if drop_oob:
+        valid = valid & (ids < S)
+    return _dense_flat_ids(ids, S, Bt, batch_offset, valid), Bt * S
+
+
+def host_scatter_rows(host_cache: torch.Tensor, ids: torch.Tensor,
+                      rows: torch.Tensor, *,
+                      slot_mask: torch.Tensor | None, layer: int = 0,
+                      batch_offset: int = 0,
+                      block_table: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Write rows [B,Q,D] at positions ids [B,Q] (-1 = masked) into one
+    layer of the tier, in place; returns the tier.
+
+    ``slot_mask`` [B] (required, keyword-only; ``None`` = every row live)
+    drops masked rows' writes.  Paged writes to unmapped pages drop."""
+    if slot_mask is not None:
+        ids = torch.where(slot_mask[:, None], ids, -1)
+    tgt, _ = _scatter_targets(host_cache, ids, block_table, batch_offset,
+                              drop_oob=False)
+    gops.scatter_rows(_layer_flat(host_cache, layer),
+                      tgt.reshape(-1), rows.reshape(-1, rows.shape[-1]))
+    return host_cache
+
+
+def host_scatter_rows_stacked(host_cache: torch.Tensor, ids: torch.Tensor,
+                              rows: torch.Tensor, *,
+                              slot_mask: torch.Tensor | None,
+                              batch_offset: int = 0,
+                              block_table: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Write rows [L,B,Q,D] at the same positions ids [B,Q] into every layer
+    of a stacked tier in one launch, in place; returns the tier."""
+    if slot_mask is not None:
+        ids = torch.where(slot_mask[:, None], ids, -1)
+    Lh, D = host_cache.shape[0], host_cache.shape[-1]
+    tgt, per_layer = _scatter_targets(host_cache, ids, block_table,
+                                      batch_offset, drop_oob=True)
+    off = torch.arange(Lh, device=tgt.device)[:, None, None] * per_layer
+    tgt_all = torch.where(tgt[None] >= 0, tgt[None] + off, -1)
+    gops.scatter_rows(host_cache.view(-1, D), tgt_all.reshape(-1),
+                      rows.reshape(-1, D))
+    return host_cache
+
+
+def gather_tier_rows(host_cache: torch.Tensor,
+                     host_scales: torch.Tensor | None, ids: torch.Tensor, *,
+                     layer: int = 0, batch_offset: int = 0,
+                     block_table: torch.Tensor | None = None,
+                     out_dtype=None) -> torch.Tensor:
+    """Tier fetch, ids [B,M] -> rows [B,M,D] (bf16 tier only)."""
+    if host_scales is not None:
+        raise NotImplementedError("quantized host tier is not ported yet")
+    rows = host_gather_rows(host_cache, ids, layer=layer,
+                            batch_offset=batch_offset,
+                            block_table=block_table)
+    return rows if out_dtype is None else rows.to(out_dtype)
+
+
+def scatter_tier_rows(host_cache: torch.Tensor,
+                      host_scales: torch.Tensor | None, ids: torch.Tensor,
+                      rows: torch.Tensor, *,
+                      slot_mask: torch.Tensor | None, layer: int = 0,
+                      batch_offset: int = 0,
+                      block_table: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, None]:
+    """Tier write-back (bf16 tier only), in place; returns (tier, None)."""
+    if host_scales is not None:
+        raise NotImplementedError("quantized host tier is not ported yet")
+    return host_scatter_rows(host_cache, ids, rows, slot_mask=slot_mask,
+                             layer=layer, batch_offset=batch_offset,
+                             block_table=block_table), None

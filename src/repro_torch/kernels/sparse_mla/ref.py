@@ -1,0 +1,23 @@
+"""Plain PyTorch version of the sparse-MLA partial kernel (fp32 throughout,
+as the Pallas kernel and its oracle ``repro.kernels.sparse_mla.ref``)."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def sparse_mla_partial_ref(q: torch.Tensor, rows: torch.Tensor,
+                           valid: torch.Tensor, scale: float, rank: int):
+    """q [B,Q,H,D], rows [B,Q,K,D], valid [B,Q,K] ->
+    (o [B,Q,H,rank], m [B,Q,H], l [B,Q,H]) unnormalized fp32 partials."""
+    s = torch.einsum("bqhd,bqkd->bqhk", q.float(), rows.float()) * scale
+    v = valid[:, :, None, :]
+    s = torch.where(v, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(v, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bqhk,bqkv->bqhv", p, rows[..., :rank].float())
+    return o, m, l

@@ -1,0 +1,110 @@
+"""Where the time of a serve goes: prefill chunks and decode rounds under
+``torch.profiler``, on the card.
+
+Serves the same batch as :mod:`repro_torch.launch.serve` (same arguments),
+then prints, for one steady prefill chunk and for ``--rounds`` decode rounds
+after the first, the wall time, the device's busy share (summed kernel time
+over wall time) and the kernels with the most device time.
+
+  python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
+      --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
+      --prefill-chunk 256 --rounds 5
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import resolve_device
+from repro_torch.cache import latent_cache as LC
+from repro_torch.configs import cut_depth, get_config
+from repro_torch.launch.serve import build_parser
+from repro_torch.models.params import init_params
+from repro_torch.serving import engine as E
+
+
+def _summary(prof, wall_s: float, top: int) -> list[str]:
+    rows = []
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): the CPU ops that
+        # launched them carry the same time again
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+            busy_us += dev_us
+    rows.sort(reverse=True)
+    out = [f"wall {wall_s * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+           f"({100 * busy_us / 1e6 / wall_s:.1f} % of wall)"]
+    for us, n, key in rows[:top]:
+        out.append(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f} %  "
+                   f"x{n:<5d} {key[:90]}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        raise RuntimeError("profile_serve measures the card; pass a CUDA "
+                           "device")
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
+    max_seq = args.prompt_len + args.new_tokens
+    params = init_params(cfg, args.seed, dev)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.requests, args.prompt_len))
+    tokens = torch.as_tensor(prompts, device=dev)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    # one steady prefill chunk (the second), profiled on its own caches
+    C = args.prefill_chunk
+    caches = LC.init_ess_caches(cfg, B, max_seq, device=dev)
+    _, caches = E.ess_prefill_chunk(params, cfg, tokens[:, :C],
+                                    positions[:, :C], caches)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        E.ess_prefill_chunk(params, cfg, tokens[:, C:2 * C],
+                            positions[:, C:2 * C], caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"prefill chunk {C} x {B} (rows {C}..{2 * C}):")
+    print("\n".join(_summary(prof, wall, args.top)))
+    del caches
+
+    logits, caches = E.ess_prefill(params, cfg, tokens, positions, max_seq,
+                                   prefill_chunk=C, last_logits_only=True)
+    tok = logits[:, -1].argmax(-1)
+    o = E.ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches)
+    tok, caches = o.logits[:, 0].argmax(-1), o.caches
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.rounds):
+            o = E.ess_decode(params, cfg, tok[:, None], caches.lens[:, None],
+                             caches)
+            tok, caches = o.logits[:, 0].argmax(-1), o.caches
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"decode: {args.rounds} rounds after the first "
+          f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler):")
+    print("\n".join(_summary(prof, wall, args.top)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
