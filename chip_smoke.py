@@ -10,16 +10,27 @@ the script exits non-zero without a result line):
    the checkout (one nvcc per source, in parallel);
 2. card   — print ``nvidia-smi`` name and power limit;
 3. kernels — call each kernel's wrapper at the shapes the serve path gives
-   it, hold it against its plain PyTorch version, time kernel, plain
-   version and, where one exists, a single PyTorch call computing the same
-   function, and compute the card's lower bound for the work;
+   it, hold it against its plain PyTorch version (the gathers, dequant
+   included, and the scatter bit for bit), time kernel, plain version and,
+   where one exists, a single PyTorch call computing the same function,
+   and compute the card's lower bound for the work;
 4. small  — the smoke config in fp32 on the card against the plain CPU path
    (prefill + teacher-forced decode), a reference on a small input;
 5. serve  — ``deepseek-v32-exp-ess`` at full width, cut to 4 layers (3
    dense + 1 MoE) and no MTP, 4 requests x 8192-token prompts x 32 new
-   tokens with random weights from a seed; every kernel's launch count is
-   read after this run and must be above 0, as must the decode misses
-   (host-tier reads over UVA) and the pool evictions.
+   tokens with random weights from a seed, bf16 host tier; the launch
+   counts of its kernels are read after this run and must be above 0, as
+   must the decode misses (host-tier reads over UVA) and the pool
+   evictions;
+6. quant serve — the same serve on the same weights with an int8 host
+   tier (``--host-cache-dtype int8``): the fused gather-dequant kernel
+   must carry every tier read;
+7. graft  — a 2048-token prompt prefilled alone, grafted into slot 2 of a
+   fresh 4-slot cache through the page gathers, bf16 and int8 tiers
+   (:func:`check_graft`).
+
+Each of phases 5-7 sets every launch count to 0 just before it runs and
+reads them just after.
 
 The last two lines are the ``kernels`` JSON object and the result object.
 """
@@ -172,6 +183,107 @@ def check_kernels(torch, dev):
         library_ms=timed_ms(torch, lambda: host_dst.copy_(
             rows, non_blocking=True)))
 
+    # -- gather_rows_dequant: the decode miss fetch of an int8 / fp8 tier
+    #    (one layer of the serve cell's pinned tier, 4 slots x 256 rows) --
+    from repro_torch.distributed import compression as cmp
+    ids = torch.randint(0, NP * R, (B * M,), generator=g, device=dev)
+    ids[::7] = -1
+    nread = int((ids >= 0).sum())
+    deq = {}
+    for qname in ("fp8", "int8"):            # int8 last: its tier is timed
+        q, sc = cmp.quantize_rows(randn((NP * R, D)), cmp.CACHE_QUANT_DTYPES[
+            qname])
+        q, sc = q.cpu().pin_memory(), sc.cpu().pin_memory()
+        for out_dt in (torch.bfloat16, torch.float32):
+            got = gops.gather_rows_dequant(q, sc, ids, out_dt)
+            want = gref.gather_rows_dequant_ref(q, sc, ids.cpu(), out_dt)
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu().view(torch.uint8),
+                                want.view(torch.uint8)),
+                    f"gather_rows_dequant differs ({qname}, {out_dt})")
+        deq[qname] = dict(
+            ms=timed_ms(torch, lambda: gops.gather_rows_dequant(q, sc, ids)),
+            plain_ms=wall_ms(torch, lambda: gref.gather_rows_dequant_ref(
+                q, sc, ids.cpu()).to(dev)),
+            # the same rows' payload alone, by the plain row gather: the
+            # difference is the cost of the 2-byte scale reads (and of
+            # writing bf16 instead of one byte)
+            payload_ms=timed_ms(torch, lambda: gops.gather_rows(q, ids)))
+    pay = torch.empty((nrows, D), dtype=q.dtype, device=dev)
+    scd = torch.empty((nrows, 1), dtype=torch.float16, device=dev)
+
+    def copy_q8():
+        pay.copy_(q[:nrows], non_blocking=True)
+        scd.copy_(sc[:nrows], non_blocking=True)
+    # rows read (payload + scale) + bf16 rows written + the ids
+    nb, _ = bound_ms(nread * (D + 2) + nrows * 2 * D + 8 * nrows, 0, "bf16")
+    records["gather_rows_dequant"] = dict(
+        name="gather_rows_dequant", route="cuda",
+        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_cache/gather_cache.py:79",
+        max_abs_err=0.0, ms=deq["int8"]["ms"],
+        plain_ms=deq["int8"]["plain_ms"], bound_ms=nb, bound_by="bytes",
+        library_ms=timed_ms(torch, copy_q8), detail=deq)
+    del q, sc
+
+    # -- gather_pages / gather_pages_dequant: one slot's pages (129) in
+    #    every layer (4) of the serve cell's tier, bf16 and int8 ----------
+    Lh = 4
+    NBs = -(-S // R)
+    pids = torch.arange(2 * NBs, 3 * NBs, device=dev)       # slot 2's pages
+    pbytes = Lh * NBs * R * D                                # elements
+    tier = randn((Lh, NP * R, D)).cpu().pin_memory()
+    got = gops.gather_pages(tier, pids, R)
+    torch.cuda.synchronize()
+    require(torch.equal(got.cpu(), gref.gather_pages_ref(
+        tier, pids.cpu()[None].expand(Lh, -1), R)), "gather_pages differs")
+    ddst = torch.empty((Lh, NBs * R, D), dtype=torch.bfloat16, device=dev)
+    nb, _ = bound_ms(2 * 2 * pbytes + 8 * Lh * NBs, 0, "bf16")
+    records["gather_pages"] = dict(
+        name="gather_pages", route="cuda",
+        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_cache/gather_cache.py:111",
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: gops.gather_pages(tier, pids, R)),
+        plain_ms=wall_ms(torch, lambda: gref.gather_pages_ref(
+            tier, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
+        bound_ms=nb, bound_by="bytes",
+        # the same bytes as one contiguous pinned -> device copy
+        library_ms=timed_ms(torch, lambda: ddst.view(-1, D).copy_(
+            tier.view(-1, D)[:Lh * NBs * R], non_blocking=True)))
+    del tier
+    q, sc = cmp.quantize_rows(randn((Lh, NP * R, D)), torch.int8)
+    q, sc = q.cpu().pin_memory(), sc.cpu().pin_memory()
+    for out_dt in (torch.bfloat16, torch.float32):
+        got = gops.gather_pages_dequant(q, sc, pids, R, out_dt)
+        want = gref.gather_pages_dequant_ref(
+            q, sc, pids.cpu()[None].expand(Lh, -1), R, out_dt)
+        torch.cuda.synchronize()
+        require(torch.equal(got.cpu().view(torch.uint8),
+                            want.view(torch.uint8)),
+                f"gather_pages_dequant differs ({out_dt})")
+    qdst = torch.empty((Lh, NBs * R, D), dtype=torch.int8, device=dev)
+    sdst = torch.empty((Lh, NBs * R, 1), dtype=torch.float16, device=dev)
+
+    def copy_pages_q8():
+        qdst.view(-1, D).copy_(q.view(-1, D)[:Lh * NBs * R],
+                               non_blocking=True)
+        sdst.view(-1, 1).copy_(sc.view(-1, 1)[:Lh * NBs * R],
+                               non_blocking=True)
+    nb, _ = bound_ms(pbytes * (1 + 2) + Lh * NBs * R * 2 + 8 * Lh * NBs, 0,
+                     "bf16")
+    records["gather_pages_dequant"] = dict(
+        name="gather_pages_dequant", route="cuda",
+        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_cache/gather_cache.py:145",
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: gops.gather_pages_dequant(q, sc, pids, R)),
+        plain_ms=wall_ms(torch, lambda: gref.gather_pages_dequant_ref(
+            q, sc, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
+        bound_ms=nb, bound_by="bytes", library_ms=timed_ms(torch,
+                                                           copy_pages_q8))
+    del q, sc
+
     # -- indexer_scores: decode (Q=1) and a prefill chunk (causal) ----------
     def indexer_case(Q, causal):
         q = randn((B, Q, Hi, Di))
@@ -300,6 +412,102 @@ def check_small(torch, dev):
     return err
 
 
+GRAFT_LEN = 2048
+
+
+def check_graft(torch, dev, serve, params, tier, counted):
+    """Phase 7: prefill one GRAFT_LEN-token prompt alone (batch 1, the
+    donor) on a ``tier`` host tier and graft it into slot 2 of a fresh
+    4-slot cache with ``graft_slot``, which reads the donor's pages with
+    the page-gather kernel (its dequant variant for int8) and writes them
+    with the scatter kernel.  Returns (summary, launch counts of the graft).
+
+    Checks: the slot's rows equal the donor's (an int8 tier's after the
+    reference's dequant -> requant); one decode step of slot 2 alone
+    (``slot_mask``) gives the logits of the same step on a second cache
+    whose slot 2 holds the donor's tier pages copied verbatim, within the
+    bf16 tolerance (5e-2) and with the same greedy token.  The donor's own
+    batch-1 step is printed beside it for information only: at 4 slots
+    the MoE layer's capacity is one token per expert, and the masked slots'
+    tokens come first in its token-major dispatch, so they can take an
+    expert from slot 2."""
+    import numpy as np
+
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.distributed import compression as cmp
+    from repro_torch.serving import engine as E
+
+    args = serve.build_parser().parse_args(
+        SERVE_ARGS + ["--host-cache-dtype", tier])
+    cfg = serve.config_from_args(args)
+    n, max_seq = GRAFT_LEN, GRAFT_LEN + 64
+    rng = np.random.default_rng(args.seed + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                           device=dev)
+    t0 = time.perf_counter()
+    logits, donor = E.ess_prefill(params, cfg, toks,
+                                  torch.arange(n, device=dev)[None], max_seq,
+                                  prefill_chunk=PREFILL_CHUNK,
+                                  last_logits_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    fresh = LC.init_ess_caches(cfg, 4, max_seq, device=dev)
+    t0 = time.perf_counter()
+    grafted, counts = counted(lambda: LC.graft_slot(fresh, 2, donor, n))
+    graft_ms = 1e3 * (time.perf_counter() - t0)
+
+    got = LC.slot_latents(grafted, 2)[:, :n]
+    want = LC.slot_latents(donor, 0)[:, :n]
+    if tier != "bf16":
+        want = cmp.dequantize_rows(*cmp.quantize_rows(
+            want, grafted.host_latent.dtype), torch.bfloat16)
+    torch.cuda.synchronize()
+    require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+            f"graft {tier}: slot 2's rows differ from the donor's")
+
+    # the donor's state copied verbatim into slot 2 of a second cache
+    direct = LC.init_ess_caches(cfg, 4, max_seq, device=dev)
+    NB = LC.num_blocks(cfg, max_seq)
+    for dst, src in ((direct.host_latent, donor.host_latent),
+                     (direct.host_scales, donor.host_scales)):
+        if dst is not None:
+            dst[:, 2 * NB:3 * NB] = src[:, :NB]
+    for full, one in zip(direct.ikeys, donor.ikeys):
+        full[2] = one[0]
+    for full, one in zip(direct.pools, donor.pools):
+        LC.graft_pool_into(full, one, 2)
+    lens = direct.lens.clone()
+    lens[2] = n
+    direct = direct._replace(lens=lens)
+
+    tok = logits[:, -1].argmax(-1)                               # [1]
+    toks4 = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    pos4 = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    toks4[2, 0], pos4[2, 0] = tok[0], n
+    live = torch.tensor([False, False, True, False], device=dev)
+    lg = E.ess_decode(params, cfg, toks4, pos4, grafted,
+                      slot_mask=live).logits[2, 0].float()
+    ld = E.ess_decode(params, cfg, toks4, pos4, direct,
+                      slot_mask=live).logits[2, 0].float()
+    l1 = E.ess_decode(params, cfg, tok[:, None], pos4[2:3],
+                      donor).logits[0, 0].float()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(lg).all()), f"graft {tier}: non-finite")
+    torch.testing.assert_close(lg, ld, rtol=5e-2, atol=5e-2)
+    require(int(lg.argmax()) == int(ld.argmax()),
+            f"graft {tier}: greedy token differs from the verbatim slot's")
+    return (f"donor prefill {n} tokens {prefill_s:.2f} s, tier "
+            f"{LC.tier_nbytes(donor)} bytes; graft_slot {graft_ms:.2f} ms; "
+            f"slot rows equal to the donor's"
+            f"{'' if tier == 'bf16' else ' after dequant -> requant'}; "
+            f"decode step vs the verbatim slot: max |dlogit| "
+            f"{float((lg - ld).abs().max()):.4g}, same greedy token; vs "
+            f"the donor's own batch-1 step (information): max |dlogit| "
+            f"{float((lg - l1).abs().max()):.4g}, greedy token "
+            f"{'equal' if int(lg.argmax()) == int(l1.argmax()) else 'differs'}"
+            ), counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         return fail("run from a checkout: src/repro_torch is missing")
@@ -341,38 +549,92 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {r['library_ms']}, max err "
               f"{r['max_abs_err']:.3g}  [{card}]", flush=True)
+    for qname, d in records["gather_rows_dequant"]["detail"].items():
+        print(f"  gather_rows_dequant[{qname}]: kernel {d['ms']:.4f} ms, "
+              f"plain {d['plain_ms']:.4f} ms; the same rows' payload alone "
+              f"by gather_rows {d['payload_ms']:.4f} ms  [{card}]",
+              flush=True)
     # 4. small input against the CPU plain path
     err = check_small(torch, dev)
     print(f"small: smoke config fp32 card vs CPU, max logit diff {err:.3g}",
           flush=True)
-    # 5. serve
-    counted = {"gather_rows": gops.gather_rows,
+    # 5. serve (bf16 tier), 6. quant serve (int8 tier), 7. graft: each
+    #    path runs with every count set to 0 just before it and read just
+    #    after; a kernel's "launches" is the count of the path it carries
+    kernels = {"gather_rows": gops.gather_rows,
+               "gather_rows_dequant": gops.gather_rows_dequant,
+               "gather_pages": gops.gather_pages,
+               "gather_pages_dequant": gops.gather_pages_dequant,
                "scatter_rows": gops.scatter_rows,
                "indexer_scores": iops.indexer_scores,
                "sparse_mla_partial": sops.partial_attend}
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, k in kernels.items()}
+
+    def require_launched(counts, names, phase):
+        for name in names:
+            require(counts[name] > 0,
+                    f"{name} was not launched by the {phase} run")
+
     args = serve.build_parser().parse_args(SERVE_ARGS)
     print("serve: deepseek-v32-exp-ess at full width; cuts: num_layers "
           "61 -> 4 (3 dense + 1 MoE), mtp_depth 1 -> 0", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counted.values():
-        fn.launches = 0
-    out = serve.run(args)
-    torch.cuda.synchronize()
-    for name, fn in counted.items():
-        records[name]["launches"] = fn.launches
+    out, n = counted(lambda: serve.run(args))
+    for name in ("gather_rows", "scatter_rows", "indexer_scores",
+                 "sparse_mla_partial"):
+        records[name]["launches"] = n[name]
     res = out["result"]
     print(f"serve: {serve.report(out)}  [{card}]", flush=True)
     print(f"serve: init {out['init_s']:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches "
-          + ", ".join(f"{k} {v['launches']}" for k, v in records.items()),
-          flush=True)
+          + ", ".join(f"{k} {v}" for k, v in n.items()), flush=True)
     require(res.tokens.shape == (args.requests, args.new_tokens),
             f"tokens {res.tokens.shape}")
     require(res.logits_finite, "non-finite logits")
-    for name, r in records.items():
-        require(r["launches"] > 0, f"{name} was not launched by the serve run")
+    require_launched(n, ("gather_rows", "scatter_rows", "indexer_scores",
+                         "sparse_mla_partial"), "serve")
     require(res.misses.sum() > 0, "decode rounds read nothing from the tier")
     require(res.evicted > 0, "the pool never evicted")
+    params, bf16_tokens = out["params"], res.tokens
+    del out, res
+
+    # 6. the same serve with an int8 host tier, on the same weights
+    qargs = serve.build_parser().parse_args(
+        SERVE_ARGS + ["--host-cache-dtype", "int8"])
+    torch.cuda.reset_peak_memory_stats()
+    out, n = counted(lambda: serve.run(qargs, params=params))
+    records["gather_rows_dequant"]["launches"] = n["gather_rows_dequant"]
+    res = out["result"]
+    agree = int((res.tokens == bf16_tokens).sum())
+    print(f"quant serve: {serve.report(out)}  [{card}]", flush=True)
+    print(f"quant serve: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, greedy "
+          f"tokens equal to the bf16 run {agree}/{res.tokens.size} (for "
+          f"information), launches "
+          + ", ".join(f"{k} {v}" for k, v in n.items()), flush=True)
+    require(res.logits_finite, "quant serve: non-finite logits")
+    require(res.misses.sum() > 0, "quant serve: no tier reads")
+    require(res.evicted > 0, "quant serve: the pool never evicted")
+    require_launched(n, ("gather_rows_dequant", "scatter_rows",
+                         "indexer_scores", "sparse_mla_partial"),
+                     "quant serve")
+    require(n["gather_rows"] == 0, "quant serve read the tier unquantized")
+    del out, res
+
+    # 7. graft a batch-1 donor prefill into slot 2 of a fresh 4-slot cache
+    for tier in ("bf16", "int8"):
+        gr, n = check_graft(torch, dev, serve, params, tier, counted)
+        page_kernel = "gather_pages" if tier == "bf16" \
+            else "gather_pages_dequant"
+        records[page_kernel]["launches"] = n[page_kernel]
+        print(f"graft {tier}: {gr}  [{card}]", flush=True)
+        require_launched(n, (page_kernel, "scatter_rows"), f"graft {tier}")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,7 +4,10 @@ host tier + device pools + indexer cache.
 * ``host_latent`` — the **Total Memory Pool**, a CPU tensor, **pinned**
   when the caches live on the card (the UVA kernels read and write it
   there).  Paged (default with ``offload_kv``): ``[L, NP, R, D]`` plus
-  block tables ``[B, NB]``; dense: ``[L, B, max_seq, D]``.
+  block tables ``[B, NB]``; dense: ``[L, B, max_seq, D]``.  Its payload
+  is bf16 (the param dtype) or, with ``host_cache_dtype`` int8 / fp8,
+  one byte per value beside ``host_scales`` (``[L, NP, R, 1]`` /
+  ``[L, B, max_seq, 1]`` f16, one scale per row, pinned beside it).
 * ``ikeys`` — per-layer ``[B, S, Di]`` Indexer-Cache tensors on the device,
   never offloaded.
 * ``pools`` — per-layer :class:`repro_torch.core.lru_pool.PoolState`, the
@@ -23,6 +26,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
+from repro_torch.core import offload
+from repro_torch.distributed import compression as cmp
+from repro_torch.kernels.gather_cache import ops as gops
+from repro_torch.models.params import array_to_torch
 
 
 class ESSCaches(NamedTuple):
@@ -31,7 +38,9 @@ class ESSCaches(NamedTuple):
     ikeys: list                        # L x [B, S, Di]
     pools: list                        # L x PoolState
     block_tables: Optional[torch.Tensor] = None   # [B, NB] (paged only)
-    host_scales: Optional[torch.Tensor] = None    # quantized tier: not ported
+    # quantized tier: per-row f16 scales, paged [L,NP,R,1] | dense
+    # [L,B,S,1], in the same memory as host_latent (None = raw tier)
+    host_scales: Optional[torch.Tensor] = None
 
 
 def pool_entries(cfg: ArchConfig, max_seq: int) -> int:
@@ -48,20 +57,47 @@ def num_blocks(cfg: ArchConfig, max_seq: int) -> int:
     return -(-max_seq // cfg.ess.host_page_rows)
 
 
+def pages_for_len(cfg: ArchConfig, n_rows: int) -> int:
+    """Host pages a sequence of ``n_rows`` latent rows pins."""
+    return -(-n_rows // cfg.ess.host_page_rows)
+
+
+def host_storage_dtype(cfg: ArchConfig, dtype=torch.bfloat16):
+    """(payload dtype, scale dtype | None) of the host latent tier."""
+    name = cfg.ess.host_cache_dtype
+    if name == "bf16":
+        return dtype, None
+    if name not in cmp.CACHE_QUANT_DTYPES:
+        raise ValueError(f"unknown host_cache_dtype {name!r}; have "
+                         f"bf16 | {sorted(cmp.CACHE_QUANT_DTYPES)}")
+    return cmp.CACHE_QUANT_DTYPES[name], cmp.SCALE_DTYPE
+
+
+def host_row_bytes(cfg: ArchConfig, dtype=torch.bfloat16) -> int:
+    """Host bytes one latent row pins (payload + per-row scale): 1152 for
+    bf16, 578 for int8 / fp8 at latent width 576."""
+    qdt, sdt = host_storage_dtype(cfg, dtype)
+    nbytes = cfg.mla.latent_dim * qdt.itemsize
+    return nbytes + (sdt.itemsize if sdt is not None else 0)
+
+
+def host_page_bytes(cfg: ArchConfig, dtype=torch.bfloat16) -> int:
+    """Host bytes one page pins across all layers."""
+    return cfg.num_layers * cfg.ess.host_page_rows * host_row_bytes(
+        cfg, dtype)
+
+
 def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                     *, device=None) -> ESSCaches:
     """Decode caches for ``batch`` slots of up to ``max_seq`` tokens on
     ``device`` (the card by default; raises without one unless
-    ``device="cpu"``).  The host tier stays on the CPU, pinned for a CUDA
-    device.  Paged: ``batch * NB`` pages, slot ``b`` mapped onto pages
-    ``[b*NB, (b+1)*NB)`` (the reference's ``map_slots=True`` layout for
-    fixed-batch callers)."""
+    ``device="cpu"``).  The host tier (and a quantized tier's scale plane)
+    stays on the CPU, pinned for a CUDA device.  Paged: ``batch * NB``
+    pages, slot ``b`` mapped onto pages ``[b*NB, (b+1)*NB)`` (the
+    reference's ``map_slots=True`` layout for fixed-batch callers)."""
     dev = resolve_device(device)
-    if cfg.ess.host_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"host_cache_dtype={cfg.ess.host_cache_dtype!r}: only the bf16 "
-            f"tier is ported")
     dtype = cfg.param_dtype if dtype is None else dtype
+    qdt, sdt = host_storage_dtype(cfg, dtype)
     Lh, D, Di = cfg.num_layers, cfg.mla.latent_dim, cfg.dsa.index_dim
     P = pool_entries(cfg, max_seq)
     pin = dev.type == "cuda"
@@ -70,20 +106,128 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
     if uses_paged_host(cfg):
         R = cfg.ess.host_page_rows
         NB = num_blocks(cfg, max_seq)
-        host = torch.zeros((Lh, batch * NB, R, D), dtype=dtype,
-                           pin_memory=pin)
+        lead = (Lh, batch * NB, R)
         block_tables = torch.arange(batch * NB, dtype=torch.int64,
                                     device=dev).view(batch, NB)
     else:
-        host = torch.zeros((Lh, batch, max_seq, D), dtype=dtype,
-                           pin_memory=pin and cfg.ess.offload_kv)
-        if not cfg.ess.offload_kv:
-            host = host.to(dev)
+        lead = (Lh, batch, max_seq)
+        pin = pin and cfg.ess.offload_kv
+
+    def tier(width, dt):
+        t = torch.zeros(lead + (width,), dtype=dt, pin_memory=pin)
+        return t if cfg.ess.offload_kv else t.to(dev)
+
     return ESSCaches(
         lens=torch.zeros((batch,), dtype=torch.int64, device=dev),
-        host_latent=host,
+        host_latent=tier(D, qdt),
         ikeys=[torch.zeros((batch, max_seq, Di), dtype=dtype, device=dev)
                for _ in range(Lh)],
         pools=[LP.init_pool(batch, P, max_seq, D, dtype, dev)
                for _ in range(Lh)],
-        block_tables=block_tables)
+        block_tables=block_tables,
+        host_scales=None if sdt is None else tier(1, sdt))
+
+
+def from_jax_caches(jc, device="cpu") -> ESSCaches:
+    """A reference ``ESSCaches`` with numpy leaves (``jax.tree.map(
+    np.asarray, caches)``; fp8 payload and f16 scales included) -> the
+    port's, bit for bit.  Indices become int64; the host tier (and scale
+    plane) stays on the CPU, pinned when ``device`` is the card; the rest
+    goes to ``device``.  Pools start with a zero eviction counter."""
+    dev = torch.device(device)
+
+    def tier(a):
+        if a is None:
+            return None
+        t = array_to_torch(a)
+        return t.pin_memory() if dev.type == "cuda" else t
+
+    def i64(a):
+        return array_to_torch(a, dev).long()
+    pools = [LP.PoolState(array_to_torch(p.data, dev), i64(p.ids),
+                          i64(p.last_use), i64(p.slot_of), i64(p.step),
+                          torch.zeros(p.ids.shape[0], dtype=torch.int64,
+                                      device=dev))
+             for p in jc.pools]
+    return ESSCaches(
+        lens=i64(jc.lens), host_latent=tier(jc.host_latent),
+        ikeys=[array_to_torch(k, dev) for k in jc.ikeys], pools=pools,
+        block_tables=None if jc.block_tables is None
+        else i64(jc.block_tables),
+        host_scales=tier(jc.host_scales))
+
+
+def tier_nbytes(caches: ESSCaches) -> int:
+    """Bytes the host tier holds: payload plus scale plane."""
+    return cmp.wire_nbytes(caches.host_latent, caches.host_scales)
+
+
+# ---------------------------------------------------------------------------
+# Paged <-> packed views, and the admission graft
+# ---------------------------------------------------------------------------
+
+def slot_latents(caches: ESSCaches, slot: int) -> torch.Tensor:
+    """All host-tier latent rows of one slot, packed ``[L, NB*R, D]`` (paged)
+    or ``[L, max_seq, D]`` (dense), on the caches' device; bf16 for a
+    quantized tier.  Rows of unmapped pages are zero.
+
+    On the card the paged tier is read by the page-gather kernels, one
+    launch for all layers (the fused dequant variant for a quantized tier);
+    the dense tier by the row-gather kernels over the slot's rows."""
+    host, scales = caches.host_latent, caches.host_scales
+    dev = caches.lens.device
+    if caches.block_tables is None:
+        Lh, Bt, S, D = host.shape
+        ids = ((torch.arange(Lh, device=dev)[:, None] * Bt + slot) * S
+               + torch.arange(S, device=dev)[None])               # [L,S]
+        if scales is None:
+            return gops.gather_rows(host.view(-1, D), ids)
+        return gops.gather_rows_dequant(host.view(-1, D), scales.view(-1, 1),
+                                        ids, torch.bfloat16)
+    Lh, NP, R, D = host.shape
+    bt = caches.block_tables[slot]                                # [NB]
+    safe = bt.clamp(0, NP - 1)
+    if scales is None:
+        out = gops.gather_pages(host.view(Lh, NP * R, D), safe, R)
+    else:
+        out = gops.gather_pages_dequant(host.view(Lh, NP * R, D),
+                                        scales.view(Lh, NP * R, 1), safe, R,
+                                        torch.bfloat16)
+    valid = (bt >= 0).repeat_interleave(R)                        # [NB*R]
+    return torch.where(valid[None, :, None], out, torch.zeros_like(out))
+
+
+def graft_pool_into(full: LP.PoolState, one: LP.PoolState,
+                    slot: int) -> LP.PoolState:
+    """Install a batch-1 pool (a donor prefill) as ``slot`` of a shared
+    pool, in place.  The donor's LRU stamps are clamped to the shared
+    pool's clock so its entries do not look hotter than resident ones."""
+    lu = torch.minimum(one.last_use[0], full.step)
+    full.data[slot] = one.data[0].to(full.data.dtype)
+    full.ids[slot] = one.ids[0]
+    full.last_use[slot] = torch.where(one.last_use[0] < 0, -1, lu)
+    full.slot_of[slot] = one.slot_of[0]
+    return full
+
+
+def graft_slot(caches: ESSCaches, slot: int, donor: ESSCaches,
+               n_rows: int) -> ESSCaches:
+    """Copy ``donor``'s sequence 0 (a batch-1 prefill) into ``slot``.
+
+    Writes the donor's first ``n_rows`` host-tier rows through the target
+    slot's block table (paged) or batch row (dense), requantized for a
+    quantized target, and grafts the indexer cache and each layer's pool.
+    The tier, indexer cache and pools change in place; the returned caches
+    carry the new ``lens``."""
+    rows = slot_latents(donor, 0)[:, :n_rows]
+    ids = torch.arange(n_rows, device=caches.lens.device)[None]   # [1, n]
+    offload.scatter_tier_rows_stacked(
+        caches.host_latent, caches.host_scales, ids, rows[:, None],
+        slot_mask=None, batch_offset=slot, block_table=caches.block_tables)
+    for full, one in zip(caches.ikeys, donor.ikeys):
+        full[slot] = one[0].to(full.dtype)
+    for full, one in zip(caches.pools, donor.pools):
+        graft_pool_into(full, one, slot)
+    lens = caches.lens.clone()
+    lens[slot] = n_rows
+    return caches._replace(lens=lens)

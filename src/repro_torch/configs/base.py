@@ -58,7 +58,7 @@ class ESSOptions:
     pool_min_entries: int = 6400       # paper: ">= 6.4K" recommendation
     paged_host: bool = True            # global page pool + block tables
     host_page_rows: int = 16           # latent rows per host page
-    host_cache_dtype: str = "bf16"     # only "bf16" is ported
+    host_cache_dtype: str = "bf16"     # bf16 | int8 | fp8 (e4m3)
 
 
 @dataclasses.dataclass(frozen=True)

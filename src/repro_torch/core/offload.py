@@ -1,5 +1,5 @@
 """Host tier of the latent cache and the FlashTrans transfers (paper
-section 3.1; counterpart of ``repro.core.offload``, bf16 tier).
+section 3.1; counterpart of ``repro.core.offload``).
 
 On the card the tier is a **pinned** CPU tensor (this replaces the
 reference's ``pinned_host`` memory kind).  Both directions run as CUDA
@@ -14,14 +14,18 @@ kernels on the caller's stream through the tier's UVA mapping:
 
 The scatters update the tier **in place** and return it.  Two layouts, as
 in the reference: dense ``[L,B,S,D]`` and paged ``[L,NP,R,D]`` with block
-tables ``[B,NB]``.  A quantized tier (``host_scales``) is not ported yet
-and raises ``NotImplementedError``.
+tables ``[B,NB]``.  A quantized tier (``host_scales``, int8/fp8 payload
+plus an f16 scale per row) moves compressed both ways:
+:func:`gather_tier_rows` is one fused gather-dequant launch that widens
+only the fetched rows, and :func:`scatter_tier_rows` quantizes at append
+width on the device before writing payload and scales.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import compression as cmp
 from repro_torch.kernels.gather_cache import ops as gops
 
 
@@ -63,6 +67,19 @@ def _dense_flat_ids(ids: torch.Tensor, S: int, B_total: int,
     return torch.where(valid, b * S + ids.clamp(0, S - 1), -1)
 
 
+def _gather_flat_ids(host_cache: torch.Tensor, ids: torch.Tensor,
+                     batch_offset: int, block_table: torch.Tensor | None
+                     ) -> torch.Tensor:
+    """Positions ids [B,M] -> rows of one layer's flat tier view (-1 where
+    padding or unmapped)."""
+    if block_table is not None:
+        R, NP = host_cache.shape[-2], host_cache.shape[-3]
+        phys, valid = _paged_phys(ids, block_table, R, NP, batch_offset)
+        return torch.where(valid, phys, -1)
+    S, Bt = host_cache.shape[-2], host_cache.shape[-3]
+    return _dense_flat_ids(ids, S, Bt, batch_offset, ids >= 0)
+
+
 def host_gather_rows(host_cache: torch.Tensor, ids: torch.Tensor, *,
                      layer: int = 0, batch_offset: int = 0,
                      block_table: torch.Tensor | None = None
@@ -72,13 +89,7 @@ def host_gather_rows(host_cache: torch.Tensor, ids: torch.Tensor, *,
 
     dense: host_cache [B,S,D] / [L,B,S,D]; paged: [NP,R,D] / [L,NP,R,D]
     with ``block_table``."""
-    if block_table is not None:
-        R, NP = host_cache.shape[-2], host_cache.shape[-3]
-        phys, valid = _paged_phys(ids, block_table, R, NP, batch_offset)
-        flat_ids = torch.where(valid, phys, -1)
-    else:
-        S, Bt = host_cache.shape[-2], host_cache.shape[-3]
-        flat_ids = _dense_flat_ids(ids, S, Bt, batch_offset, ids >= 0)
+    flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
     return gops.gather_rows(_layer_flat(host_cache, layer), flat_ids)
 
 
@@ -139,13 +150,22 @@ def gather_tier_rows(host_cache: torch.Tensor,
                      layer: int = 0, batch_offset: int = 0,
                      block_table: torch.Tensor | None = None,
                      out_dtype=None) -> torch.Tensor:
-    """Tier fetch, ids [B,M] -> rows [B,M,D] (bf16 tier only)."""
-    if host_scales is not None:
-        raise NotImplementedError("quantized host tier is not ported yet")
-    rows = host_gather_rows(host_cache, ids, layer=layer,
-                            batch_offset=batch_offset,
-                            block_table=block_table)
-    return rows if out_dtype is None else rows.to(out_dtype)
+    """Tier fetch, ids [B,M] -> rows [B,M,D] on ``ids.device``.
+
+    ``host_scales is None`` is the raw tier (:func:`host_gather_rows`).  A
+    quantized tier takes one fused gather-dequant launch over payload and
+    scales and returns ``out_dtype`` rows, **bf16** when ``out_dtype`` is
+    None (the reference's decode miss fetch passes none, whatever the
+    param dtype).  Padding and unmapped rows are exact zeros either way."""
+    if host_scales is None:
+        rows = host_gather_rows(host_cache, ids, layer=layer,
+                                batch_offset=batch_offset,
+                                block_table=block_table)
+        return rows if out_dtype is None else rows.to(out_dtype)
+    flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
+    return gops.gather_rows_dequant(
+        _layer_flat(host_cache, layer), _layer_flat(host_scales, layer),
+        flat_ids, torch.bfloat16 if out_dtype is None else out_dtype)
 
 
 def scatter_tier_rows(host_cache: torch.Tensor,
@@ -154,10 +174,37 @@ def scatter_tier_rows(host_cache: torch.Tensor,
                       slot_mask: torch.Tensor | None, layer: int = 0,
                       batch_offset: int = 0,
                       block_table: torch.Tensor | None = None
-                      ) -> tuple[torch.Tensor, None]:
-    """Tier write-back (bf16 tier only), in place; returns (tier, None)."""
-    if host_scales is not None:
-        raise NotImplementedError("quantized host tier is not ported yet")
-    return host_scatter_rows(host_cache, ids, rows, slot_mask=slot_mask,
-                             layer=layer, batch_offset=batch_offset,
-                             block_table=block_table), None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Tier write-back of rows [B,Q,D] at positions ids [B,Q], in place;
+    returns ``(tier, scales)``.  A quantized tier quantizes the rows on
+    their device at append width, then writes the payload and the scale
+    plane, so only compressed bytes cross the link."""
+    kw = dict(slot_mask=slot_mask, layer=layer, batch_offset=batch_offset,
+              block_table=block_table)
+    if host_scales is None:
+        return host_scatter_rows(host_cache, ids, rows, **kw), None
+    q, s = cmp.quantize_rows(rows, host_cache.dtype)
+    host_scatter_rows(host_cache, ids, q, **kw)
+    host_scatter_rows(host_scales, ids, s, **kw)
+    return host_cache, host_scales
+
+
+def scatter_tier_rows_stacked(host_cache: torch.Tensor,
+                              host_scales: torch.Tensor | None,
+                              ids: torch.Tensor, rows: torch.Tensor, *,
+                              slot_mask: torch.Tensor | None,
+                              batch_offset: int = 0,
+                              block_table: torch.Tensor | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """All-layer write-back (admission graft): rows [L,B,Q,D] at the same
+    positions ids [B,Q] in every layer, quantized per row on their device
+    for a quantized tier; one stacked payload write and one stacked scale
+    write.  In place; returns ``(tier, scales)``."""
+    kw = dict(slot_mask=slot_mask, batch_offset=batch_offset,
+              block_table=block_table)
+    if host_scales is None:
+        return host_scatter_rows_stacked(host_cache, ids, rows, **kw), None
+    q, s = cmp.quantize_rows(rows, host_cache.dtype)
+    host_scatter_rows_stacked(host_cache, ids, q, **kw)
+    host_scatter_rows_stacked(host_scales, ids, s, **kw)
+    return host_cache, host_scales

@@ -7,9 +7,11 @@ counterpart of ``repro.core.overlap``; ``dba`` is not ported yet).
   unnormalized partials merge exactly.
 
 Both attends run the sparse-MLA partial kernel, the fetch runs the UVA
-row-gather kernel, and the indexer scores run the indexer kernel.  The
-pool is updated in place.  Q>1 (draft verification) flattens the per-query
-top-k into one pool lookup and keeps each query causal.
+row-gather kernel (its fused dequant variant for a quantized tier, which
+returns bf16 rows as the reference's does), and the indexer scores run
+the indexer kernel.  The pool is updated in place; admission casts the
+fetched rows to the pool's dtype.  Q>1 (draft verification) flattens the
+per-query top-k into one pool lookup and keeps each query causal.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class ESSLayerState(NamedTuple):
     layer: int = 0                # layer index into a stacked tier
     batch_offset: int = 0         # row offset into the tier's batch
     block_table: torch.Tensor | None = None   # [B_total, NB] (paged)
-    host_scales: torch.Tensor | None = None   # quantized tier: not ported
+    host_scales: torch.Tensor | None = None   # quantized tier: row scales
 
 
 class ESSStats(NamedTuple):
@@ -43,8 +45,11 @@ class ESSStats(NamedTuple):
 def _attend_rows(q_comb: torch.Tensor, rows: torch.Tensor,
                  valid: torch.Tensor, cfg: ArchConfig) -> M.Partial:
     """q [B,Q,H,D] vs per-query rows [B,Q,K,D] (or shared [B,K,D]); the
-    sparse-MLA kernel (fp32 math, as the reference's ``use_kernel=True``)."""
-    return sk.partial_attend(q_comb, rows, valid, M.mla_scale(cfg),
+    sparse-MLA kernel (fp32 math, as the reference's ``use_kernel=True``).
+    Rows of another dtype (a quantized tier's bf16 misses under fp32
+    params) widen to the query's, as the reference's promotion does."""
+    return sk.partial_attend(q_comb, rows.to(q_comb.dtype), valid,
+                             M.mla_scale(cfg),
                              cfg.mla.kv_lora_rank)
 
 

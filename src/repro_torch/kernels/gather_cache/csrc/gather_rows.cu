@@ -1,28 +1,50 @@
-// FlashTrans row gather over UVA (paper section 3.1) and its write-back twin.
+// FlashTrans row and page gathers over UVA (paper section 3.1), their
+// fused int8/fp8 dequant variants, and the write-back scatter.
 //
-// Replaces: src/repro/kernels/gather_cache/gather_cache.py gather_rows_kernel
-// (the Pallas row gather, one row DMA per grid step), which the reference's
-// serve path reaches through offload.host_gather_rows.  On the H100 the
-// latent tier lives in pinned host memory; this kernel dereferences the
-// tier's UVA device pointer directly, so the scattered 1152-byte rows cross
-// PCIe as the warp's own 16-byte loads and land packed in device memory:
-// no host-side gather and no staging copy.
+// Replaces, in src/repro/kernels/gather_cache/gather_cache.py:
+//   gather_rows_kernel               -> gather_rows_kernel
+//   gather_rows_dequant_kernel       -> gather_rows_dequant_kernel
+//   gather_row_blocks_kernel         -> gather_pages_kernel
+//   gather_row_blocks_dequant_kernel -> gather_pages_dequant_kernel
+// The Pallas kernels move one row (or page) per grid step.  On the H100
+// the latent tier lives in pinned host memory; these kernels dereference
+// the tier's UVA device pointer directly, so the scattered rows cross PCIe
+// as the threads' own 16-byte loads and land packed in device memory: no
+// host-side gather and no staging copy.
 //
 // Bound: bytes.  Each row is read once from the tier and written once to
-// device memory; no arithmetic.  Over PCIe the host link, not HBM, is the
-// limit, so the design keeps as many independent 16-byte reads in flight
-// as it can: one warp per row, each lane issues up to four loads before
-// its first store, and a 256-thread block serves 8 rows.
+// device memory; the dequant is one multiply per element.  Over PCIe the
+// host link, not HBM, is the limit, so each design keeps many independent
+// 16-byte reads in flight:
+// * rows: one warp per row, each lane keeps up to four loads in flight
+//   before its first store, a 256-thread block serves 8 rows.  The
+//   dequant variant reads the row's f16 scale with one lane and
+//   broadcasts it by shuffle; that 2-byte read is a separate small PCIe
+//   read per row, beside the row's 576 payload bytes.
+// * pages: one 256-thread block per (layer, page), so one launch covers
+//   every layer and a 64-row page (72 KB in bf16) is spread over 256
+//   threads instead of one warp.  The dequant variant first stages the
+//   page's scales in shared memory (one coalesced read of R x 2 bytes).
+// The widening is exact (int8 and e4m3 both fit f16/fp32), the product is
+// one fp32 multiply and the bf16 result is rounded to nearest even, so the
+// output equals the plain PyTorch version (q.float() * s.float()) bit for
+// bit.
 //
-// scatter_rows is the device-side write of new latent rows into the tier
-// through the same mapping (it replaces the XLA host-compute scatter of
-// offload.host_scatter_rows, not a Pallas kernel).  It runs on the
+// scatter_rows is the device-side write of new rows into the tier through
+// the same mapping (it replaces the XLA host-compute scatter of
+// offload.host_scatter_rows, not a Pallas kernel).  Rows that are 16-byte
+// multiples go one warp per row; narrower rows (the 2-byte scale plane of
+// a quantized tier) go one thread per 1/2/4/8-byte unit.  It runs on the
 // caller's stream, so a later gather on that stream sees the rows.
 //
 // Index semantics follow the reference: gather ids below 0 give zero rows,
-// ids past the end read the last row (jnp.clip); scatter targets outside
+// ids past the end read the last row (jnp.clip); page ids are clipped to
+// [0, pages-1] (the caller zeroes unmapped pages); scatter targets outside
 // [0, n) are dropped (mode="drop").
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +111,178 @@ __global__ void scatter_rows_kernel(uint4* __restrict__ dst,
   }
 }
 
+template <typename U>
+__global__ void scatter_units_kernel(U* __restrict__ dst,
+                                     const int64_t* __restrict__ tgt,
+                                     const U* __restrict__ rows, int64_t m,
+                                     int64_t n, int64_t units_per_row) {
+  const int64_t total = m * units_per_row;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = i / units_per_row;
+    const int64_t t = tgt[r];
+    if (t < 0 || t >= n) continue;
+    dst[t * units_per_row + (i - r * units_per_row)] = rows[i];
+  }
+}
+
+// ---- dequant helpers ---------------------------------------------------
+
+struct Int8Q {};
+struct Fp8Q {};
+
+template <typename Q>
+__device__ __forceinline__ float widen(uint8_t b);
+
+template <>
+__device__ __forceinline__ float widen<Int8Q>(uint8_t b) {
+  return (float)(int8_t)b;
+}
+
+template <>
+__device__ __forceinline__ float widen<Fp8Q>(uint8_t b) {
+  const __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b,
+                                               __NV_E4M3);
+  return __half2float(__half(h));
+}
+
+// 16 payload bytes times one scale -> 16 outputs (64 B fp32 / 32 B bf16)
+template <typename Q, typename O>
+__device__ __forceinline__ void dequant16(const uint4 in, const float s,
+                                          O* __restrict__ out) {
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&in);
+  if constexpr (sizeof(O) == 4) {
+    float4* o = reinterpret_cast<float4*>(out);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[k] = make_float4(widen<Q>(b[4 * k]) * s, widen<Q>(b[4 * k + 1]) * s,
+                         widen<Q>(b[4 * k + 2]) * s,
+                         widen<Q>(b[4 * k + 3]) * s);
+  } else {
+    uint4 w[2];
+    __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      wb[k] = __float2bfloat16_rn(widen<Q>(b[k]) * s);
+    uint4* o = reinterpret_cast<uint4*>(out);
+    o[0] = w[0];
+    o[1] = w[1];
+  }
+}
+
+// out[i] = dequant(src[clip(ids[i])], scales[clip(ids[i])]); zero rows where
+// ids[i] < 0.  d is a multiple of 16 (payload row = d bytes).
+template <typename Q, typename O>
+__global__ void gather_rows_dequant_kernel(const uint4* __restrict__ src,
+                                           const __half* __restrict__ scales,
+                                           const int64_t* __restrict__ ids,
+                                           O* __restrict__ out, int64_t m,
+                                           int64_t s, int d) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= m) return;
+  const int lane = threadIdx.x & 31;
+  int64_t id = ids[row];
+  O* dst = out + row * d;
+  if (id < 0) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    const int n4 = d * (int)sizeof(O) / 16;
+    for (int j = lane; j < n4; j += 32) d4[j] = z;
+    return;
+  }
+  if (id >= s) id = s - 1;
+  float sc = 0.f;
+  if (lane == 0) sc = __half2float(scales[id]);
+  sc = __shfl_sync(0xffffffffu, sc, 0);
+  const int vpr = d / 16;
+  const uint4* srow = src + id * vpr;
+  for (int base = 0; base < vpr; base += 32 * kUnroll) {
+    uint4 buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + u * 32 + lane;
+      if (j < vpr) buf[u] = srow[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + u * 32 + lane;
+      if (j < vpr) dequant16<Q, O>(buf[u], sc, dst + j * 16);
+    }
+  }
+}
+
+constexpr int kPageThreads = 256;
+
+// One block per (page i, layer l): out[l, i*R:(i+1)*R] = src[l, page*R:...]
+// with page = clip(ids[l, i], 0, npages-1).  vpp = 16-byte vectors per page.
+__global__ void gather_pages_kernel(const uint4* __restrict__ src,
+                                    const int64_t* __restrict__ ids,
+                                    uint4* __restrict__ out, int64_t nb,
+                                    int64_t npages, int64_t vpp) {
+  const int64_t i = blockIdx.x, l = blockIdx.y;
+  int64_t page = ids[l * nb + i];
+  page = page < 0 ? 0 : (page >= npages ? npages - 1 : page);
+  const uint4* sp = src + (l * npages + page) * vpp;
+  uint4* dp = out + (l * nb + i) * vpp;
+  for (int64_t base = 0; base < vpp; base += kPageThreads * kUnroll) {
+    uint4 buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = base + u * kPageThreads + threadIdx.x;
+      if (j < vpp) buf[u] = sp[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = base + u * kPageThreads + threadIdx.x;
+      if (j < vpp) dp[j] = buf[u];
+    }
+  }
+}
+
+// gather_pages_kernel with per-row dequant: rows of r payload bytes d, the
+// page's scales staged in shared memory kScaleTile rows at a time.
+constexpr int kScaleTile = 256;
+
+template <typename Q, typename O>
+__global__ void gather_pages_dequant_kernel(const uint4* __restrict__ src,
+                                            const __half* __restrict__ scales,
+                                            const int64_t* __restrict__ ids,
+                                            O* __restrict__ out, int64_t nb,
+                                            int64_t npages, int r, int d) {
+  __shared__ float sc[kScaleTile];
+  const int64_t i = blockIdx.x, l = blockIdx.y;
+  int64_t page = ids[l * nb + i];
+  page = page < 0 ? 0 : (page >= npages ? npages - 1 : page);
+  const int64_t row0 = (l * npages + page) * r;      // first source row
+  const int vpr = d / 16;
+  const uint4* sp = src + row0 * vpr;
+  const __half* ss = scales + row0;
+  O* dp = out + (l * nb + i) * (int64_t)r * d;
+  for (int t0 = 0; t0 < r; t0 += kScaleTile) {
+    const int rows = min(kScaleTile, r - t0);
+    __syncthreads();                   // the previous tile's readers are done
+    if ((int)threadIdx.x < rows)
+      sc[threadIdx.x] = __half2float(ss[t0 + threadIdx.x]);
+    __syncthreads();
+    const int nv = rows * vpr;
+    const uint4* tp = sp + (int64_t)t0 * vpr;
+    O* to = dp + (int64_t)t0 * d;
+    for (int base = 0; base < nv; base += kPageThreads * kUnroll) {
+      uint4 buf[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = base + u * kPageThreads + threadIdx.x;
+        if (j < nv) buf[u] = tp[j];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = base + u * kPageThreads + threadIdx.x;
+        if (j < nv) dequant16<Q, O>(buf[u], sc[j / vpr], to + (int64_t)j * 16);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -115,13 +309,105 @@ int ess_gather_rows(const void* src, const int64_t* ids, void* out,
 }
 
 // dst[tgt[i]] = rows[i] where 0 <= tgt[i] < n; other rows are dropped.
+// Rows of any byte width: 16-byte multiples (with 16-byte aligned bases)
+// go one warp per row, others one thread per 8/4/2/1-byte unit.
 int ess_scatter_rows(void* dst, const int64_t* tgt, const void* rows,
                      int64_t m, int64_t n, int64_t row_bytes, void* stream) {
   if (m == 0) return 0;
-  const int vpr = (int)(row_bytes / 16);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint64_t align = (uint64_t)(uintptr_t)dst | (uint64_t)(uintptr_t)rows |
+                         (uint64_t)row_bytes;
+  if (align % 16 == 0) {
+    const int vpr = (int)(row_bytes / 16);
+    const dim3 grid((unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
+    scatter_rows_kernel<<<grid, kThreads, 0, st>>>(
+        (uint4*)dst, tgt, (const uint4*)rows, m, n, vpr);
+    return (int)cudaGetLastError();
+  }
+  const int unit = align % 8 == 0   ? 8
+                   : align % 4 == 0 ? 4
+                   : align % 2 == 0 ? 2
+                                    : 1;
+  const int64_t upr = row_bytes / unit;
+  const int64_t total = m * upr;
+  int64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 65535) blocks = 65535;
+  const dim3 grid((unsigned)blocks);
+  switch (unit) {
+    case 8:
+      scatter_units_kernel<<<grid, kThreads, 0, st>>>(
+          (uint2*)dst, tgt, (const uint2*)rows, m, n, upr);
+      break;
+    case 4:
+      scatter_units_kernel<<<grid, kThreads, 0, st>>>(
+          (uint32_t*)dst, tgt, (const uint32_t*)rows, m, n, upr);
+      break;
+    case 2:
+      scatter_units_kernel<<<grid, kThreads, 0, st>>>(
+          (uint16_t*)dst, tgt, (const uint16_t*)rows, m, n, upr);
+      break;
+    default:
+      scatter_units_kernel<<<grid, kThreads, 0, st>>>(
+          (uint8_t*)dst, tgt, (const uint8_t*)rows, m, n, upr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[i] = bf16|f32(float(src[c]) * float(scales[c])), c = clip(ids[i]);
+// zero rows where ids[i] < 0.  qkind: 0 int8, 1 e4m3; okind: 0 f32, 1 bf16.
+// d (payload bytes per row) is a multiple of 16.
+int ess_gather_rows_dequant(const void* src, const void* scales,
+                            const int64_t* ids, void* out, int64_t m,
+                            int64_t s, int64_t d, int qkind, int okind,
+                            void* stream) {
+  if (m == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
-  scatter_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (uint4*)dst, tgt, (const uint4*)rows, m, n, vpr);
+  const uint4* sp = (const uint4*)src;
+  const __half* sc = (const __half*)scales;
+#define ESS_GRD(Q, O)                                                        \
+  gather_rows_dequant_kernel<Q, O><<<grid, kThreads, 0, st>>>(sp, sc, ids,   \
+                                                              (O*)out, m, s, \
+                                                              (int)d)
+  if (qkind == 0 && okind == 0) ESS_GRD(Int8Q, float);
+  else if (qkind == 0) ESS_GRD(Int8Q, __nv_bfloat16);
+  else if (okind == 0) ESS_GRD(Fp8Q, float);
+  else ESS_GRD(Fp8Q, __nv_bfloat16);
+#undef ESS_GRD
+  return (int)cudaGetLastError();
+}
+
+// out[l, i] = src[l, clip(ids[l, i])] page by page; src [L, npages, page]
+// and out [L, nb, page], page_bytes a multiple of 16.
+int ess_gather_pages(const void* src, const int64_t* ids, void* out,
+                     int64_t layers, int64_t nb, int64_t npages,
+                     int64_t page_bytes, void* stream) {
+  if (layers == 0 || nb == 0) return 0;
+  const dim3 grid((unsigned)nb, (unsigned)layers);
+  gather_pages_kernel<<<grid, kPageThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)src, ids, (uint4*)out, nb, npages, page_bytes / 16);
+  return (int)cudaGetLastError();
+}
+
+// ess_gather_pages with per-row dequant: src [L, npages*r, d] int8/e4m3,
+// scales [L, npages*r] f16 -> out [L, nb*r, d] f32/bf16 (kinds as above).
+int ess_gather_pages_dequant(const void* src, const void* scales,
+                             const int64_t* ids, void* out, int64_t layers,
+                             int64_t nb, int64_t npages, int64_t r, int64_t d,
+                             int qkind, int okind, void* stream) {
+  if (layers == 0 || nb == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)nb, (unsigned)layers);
+  const uint4* sp = (const uint4*)src;
+  const __half* sc = (const __half*)scales;
+#define ESS_GPD(Q, O)                                                         \
+  gather_pages_dequant_kernel<Q, O><<<grid, kPageThreads, 0, st>>>(           \
+      sp, sc, ids, (O*)out, nb, npages, (int)r, (int)d)
+  if (qkind == 0 && okind == 0) ESS_GPD(Int8Q, float);
+  else if (qkind == 0) ESS_GPD(Int8Q, __nv_bfloat16);
+  else if (okind == 0) ESS_GPD(Fp8Q, float);
+  else ESS_GPD(Fp8Q, __nv_bfloat16);
+#undef ESS_GPD
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Wrappers of the UVA row gather / scatter kernels.
+"""Wrappers of the UVA row / page gather (plain and fused dequant) and
+row scatter kernels.
 
 On CPU tensors they run the plain versions in :mod:`.ref`; on CUDA tensors
 they launch the kernels or raise.  The cache/tier side may be a CUDA
@@ -18,7 +19,11 @@ from repro_torch.kernels.gather_cache import ref
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I = ctypes.c_int
 _READY: set = set()
+# payload and output kinds of the dequant kernels
+_QKIND = {torch.int8: 0, torch.float8_e4m3fn: 1}
+_OKIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib() -> ctypes.CDLL:
@@ -30,6 +35,15 @@ def _lib() -> ctypes.CDLL:
         lib.ess_gather_rows.restype = ctypes.c_int
         lib.ess_scatter_rows.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
         lib.ess_scatter_rows.restype = ctypes.c_int
+        lib.ess_gather_rows_dequant.argtypes = [
+            _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P]
+        lib.ess_gather_rows_dequant.restype = ctypes.c_int
+        lib.ess_gather_pages.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64,
+                                         _P]
+        lib.ess_gather_pages.restype = ctypes.c_int
+        lib.ess_gather_pages_dequant.argtypes = [
+            _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _P]
+        lib.ess_gather_pages_dequant.restype = ctypes.c_int
         _READY.add("gather_cache")
     return lib
 
@@ -51,14 +65,19 @@ def device_pointer(t: torch.Tensor) -> int:
     return dev.value + (t.data_ptr() - base)
 
 
-def _check_rows(t: torch.Tensor, what: str) -> int:
+def _check_rows(t: torch.Tensor, what: str, *, vec16: bool = True) -> int:
     if t.dim() != 2 or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous [N, D] tensor")
     row_bytes = t.shape[1] * t.element_size()
-    if row_bytes % 16 or t.data_ptr() % 16:
+    if vec16 and (row_bytes % 16 or t.data_ptr() % 16):
         raise ValueError(f"{what}: rows must be 16-byte multiples and "
                          f"16-byte aligned (row of {row_bytes} B)")
     return row_bytes
+
+
+def _is_float(dt: torch.dtype) -> bool:
+    """A float dtype that plain casts reach (not a quantized fp8 payload)."""
+    return dt.is_floating_point and dt.itemsize >= 2
 
 
 def _flat_ids(cache: torch.Tensor, ids: torch.Tensor):
@@ -98,13 +117,21 @@ gather_rows.launches = 0
 def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
     """In place: ``dst[tgt[i]] = rows[i]`` for ``0 <= tgt[i] < len(dst)``;
-    other rows drop.  dst [N,D] (CUDA or pinned host), tgt [M], rows [M,D]
-    on the same device as ``tgt``.  Returns ``dst``."""
+    other rows drop.  dst [N,D] (CUDA or pinned host) with rows of any byte
+    width (the 2-byte scale plane included), tgt [M], rows [M,D] on the
+    same device as ``tgt``.  Returns ``dst``.
+
+    Float rows are cast to a float ``dst``; a quantized (integer or fp8)
+    ``dst`` takes only rows of its own dtype, so an unquantized row can
+    never be truncated into the tier."""
+    if rows.dtype != dst.dtype and not _is_float(dst.dtype):
+        raise TypeError(f"scatter_rows: {rows.dtype} rows into a "
+                        f"{dst.dtype} destination; quantize them first")
     if rows.device.type == "cpu":
         return ref.scatter_rows_ref(dst, tgt, rows)
     if rows.device.type != "cuda" or tgt.device != rows.device:
         raise ValueError("scatter_rows: rows and tgt must share a CUDA device")
-    row_bytes = _check_rows(dst, "scatter_rows dst")
+    row_bytes = _check_rows(dst, "scatter_rows dst", vec16=False)
     rows = rows.to(dst.dtype).contiguous()
     tgt = tgt.reshape(-1).to(torch.int64).contiguous()
     if rows.shape != (tgt.shape[0], dst.shape[1]):
@@ -120,3 +147,123 @@ def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
 
 
 scatter_rows.launches = 0
+
+
+def _check_quant(cache: torch.Tensor, scales: torch.Tensor, out_dtype,
+                 what: str) -> None:
+    if cache.dtype not in _QKIND or scales.dtype != torch.float16:
+        raise ValueError(f"{what}: payload int8/float8_e4m3fn with f16 "
+                         f"scales, got {cache.dtype} / {scales.dtype}")
+    if out_dtype not in _OKIND:
+        raise ValueError(f"{what}: out_dtype must be bf16 or fp32")
+    if not scales.is_contiguous() or scales.shape != (*cache.shape[:-1], 1):
+        raise ValueError(f"{what}: scales must be contiguous [..., 1], one "
+                         f"per row of the payload")
+
+
+def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
+                        ids: torch.Tensor, out_dtype=torch.bfloat16
+                        ) -> torch.Tensor:
+    """Fused quantized-tier gather: cache [S,D] int8/fp8, scales [S,1] f16,
+    ids [...] -> rows [..., D] ``out_dtype`` on ``ids.device``:
+    ``float(q) * float(s)`` of row ``clip(ids)``, zero rows where
+    ``ids < 0``."""
+    _check_quant(cache, scales, out_dtype, "gather_rows_dequant")
+    if ids.device.type == "cpu":
+        return ref.gather_rows_dequant_ref(cache, scales, ids, out_dtype)
+    if ids.device.type != "cuda":
+        raise ValueError(f"gather_rows_dequant: unsupported device "
+                         f"{ids.device}")
+    _check_rows(cache, "gather_rows_dequant cache")
+    idf = ids.reshape(-1).to(torch.int64).contiguous()
+    D = cache.shape[1]
+    out = torch.empty((idf.shape[0], D), dtype=out_dtype, device=ids.device)
+    src, sc = device_pointer(cache), device_pointer(scales)
+    lib = _lib()
+    _build.check(lib, lib.ess_gather_rows_dequant(
+        _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()),
+        idf.shape[0], cache.shape[0], D, _QKIND[cache.dtype],
+        _OKIND[out_dtype], _build.stream_ptr(out)), "gather_rows_dequant")
+    gather_rows_dequant.launches += 1
+    return out.reshape(*ids.shape, D)
+
+
+gather_rows_dequant.launches = 0
+
+
+def _page_args(cache: torch.Tensor, block_ids: torch.Tensor,
+               block_rows: int):
+    """[S,D] / [L,S,D] cache + [NB] / [L,NB] ids -> the [L,S,D] view, the
+    [L,NB] int64 ids and the page count."""
+    c3 = cache if cache.dim() == 3 else cache[None]
+    Lh, S, _ = c3.shape
+    if S % block_rows:
+        raise ValueError(f"gather_pages: {S} rows are not whole pages of "
+                         f"{block_rows}")
+    ids = block_ids.to(torch.int64)
+    ids = (ids if ids.dim() == 2 else ids[None]).expand(Lh, -1).contiguous()
+    return c3, ids, S // block_rows
+
+
+def gather_pages(cache: torch.Tensor, block_ids: torch.Tensor,
+                 block_rows: int) -> torch.Tensor:
+    """Whole-page gather: cache [S,D] (or [L,S,D]) of ``S / block_rows``
+    pages, block_ids [NB] (or [L,NB], or [NB] for every layer) -> pages
+    [NB*block_rows, D] (or [L, NB*block_rows, D]) on ``block_ids.device``.
+    Page ids are clipped to the pool; one launch covers every layer."""
+    c3, ids, npages = _page_args(cache, block_ids, block_rows)
+    Lh, _, D = c3.shape
+    if block_ids.device.type == "cpu":
+        out = ref.gather_pages_ref(c3, ids, block_rows)
+    else:
+        if block_ids.device.type != "cuda":
+            raise ValueError(f"gather_pages: unsupported device "
+                             f"{block_ids.device}")
+        _check_rows(c3.reshape(-1, D), "gather_pages cache")
+        nb = ids.shape[1]
+        out = torch.empty((Lh, nb * block_rows, D), dtype=c3.dtype,
+                          device=block_ids.device)
+        lib = _lib()
+        _build.check(lib, lib.ess_gather_pages(
+            _P(device_pointer(c3)), _P(ids.data_ptr()), _P(out.data_ptr()),
+            Lh, nb, npages, block_rows * D * c3.element_size(),
+            _build.stream_ptr(out)), "gather_pages")
+        gather_pages.launches += 1
+    return out if cache.dim() == 3 else out[0]
+
+
+gather_pages.launches = 0
+
+
+def gather_pages_dequant(cache: torch.Tensor, scales: torch.Tensor,
+                         block_ids: torch.Tensor, block_rows: int,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`gather_pages` of a quantized tier, widened per row:
+    cache [S,D] (or [L,S,D]) int8/fp8 + scales [S,1] (or [L,S,1]) f16 ->
+    ``out_dtype`` pages ``float(q) * float(s)``."""
+    _check_quant(cache, scales, out_dtype, "gather_pages_dequant")
+    c3, ids, npages = _page_args(cache, block_ids, block_rows)
+    Lh, S, D = c3.shape
+    s3 = scales.reshape(Lh, S, 1)
+    if block_ids.device.type == "cpu":
+        out = ref.gather_pages_dequant_ref(c3, s3, ids, block_rows,
+                                           out_dtype)
+    else:
+        if block_ids.device.type != "cuda":
+            raise ValueError(f"gather_pages_dequant: unsupported device "
+                             f"{block_ids.device}")
+        _check_rows(c3.reshape(-1, D), "gather_pages_dequant cache")
+        nb = ids.shape[1]
+        out = torch.empty((Lh, nb * block_rows, D), dtype=out_dtype,
+                          device=block_ids.device)
+        lib = _lib()
+        _build.check(lib, lib.ess_gather_pages_dequant(
+            _P(device_pointer(c3)), _P(device_pointer(s3)),
+            _P(ids.data_ptr()), _P(out.data_ptr()), Lh, nb, npages,
+            block_rows, D, _QKIND[c3.dtype], _OKIND[out_dtype],
+            _build.stream_ptr(out)), "gather_pages_dequant")
+        gather_pages_dequant.launches += 1
+    return out if cache.dim() == 3 else out[0]
+
+
+gather_pages_dequant.launches = 0

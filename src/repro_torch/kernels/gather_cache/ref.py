@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the row gather / scatter kernels."""
+"""Plain PyTorch versions of the row / page gather and scatter kernels."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.compression import dequantize_rows
 
 
 def gather_rows_ref(cache: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -20,3 +22,35 @@ def scatter_rows_ref(dst: torch.Tensor, tgt: torch.Tensor,
     keep = (tgt >= 0) & (tgt < dst.shape[0])
     dst[tgt[keep]] = rows[keep].to(dst.dtype)
     return dst
+
+
+def gather_rows_dequant_ref(cache: torch.Tensor, scales: torch.Tensor,
+                            ids: torch.Tensor,
+                            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """cache [S, D] int8/fp8, scales [S, 1] f16, ids [...] -> rows
+    [..., D] ``out_dtype``: ``float(q) * float(s)`` of row ``clip(ids)``,
+    zero rows where ``ids < 0``."""
+    safe = ids.clamp(0, cache.shape[0] - 1)
+    rows = dequantize_rows(cache[safe], scales[safe], out_dtype)
+    return torch.where((ids >= 0)[..., None], rows, torch.zeros_like(rows))
+
+
+def gather_pages_ref(cache: torch.Tensor, block_ids: torch.Tensor,
+                     block_rows: int) -> torch.Tensor:
+    """cache [L, S, D], block_ids [L, NB] -> [L, NB*block_rows, D]: whole
+    pages of ``block_rows`` rows, page ids clipped to the pool."""
+    Lh, S, D = cache.shape
+    pages = cache.reshape(Lh, S // block_rows, block_rows, D)
+    safe = block_ids.clamp(0, S // block_rows - 1)
+    out = pages[torch.arange(Lh)[:, None], safe]          # [L, NB, R, D]
+    return out.reshape(Lh, -1, D)
+
+
+def gather_pages_dequant_ref(cache: torch.Tensor, scales: torch.Tensor,
+                             block_ids: torch.Tensor, block_rows: int,
+                             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`gather_pages_ref` of a quantized tier: cache [L, S, D]
+    int8/fp8, scales [L, S, 1] f16 -> ``out_dtype`` pages."""
+    return dequantize_rows(gather_pages_ref(cache, block_ids, block_rows),
+                           gather_pages_ref(scales, block_ids, block_rows),
+                           out_dtype)

@@ -8,7 +8,7 @@ over wall time) and the kernels with the most device time.
 
   python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
       --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
-      --prefill-chunk 256 --rounds 5
+      --prefill-chunk 256 --rounds 5 [--host-cache-dtype int8]
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.cache import latent_cache as LC
-from repro_torch.configs import cut_depth, get_config
-from repro_torch.launch.serve import build_parser
+from repro_torch.launch.serve import build_parser, config_from_args
 from repro_torch.models.params import init_params
 from repro_torch.serving import engine as E
 
@@ -58,9 +57,7 @@ def main(argv=None) -> int:
     if dev.type != "cuda":
         raise RuntimeError("profile_serve measures the card; pass a CUDA "
                            "device")
-    cfg = get_config(args.arch)
-    if args.layers is not None:
-        cfg = cut_depth(cfg, args.layers)
+    cfg = config_from_args(args)
     max_seq = args.prompt_len + args.new_tokens
     params = init_params(cfg, args.seed, dev)
     prompts = np.random.default_rng(args.seed).integers(

@@ -3,18 +3,22 @@
 Builds random weights from ``--seed`` on the device, synthetic prompts from
 the same seed with numpy, runs :func:`repro_torch.serving.engine
 .generate_batch` and prints tokens/s, ms per decode round, the pool hit
-rate and the miss rows per round.  ``--layers`` cuts the depth (widths
-stay) and turns MTP off.
+rate, the miss rows and bytes per round and the host tier's bytes.
+``--layers`` cuts the depth (widths stay) and turns MTP off;
+``--host-cache-dtype`` stores the tier as bf16 (the param dtype), int8 or
+fp8 with one f16 scale per row.
 
   python -m repro_torch.launch.serve --device cuda \\
       --arch deepseek-v32-exp-ess --layers 4 --requests 4 \\
       --prompt-len 8192 --new-tokens 32 --prefill-chunk 256
   python -m repro_torch.launch.serve --device cpu   # smoke config
+  python -m repro_torch.launch.serve --device cpu --host-cache-dtype int8
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,20 +40,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-cache-dtype", default="bf16",
+                    choices=["bf16", "int8", "fp8"],
+                    help="host tier storage: bf16, or int8 / fp8 (e4m3) "
+                         "with a per-row f16 scale")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
 
 
-def run(args) -> dict:
-    """Serve once; returns the result and its metrics."""
-    dev = resolve_device(args.device)
+def config_from_args(args):
+    """The architecture config that ``args`` select (depth cut, tier)."""
     cfg = get_config(args.arch)
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
+    return dataclasses.replace(cfg, ess=dataclasses.replace(
+        cfg.ess, host_cache_dtype=args.host_cache_dtype))
+
+
+def run(args, params=None) -> dict:
+    """Serve once; returns the result and its metrics.  ``params`` reuses
+    weights already on the device (they must match ``args``' config and
+    seed); without them the weights are drawn from ``--seed``."""
+    dev = resolve_device(args.device)
+    cfg = config_from_args(args)
     max_seq = args.prompt_len + args.new_tokens
     t0 = time.perf_counter()
-    params = init_params(cfg, args.seed, dev)
+    if params is None:
+        params = init_params(cfg, args.seed, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
@@ -62,7 +80,7 @@ def run(args) -> dict:
     decode_s = float(sum(res.round_s))
     hits, misses = int(res.hits.sum()), int(res.misses.sum())
     return {
-        "cfg": cfg, "result": res, "init_s": init_s,
+        "cfg": cfg, "params": params, "result": res, "init_s": init_s,
         "prefill_s": res.prefill_s,
         "prefill_tok_s": args.requests * args.prompt_len / res.prefill_s,
         "decode_rounds": rounds,
@@ -72,6 +90,8 @@ def run(args) -> dict:
         "miss_rows_per_round": misses / max(rounds, 1),
         "overflow_rows": int(res.overflow.sum()),
         "evicted": res.evicted,
+        "tier_bytes": res.tier_bytes,
+        "miss_bytes_per_round": float(res.miss_bytes.sum()) / max(rounds, 1),
     }
 
 
@@ -83,7 +103,9 @@ def report(out: dict) -> str:
             f"rounds; pool hit rate {out['pool_hit_rate']:.4f}, "
             f"{out['miss_rows_per_round']:.1f} miss rows/round "
             f"(all layers and slots), {out['overflow_rows']} overflow, "
-            f"{out['evicted']} evicted")
+            f"{out['evicted']} evicted; {out['cfg'].ess.host_cache_dtype} "
+            f"host tier {out['tier_bytes']} bytes, "
+            f"{out['miss_bytes_per_round']:.1f} miss bytes/round")
 
 
 def main(argv=None) -> int:

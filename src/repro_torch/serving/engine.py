@@ -1,5 +1,6 @@
-"""ESS serving steps for DSA+MLA models (counterpart of the synchronous,
-bf16-tier path of ``repro.serving.engine``).
+"""ESS serving steps for DSA+MLA models (counterpart of the synchronous
+path of ``repro.serving.engine``, with a bf16 or a quantized int8 / fp8
+host tier).
 
 * :func:`ess_decode` — one Q-token decode step over every layer: append the
   indexer key (device) and the latent row (host tier, UVA write), run ESS
@@ -31,6 +32,7 @@ from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
 from repro_torch.core.overlap import (ESSLayerState, _attend_rows,
                                       ess_sparse_attention)
+from repro_torch.distributed import compression as cmp
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
 from repro_torch.models import moe as MoE
@@ -103,7 +105,8 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         lp, is_moe = _layer_params(params, cfg, layer)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         # append: indexer key (device) + latent row (host tier, UVA write
-        # on this stream, so this layer's fetch below sees it)
+        # on this stream, so this layer's fetch below sees it; a quantized
+        # tier quantizes the row first)
         _append_ikeys(caches.ikeys[layer], widx,
                       M.indexer_keys(lp["indexer"], h))
         new_lat = M.latent_entries(lp["mla"], cfg, h, positions)
@@ -138,35 +141,44 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                       ) -> tuple[Optional[torch.Tensor], LC.ESSCaches]:
     """One chunked-prefill step: ``tokens [B,C]`` continue every sequence
     at ``caches.lens``; their latents land in the mapped host pages (one
-    stacked write after the layer loop) and their indexer keys in the
-    device cache.  (The reference's per-slot ``slot`` and padded
+    stacked write per plane after the layer loop) and their indexer keys
+    in the device cache.  (The reference's per-slot ``slot`` and padded
     ``n_valid`` forms serve the continuous-batching loop, a later slice.)
 
     Attention is the exact causal DSA selection: per-query top-k over the
     sequence's indexer cache, prior-context rows fetched from the host tier,
     intra-chunk rows from the chunk itself, one fp32 sparse-MLA partial per
-    query.  The pool is untouched.  Returns ``(logits | None, caches)``."""
-    if caches.host_scales is not None:
-        raise NotImplementedError("quantized host tier is not ported yet")
+    query.  The pool is untouched.  A quantized tier quantizes each
+    layer's chunk rows once: intra-chunk queries read ``dequant(q, s)``,
+    the value any later query reads back from the tier, and the stacked
+    writes after the layer loop commit the same ``(q, s)``.  Returns
+    ``(logits | None, caches)``."""
     B, C = tokens.shape
     dev = tokens.device
     start = caches.lens                                           # [B]
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
     widx = start[:, None] + torch.arange(C, device=dev)[None, :]  # [B,C]
-    host = caches.host_latent
+    host, host_scales = caches.host_latent, caches.host_scales
     S = caches.ikeys[0].shape[1]
     K = min(cfg.dsa.index_topk, S)
     causal = torch.arange(S, device=dev)[None, None, :] <= widx[:, :, None]
     bi = torch.arange(B, device=dev)[:, None, None]
-    lat_stack = []
+    lat_stack, scale_stack = [], []
 
     for layer in range(cfg.num_layers):
         lp, is_moe = _layer_params(params, cfg, layer)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         ik = caches.ikeys[layer]
         _append_ikeys(ik, widx, M.indexer_keys(lp["indexer"], h))
-        new_lat = M.latent_entries(lp["mla"], cfg, h, positions).to(host.dtype)
-        lat_stack.append(new_lat)
+        new_lat = M.latent_entries(lp["mla"], cfg, h, positions)
+        if host_scales is None:
+            new_lat = new_lat.to(host.dtype)
+            lat_stack.append(new_lat)
+        else:
+            q_lat, s_lat = cmp.quantize_rows(new_lat, host.dtype)
+            lat_stack.append(q_lat)
+            scale_stack.append(s_lat)
+            new_lat = cmp.dequantize_rows(q_lat, s_lat, cfg.param_dtype)
 
         iq = M.indexer_query(lp["indexer"], h)
         sc = M.indexer_scores(iq, ik, causal)                # [B,C,S]
@@ -176,7 +188,7 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         local = ids >= start[:, None, None]
         prior_ids = torch.where(local, -1, ids)
         rows_h = offload.gather_tier_rows(
-            host, caches.host_scales, prior_ids.reshape(B, C * K),
+            host, host_scales, prior_ids.reshape(B, C * K),
             layer=layer, block_table=caches.block_tables,
             out_dtype=new_lat.dtype).view(B, C, K, -1)
         loc = (ids - start[:, None, None]).clamp(0, C - 1)
@@ -190,9 +202,14 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                               M.finalize_partial(part, x.dtype))
         x = x + _ffn(lp, cfg, x, is_moe)
 
+    # one stacked write per plane for the whole chunk (all layers)
     offload.host_scatter_rows_stacked(
         host, widx, torch.stack(lat_stack), slot_mask=None,
         block_table=caches.block_tables)
+    if host_scales is not None:
+        offload.host_scatter_rows_stacked(
+            host_scales, widx, torch.stack(scale_stack), slot_mask=None,
+            block_table=caches.block_tables)
     logits = None
     if want_logits:
         xf = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -252,6 +269,8 @@ class GenerateResult:
     prefill_s: float             # wall seconds of prefill + warmup
     evicted: int                 # pool rows evicted (all layers, slots)
     logits_finite: bool          # every logit of every step was finite
+    tier_bytes: int              # host tier bytes (payload + scales)
+    miss_bytes: np.ndarray       # [R] bytes fetched from the tier
     caches: Any = None
 
 
@@ -262,7 +281,8 @@ def generate_batch(params: dict, cfg: ArchConfig, prompts,
     """Serve a fixed batch of equal-length prompts ([B,S] ints): prefill +
     warmup, then greedy Q=1 decode rounds.  The first new token comes from
     the prefill's last logits, so ``max_new_tokens - 1`` rounds follow.
-    Runs on the card unless ``device="cpu"``."""
+    The host tier's dtype is ``cfg.ess.host_cache_dtype``.  Runs on the
+    card unless ``device="cpu"``."""
     dev = resolve_device(device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                              device=dev)
@@ -304,8 +324,12 @@ def generate_batch(params: dict, cfg: ArchConfig, prompts,
         return (torch.stack(xs).cpu().numpy() if xs
                 else np.zeros((0, B), np.int64))
     evicted = int(sum(int(p.evicted.sum()) for p in caches.pools))
+    misses, ovf = rounds(misses), rounds(ovf)
+    # rows past the miss envelope are dropped, not fetched
+    row_bytes = LC.host_row_bytes(cfg, cfg.param_dtype)
     return GenerateResult(
         tokens=torch.stack(out, 1).cpu().numpy(), hits=rounds(hits),
-        misses=rounds(misses), overflow=rounds(ovf), round_s=round_s,
+        misses=misses, overflow=ovf, round_s=round_s,
         prefill_s=prefill_s, evicted=evicted,
-        logits_finite=bool(finite), caches=caches)
+        logits_finite=bool(finite), tier_bytes=LC.tier_nbytes(caches),
+        miss_bytes=(misses - ovf).sum(1) * row_bytes, caches=caches)

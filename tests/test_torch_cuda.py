@@ -8,7 +8,8 @@ that has only PyTorch (the repository's conftest imports JAX, hence
   PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Both sides compute in fp32 from the same inputs, so the float kernels are
-held at rtol/atol 1e-4 (summation order only); the row gather and scatter
+held at rtol/atol 1e-4 (summation order only); the row and page gathers
+(plain and fused dequant), the scatter and the quantize-and-write path
 are bit-exact.
 """
 
@@ -96,3 +97,123 @@ def test_cuda_sparse_mla_partial_vs_plain(cuda, dt, H, D, K, R, shared):
                               0.07, R)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the quantized tier: fused gather-dequant, page gathers, quantize-and-write
+# ---------------------------------------------------------------------------
+
+QDT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _quantized_tier(g, shape, name):
+    from repro_torch.distributed import compression as cmp
+    x = torch.randn(shape, generator=g).bfloat16()
+    x[..., 3, :] = 0                                  # a sentinel row
+    q, s = cmp.quantize_rows(x, QDT[name])
+    return q.pin_memory(), s.pin_memory()
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_gather_rows_dequant_uva_bitwise(cuda, name, dt):
+    g = torch.Generator().manual_seed(4)
+    q, s = _quantized_tier(g, (300, 576), name)
+    ids = torch.randint(-2, 310, (257,), generator=g)
+    n0 = gops.gather_rows_dequant.launches
+    got = gops.gather_rows_dequant(q, s, ids.to(cuda), TORCH_DT[dt])
+    assert gops.gather_rows_dequant.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = gref.gather_rows_dequant_ref(q, s, ids, TORCH_DT[dt])
+    assert got.dtype == want.dtype
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_gather_pages_uva_bitwise(cuda, dt):
+    g = torch.Generator().manual_seed(5)
+    L, NP, R, D = 3, 20, 64, 576
+    tier = torch.randn((L, NP * R, D), generator=g).to(TORCH_DT[dt])
+    tier = tier.pin_memory()
+    ids = torch.randint(-1, NP + 2, (L, 7), generator=g)
+    n0 = gops.gather_pages.launches
+    got = gops.gather_pages(tier, ids.to(cuda), R)
+    assert gops.gather_pages.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gops.gather_pages(tier, ids, R))
+    # one id list for every layer
+    got1 = gops.gather_pages(tier, ids[0].to(cuda), R).cpu()
+    assert torch.equal(got1, gref.gather_pages_ref(
+        tier, ids[0][None].expand(L, -1), R))
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("R", [64, 300])
+def test_cuda_gather_pages_dequant_uva_bitwise(cuda, name, dt, R):
+    g = torch.Generator().manual_seed(6)
+    L, NP, D = 2, 6, 576
+    q, s = _quantized_tier(g, (L, NP * R, D), name)
+    ids = torch.randint(0, NP + 1, (L, 5), generator=g)
+    n0 = gops.gather_pages_dequant.launches
+    got = gops.gather_pages_dequant(q, s, ids.to(cuda), R, TORCH_DT[dt])
+    assert gops.gather_pages_dequant.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = gref.gather_pages_dequant_ref(q, s, ids, R, TORCH_DT[dt])
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("paged", [True, False])
+def test_cuda_quantize_and_write_matches_cpu_bitwise(cuda, name, paged):
+    """scatter_tier_rows (quantize on the card, payload + 2-byte scale rows
+    through UVA) against the CPU plain path on the same rows."""
+    import dataclasses
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload as OF
+    cfg = get_config("deepseek-v32-exp-ess")
+    cfg = dataclasses.replace(cfg, num_layers=2, ess=dataclasses.replace(
+        cfg.ess, host_cache_dtype=name, paged_host=paged))
+    gpu = LC.init_ess_caches(cfg, 3, 200, device=cuda)
+    cpu = LC.init_ess_caches(cfg, 3, 200, device="cpu")
+    assert gpu.host_latent.is_pinned() and gpu.host_scales.is_pinned()
+    g = torch.Generator().manual_seed(7)
+    ids = torch.tensor([[0, 5, 130, 199], [1, 2, 3, -1], [64, 0, 20, 63]])
+    mask = torch.tensor([True, False, True])
+    for layer in range(2):
+        rows = torch.randn((3, 4, 576), generator=g).bfloat16()
+        rows[0, 1] = 0
+        rows[2, 0] *= 1e-5                        # a subnormal f16 scale
+        OF.scatter_tier_rows(gpu.host_latent, gpu.host_scales, ids.to(cuda),
+                             rows.to(cuda), slot_mask=mask.to(cuda),
+                             layer=layer, block_table=gpu.block_tables)
+        OF.scatter_tier_rows(cpu.host_latent, cpu.host_scales, ids, rows,
+                             slot_mask=mask, layer=layer,
+                             block_table=cpu.block_tables)
+    rows_l = torch.randn((2, 1, 4, 576), generator=g).bfloat16()
+    OF.scatter_tier_rows_stacked(gpu.host_latent, gpu.host_scales,
+                                 ids[2:].to(cuda), rows_l.to(cuda),
+                                 slot_mask=None, batch_offset=1,
+                                 block_table=gpu.block_tables)
+    OF.scatter_tier_rows_stacked(cpu.host_latent, cpu.host_scales, ids[2:],
+                                 rows_l, slot_mask=None, batch_offset=1,
+                                 block_table=cpu.block_tables)
+    torch.cuda.synchronize()
+    assert torch.equal(gpu.host_latent.view(torch.uint8),
+                       cpu.host_latent.view(torch.uint8))
+    assert torch.equal(gpu.host_scales.view(torch.int16),
+                       cpu.host_scales.view(torch.int16))
+    got = OF.gather_tier_rows(gpu.host_latent, gpu.host_scales, ids.to(cuda),
+                              layer=1, block_table=gpu.block_tables)
+    want = OF.gather_tier_rows(cpu.host_latent, cpu.host_scales, ids,
+                               layer=1, block_table=cpu.block_tables)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_cuda_scatter_refuses_bf16_rows_into_int8_tier(cuda):
+    tier = torch.zeros((16, 576), dtype=torch.int8).pin_memory()
+    rows = torch.ones((2, 576), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="quantize"):
+        gops.scatter_rows(tier, torch.tensor([0, 1], device=cuda), rows)
+    assert (tier == 0).all()

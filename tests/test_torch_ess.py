@@ -160,9 +160,18 @@ def test_init_ess_caches_layout_matches_reference():
     assert_pool_equal(tc.pools[0], jc.pools[0])
     assert LC.pool_entries(tcfg, 40) == JLC.pool_entries(jcfg, 40)
     assert LC.num_blocks(tcfg, 40) == JLC.num_blocks(jcfg, 40)
-    with pytest.raises(NotImplementedError):
-        LC.init_ess_caches(dataclasses.replace(tcfg, ess=dataclasses.replace(
-            tcfg.ess, host_cache_dtype="int8")), 1, 8, device="cpu")
+    # a quantized tier: one-byte payload beside an f16 scale plane
+    for name, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        q = dict(host_cache_dtype=name)
+        jq = JLC.init_ess_caches(dataclasses.replace(jcfg, ess=dataclasses
+                                 .replace(jcfg.ess, **q)), 3, 40, jnp.float32)
+        tq = LC.init_ess_caches(dataclasses.replace(tcfg, ess=dataclasses
+                                .replace(tcfg.ess, **q)), 3, 40,
+                                torch.float32, device="cpu")
+        assert tq.host_latent.dtype == qdt
+        assert tuple(tq.host_latent.shape) == jq.host_latent.shape
+        assert tq.host_scales.dtype == torch.float16
+        assert tuple(tq.host_scales.shape) == jq.host_scales.shape
 
 
 @pytest.mark.parametrize("paged", [True, False])

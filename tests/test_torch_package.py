@@ -89,6 +89,17 @@ def _fake_cuda_calls():
             torch.zeros((1, 1, 2, 16), device=dev),
             torch.zeros((1, 1, 2), device=dev),
             torch.zeros((1, 5, 16), device=dev)),
+        "gather_rows_dequant": lambda: g.gather_rows_dequant(
+            torch.zeros((8, 64), dtype=torch.int8, device=dev),
+            torch.zeros((8, 1), dtype=torch.float16, device=dev),
+            torch.zeros(3, dtype=torch.long, device=dev)),
+        "gather_pages": lambda: g.gather_pages(
+            torch.zeros((2, 8, 64), device=dev),
+            torch.zeros(2, dtype=torch.long, device=dev), 4),
+        "gather_pages_dequant": lambda: g.gather_pages_dequant(
+            torch.zeros((2, 8, 64), dtype=torch.float8_e4m3fn, device=dev),
+            torch.zeros((2, 8, 1), dtype=torch.float16, device=dev),
+            torch.zeros(2, dtype=torch.long, device=dev), 4),
         "partial_attend": lambda: s.partial_attend(
             torch.zeros((1, 1, 4, 40), device=dev),
             torch.zeros((1, 6, 40), device=dev),
@@ -97,7 +108,9 @@ def _fake_cuda_calls():
 
 
 @pytest.mark.parametrize("name", ["gather_rows", "scatter_rows",
-                                  "indexer_scores", "partial_attend"])
+                                  "gather_rows_dequant", "gather_pages",
+                                  "gather_pages_dequant", "indexer_scores",
+                                  "partial_attend"])
 def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):
     """Fake CUDA tensors on a machine without CUDA or nvcc: the wrapper
     must try its kernel and fail, not return the plain version."""

@@ -28,7 +28,6 @@ from repro.models.params import init_params as jinit
 from repro.serving import engine as JE
 from repro_torch.cache import latent_cache as LC
 from repro_torch.configs import get_config as tget
-from repro_torch.core import lru_pool as LP
 from repro_torch.launch import serve as SV
 from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
@@ -130,17 +129,6 @@ def test_prefill_and_teacher_forced_decode_match_reference(reference):
         assert_caches(caches, jcaches, dt, dt == "f32")
 
 
-def to_port_caches(jc):
-    i64 = lambda a: torch.tensor(np.asarray(a)).long()   # noqa: E731
-    pools = [LP.PoolState(T(p.data), i64(p.ids), i64(p.last_use),
-                          i64(p.slot_of), i64(p.step),
-                          torch.zeros(p.ids.shape[0], dtype=torch.int64))
-             for p in jc.pools]
-    return LC.ESSCaches(i64(jc.lens), T(jc.host_latent),
-                        [T(k) for k in jc.ikeys], pools,
-                        i64(jc.block_tables))
-
-
 def test_decode_step_matches_reference_use_kernel(reference):
     """From the reference's own post-prefill caches, one decode step of the
     port against the reference with its Pallas kernels (interpret mode):
@@ -152,7 +140,7 @@ def test_decode_step_matches_reference_use_kernel(reference):
     jo = reference["decode"](jp, jcfg, jnp.asarray(tok[:, None]),
                              jnp.asarray(p), jc, use_kernel=True)
     to = TE.ess_decode(tp, tcfg, T(tok[:, None]).long(), T(p).long(),
-                       to_port_caches(reference["prefill_caches"]))
+                       LC.from_jax_caches(reference["prefill_caches"]))
     tol = TOL["f32"] if reference["dt"] == "f32" else dict(rtol=2e-2,
                                                            atol=2e-2)
     np.testing.assert_allclose(to.logits.numpy(), np.asarray(jo.logits),
