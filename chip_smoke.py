@@ -13,15 +13,20 @@ the script exits non-zero without a result line):
    it, hold it against its plain PyTorch version (the gathers, dequant
    included, and the scatter bit for bit), time kernel, plain version and,
    where one exists, a single PyTorch call computing the same function,
-   and compute the card's lower bound for the work;
+   and compute the card's lower bound for the work.  The sparse-MLA
+   partial runs at its three serve shapes (Attn0, Attn1, a whole prefill
+   chunk) on the tensor-core route, each also timed on the general route
+   (the CUDA-core kernel) on the same inputs; its split merge is held
+   against its own plain version;
 4. small  — the smoke config in fp32 on the card against the plain CPU path
-   (prefill + teacher-forced decode), a reference on a small input;
+   (prefill + teacher-forced decode), a reference on a small input; its
+   sparse-MLA partials must all take the general route;
 5. serve  — ``deepseek-v32-exp-ess`` at full width, cut to 4 layers (3
    dense + 1 MoE) and no MTP, 4 requests x 8192-token prompts x 32 new
    tokens with random weights from a seed, bf16 host tier; the launch
    counts of its kernels are read after this run and must be above 0, as
    must the decode misses (host-tier reads over UVA) and the pool
-   evictions;
+   evictions; every sparse-MLA partial must take the tensor-core route;
 6. quant serve — the same serve on the same weights with an int8 host
    tier (``--host-cache-dtype int8``): the fused gather-dequant kernel
    must carry every tier read;
@@ -78,6 +83,32 @@ def timed_ms(torch, fn, iters=20, warmup=3):
         fn()
     b.record()
     b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def graph_ms(torch, fn, iters=20):
+    """Mean device time of ``fn`` replayed from a CUDA graph: the kernels'
+    time without the wrapper's host work (``timed_ms`` of back-to-back
+    calls reads whichever of the two is longer)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
     return a.elapsed_time(b) / iters
 
 
@@ -321,52 +352,111 @@ def check_kernels(torch, dev):
             q, w, keys, valid)),
         bound_ms=bms, bound_by=bby, library_ms=None)
 
-    # -- sparse_mla_partial: Attn0 (K=2048), Attn1 (K=256) in bf16, and
-    #    prefill (per-query fp32 rows, K=2048, a 16-query slice) ----------
-    def mla_case(Q, Krows, dt, per_query):
-        qq = randn((B, Q, H, D), dt)
-        shape = (B, Q, Krows, D) if per_query else (B, Krows, D)
-        rr = randn(shape, dt)
-        vv = torch.rand(shape[:-1], generator=g, device=dev) < 0.9
-        vv[..., -17:] = False
-        got = sops.partial_attend(qq, rr, vv, scale, rank)
-        r4 = rr if per_query else rr[:, None]
-        v3 = vv if per_query else vv[:, None]
-        want = sref.sparse_mla_partial_ref(qq, r4, v3, scale, rank)
-        torch.cuda.synchronize()
+    # -- sparse_mla_partial: the tensor-core route at the serve's three
+    #    shapes (Attn0 K=2048, Attn1 K=256 at decode; a whole prefill chunk
+    #    of per-query rows), each held against the fp32 plain version and
+    #    timed beside the general route on the same inputs, the plain
+    #    version and SDPA on the same MQA; then the split merge ----------
+    def mla_hold(got, want):
+        """rtol 1e-4, atol 1e-4 x max(1, |ref|max) over the non-sentinel
+        values; the -2e38 sentinels must sit at the same places."""
         e = 0.0
         for a, b in zip(got, want):
-            tol = 1e-4 * max(1.0, float(b.abs().max()))
+            live = b > -1e37
+            require(torch.equal(a > -1e37, live),
+                    "sparse_mla sentinel positions differ")
+            tol = 1e-4 * max(1.0, float(b[live].abs().max())
+                             if bool(live.any()) else 0.0)
             torch.testing.assert_close(a, b, rtol=1e-4, atol=tol)
             e = max(e, float((a - b).abs().max()))
-        return qq, rr, vv, e
+        return e
 
-    errs = [mla_case(1, M, torch.bfloat16, False)[-1],
-            mla_case(16, K, torch.float32, True)[-1]]
-    qq, rr, vv, e0 = mla_case(1, K, torch.bfloat16, False)
-    nvalid = int(vv.sum())
-    nbytes = (qq.numel() + rr.numel()) * 2 + vv.numel() \
-        + 4 * B * H * (rank + 2)
-    bms, bby = bound_ms(nbytes, nvalid * H * 2 * (D + rank), "bf16")
-    rq, rk = rr[:, None], vv[:, None]
-    qs = qq.view(B, 1, H, D)
-    kk = rr.view(B, 1, K, D)
-    vvv = rr[..., :rank].reshape(B, 1, K, rank)
-    mask = vv.view(B, 1, 1, K)
-    records["sparse_mla_partial"] = dict(
-        name="sparse_mla_partial", route="cuda",
-        source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla.cu",
-        replaces="src/repro/kernels/sparse_mla/sparse_mla.py:74",
-        max_abs_err=max(errs + [e0]),
-        ms=timed_ms(torch, lambda: sops.partial_attend(qq, rr, vv, scale,
-                                                       rank)),
-        plain_ms=timed_ms(torch, lambda: sref.sparse_mla_partial_ref(
-            qq, rq, rk, scale, rank)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timed_ms(torch, lambda: torch.nn.functional
-                            .scaled_dot_product_attention(
-                                qs, kk, vvv, attn_mask=mask, scale=scale)))
+    def mla_case(tag, Q, Krows, per_query):
+        qq = randn((B, Q, H, D))
+        shape = (B, Q, Krows, D) if per_query else (B, Krows, D)
+        rr = randn(shape)
+        vv = torch.rand(shape[:-1], generator=g, device=dev) < 0.9
+        vv[..., -17:] = False
+        if per_query:
+            vv[1, 3] = False                # query (1, 3): no valid row
+        else:
+            vv[1] = False                   # batch 1's query: no valid row
+        r4 = rr if per_query else rr[:, None]
+        v4 = vv if per_query else vv[:, None]
+        require(sops.tc_route(qq, rr, rank), f"{tag}: not the tc route")
+        got = sops.partial_attend(qq, rr, vv, scale, rank)
+        want = sref.sparse_mla_partial_ref(qq, r4, v4, scale, rank)
+        gen = sops.general_attend(qq, rr, vv, scale, rank)
+        torch.cuda.synchronize()
+        e = mla_hold(got, want)
+        mla_hold(gen, want)
+        del want, gen
+        require(bool((got.m[1, 3 if per_query else 0] == -2.0e38).all())
+                and bool((got.l[1, 3 if per_query else 0] == 0).all())
+                and bool((got.o[1, 3 if per_query else 0] == 0).all()),
+                f"{tag}: the all-invalid query is not the sentinel partial")
+        nvalid = int(v4.expand(B, Q, Krows).sum())
+        nbytes = (qq.numel() + rr.numel()) * 2 + vv.numel() \
+            + 4 * B * Q * H * (rank + 2)
+        bms, bby = bound_ms(nbytes, nvalid * H * 2 * (D + rank), "bf16")
+        # SDPA on the same MQA: the heads are the query positions
+        qs = qq.reshape(B * Q, 1, H, D)
+        kk = r4.expand(B, Q, Krows, D).reshape(B * Q, 1, Krows, D)
+        mask = v4.expand(B, Q, Krows).reshape(B * Q, 1, 1, Krows)
+        it = 3 if per_query else 20
+        rec = dict(
+            name=f"sparse_mla_partial[{tag}]", route="cuda",
+            source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla_tc.cu",
+            replaces="src/repro/kernels/sparse_mla/sparse_mla.py:74",
+            max_abs_err=e,
+            ms=timed_ms(torch, lambda: sops.partial_attend(
+                qq, rr, vv, scale, rank), iters=max(it, 10)),
+            device_ms=graph_ms(torch, lambda: sops.partial_attend(
+                qq, rr, vv, scale, rank), iters=max(it, 10)),
+            general_ms=timed_ms(torch, lambda: sops.general_attend(
+                qq, rr, vv, scale, rank), iters=it, warmup=1),
+            plain_ms=timed_ms(torch, lambda: sref.sparse_mla_partial_ref(
+                qq, r4, v4, scale, rank), iters=it, warmup=1),
+            bound_ms=bms, bound_by=bby,
+            library_ms=timed_ms(torch, lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    qs, kk, kk[..., :rank], attn_mask=mask,
+                                    scale=scale), iters=it, warmup=1),
+            nsplit=sops.plan_splits(B * Q, H, Krows, torch.cuda
+                                    .get_device_properties(dev)
+                                    .multi_processor_count)[0],
+            shape=f"q {list(qq.shape)}, rows {list(rr.shape)} bf16")
+        records[rec["name"]] = rec
+        return qq, rr, vv
+
+    qq, rr, vv = mla_case("attn0", 1, K, False)
+    mla_case("attn1", 1, M, False)
+    # the merge kernel on Attn0's split partials, against its plain version
+    parts = sops.tc_splits(qq, rr, vv, scale)
+    got = sops.merge_splits(*parts)
+    want = sref.merge_splits_ref(*parts)
     torch.cuda.synchronize()
+    merr = 0.0
+    for a, b in zip(got, want):   # summation order only
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        merr = max(merr, float((a - b).abs().max()))
+    S = parts[0].shape[0]
+    nb, _ = bound_ms(4 * (S + 1) * B * H * (rank + 2), 0, "bf16")
+    records["sparse_mla_merge"] = dict(
+        name="sparse_mla_merge", route="cuda",
+        source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla_tc.cu",
+        replaces="src/repro/kernels/sparse_mla/sparse_mla.py:74",
+        max_abs_err=merr,
+        ms=timed_ms(torch, lambda: sops.merge_splits(*parts)),
+        device_ms=graph_ms(torch, lambda: sops.merge_splits(*parts)),
+        plain_ms=timed_ms(torch, lambda: sref.merge_splits_ref(*parts)),
+        bound_ms=nb, bound_by="bytes", library_ms=None,
+        shape=f"{S} splits of o [4,1,128,512], m, l fp32")
+    del qq, rr, vv, parts, got, want
+    # a whole prefill chunk: 4 x 256 queries, each over its own 2048 rows
+    mla_case("prefill", C, K, True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return records
 
 
@@ -548,16 +638,38 @@ def main() -> int:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {r['library_ms']}, max err "
-              f"{r['max_abs_err']:.3g}  [{card}]", flush=True)
+              f"{r['max_abs_err']:.3g}"
+              + (f", device (graph) {r['device_ms']:.4f} ms"
+                 if "device_ms" in r else "")
+              + (f", general route {r['general_ms']:.4f} ms, "
+                 f"{r['nsplit']} split(s)" if "general_ms" in r else "")
+              + (f"; {r['shape']}" if "shape" in r else "")
+              + f"  [{card}]", flush=True)
+    a0, pf = records["sparse_mla_partial[attn0]"], \
+        records["sparse_mla_partial[prefill]"]
+    print(f"  sparse_mla: attn0 {a0['ms']:.4f} ms vs SDPA "
+          f"{a0['library_ms']:.4f} ms ({a0['library_ms'] / a0['ms']:.2f}x; "
+          f"device {a0['device_ms']:.4f} ms); "
+          f"prefill {pf['ms']:.4f} ms vs the general route "
+          f"{pf['general_ms']:.4f} ms ({pf['general_ms'] / pf['ms']:.2f}x); "
+          f"shares of bound {a0['bound_ms'] / a0['ms']:.4f} (attn0), "
+          f"{pf['bound_ms'] / pf['ms']:.4f} (prefill)  [{card}]", flush=True)
     for qname, d in records["gather_rows_dequant"]["detail"].items():
         print(f"  gather_rows_dequant[{qname}]: kernel {d['ms']:.4f} ms, "
               f"plain {d['plain_ms']:.4f} ms; the same rows' payload alone "
               f"by gather_rows {d['payload_ms']:.4f} ms  [{card}]",
               flush=True)
-    # 4. small input against the CPU plain path
+    # 4. small input against the CPU plain path (fp32: the general route)
+    for k in ("launches_tc", "launches_general"):
+        setattr(sops.partial_attend, k, 0)
     err = check_small(torch, dev)
-    print(f"small: smoke config fp32 card vs CPU, max logit diff {err:.3g}",
-          flush=True)
+    print(f"small: smoke config fp32 card vs CPU, max logit diff {err:.3g}; "
+          f"sparse-MLA launches: general "
+          f"{sops.partial_attend.launches_general}, tc "
+          f"{sops.partial_attend.launches_tc}", flush=True)
+    require(sops.partial_attend.launches_general > 0
+            and sops.partial_attend.launches_tc == 0,
+            "small: fp32 must take the general sparse-MLA route")
     # 5. serve (bf16 tier), 6. quant serve (int8 tier), 7. graft: each
     #    path runs with every count set to 0 just before it and read just
     #    after; a kernel's "launches" is the count of the path it carries
@@ -567,14 +679,29 @@ def main() -> int:
                "gather_pages_dequant": gops.gather_pages_dequant,
                "scatter_rows": gops.scatter_rows,
                "indexer_scores": iops.indexer_scores,
-               "sparse_mla_partial": sops.partial_attend}
+               "sparse_mla_partial": sops.partial_attend,
+               "sparse_mla_merge": sops.merge_splits}
+    # the sparse-MLA wrapper's per-route counts beside its total
+    routes = {"sparse_mla_tc": "launches_tc",
+              "sparse_mla_general": "launches_general"}
 
     def counted(fn):
         for k in kernels.values():
             k.launches = 0
+        for attr in routes.values():
+            setattr(sops.partial_attend, attr, 0)
         out = fn()
         torch.cuda.synchronize()
-        return out, {name: k.launches for name, k in kernels.items()}
+        n = {name: k.launches for name, k in kernels.items()}
+        n.update({name: getattr(sops.partial_attend, attr)
+                  for name, attr in routes.items()})
+        return out, n
+
+    def require_tc_only(counts, phase):
+        require(counts["sparse_mla_tc"] > 0
+                and counts["sparse_mla_general"] == 0,
+                f"the {phase} run's sparse-MLA partials must all take the "
+                f"tensor-core route: {counts}")
 
     def require_launched(counts, names, phase):
         for name in names:
@@ -587,8 +714,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(args))
     for name in ("gather_rows", "scatter_rows", "indexer_scores",
-                 "sparse_mla_partial"):
+                 "sparse_mla_merge"):
         records[name]["launches"] = n[name]
+    for tag in ("attn0", "attn1", "prefill"):
+        records[f"sparse_mla_partial[{tag}]"]["launches"] = n["sparse_mla_tc"]
     res = out["result"]
     print(f"serve: {serve.report(out)}  [{card}]", flush=True)
     print(f"serve: init {out['init_s']:.1f} s, peak device memory "
@@ -598,7 +727,8 @@ def main() -> int:
             f"tokens {res.tokens.shape}")
     require(res.logits_finite, "non-finite logits")
     require_launched(n, ("gather_rows", "scatter_rows", "indexer_scores",
-                         "sparse_mla_partial"), "serve")
+                         "sparse_mla_partial", "sparse_mla_merge"), "serve")
+    require_tc_only(n, "serve")
     require(res.misses.sum() > 0, "decode rounds read nothing from the tier")
     require(res.evicted > 0, "the pool never evicted")
     params, bf16_tokens = out["params"], res.tokens
@@ -622,8 +752,9 @@ def main() -> int:
     require(res.misses.sum() > 0, "quant serve: no tier reads")
     require(res.evicted > 0, "quant serve: the pool never evicted")
     require_launched(n, ("gather_rows_dequant", "scatter_rows",
-                         "indexer_scores", "sparse_mla_partial"),
-                     "quant serve")
+                         "indexer_scores", "sparse_mla_partial",
+                         "sparse_mla_merge"), "quant serve")
+    require_tc_only(n, "quant serve")
     require(n["gather_rows"] == 0, "quant serve read the tier unquantized")
     del out, res
 
@@ -637,8 +768,9 @@ def main() -> int:
         require_launched(n, (page_kernel, "scatter_rows"), f"graft {tier}")
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "general_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,9 +45,11 @@ class ESSStats(NamedTuple):
 def _attend_rows(q_comb: torch.Tensor, rows: torch.Tensor,
                  valid: torch.Tensor, cfg: ArchConfig) -> M.Partial:
     """q [B,Q,H,D] vs per-query rows [B,Q,K,D] (or shared [B,K,D]); the
-    sparse-MLA kernel (fp32 math, as the reference's ``use_kernel=True``).
-    Rows of another dtype (a quantized tier's bf16 misses under fp32
-    params) widen to the query's, as the reference's promotion does."""
+    sparse-MLA kernel (fp32 math, as the reference's ``use_kernel=True``):
+    bf16 at MLA's widths takes the tensor-core route, fp32 the general one
+    (``kernels/sparse_mla/ops.tc_route``).  Rows of another dtype (a
+    quantized tier's bf16 misses under fp32 params) widen to the query's,
+    as the reference's promotion does."""
     return sk.partial_attend(q_comb, rows.to(q_comb.dtype), valid,
                              M.mla_scale(cfg),
                              cfg.mla.kv_lora_rank)

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each kernel family has one ``csrc/*.cu`` file with a plain C interface (no
-PyTorch headers, so ``nvcc`` takes seconds, not minutes).  The first call
-to :func:`load` compiles every source at once, one ``nvcc`` process per
-file, into ``kernels/build/`` (listed in ``.gitignore``); a library is
+Each source (``csrc/*.cu``; sparse-MLA has two, the general kernel and the
+tensor-core one) has a plain C interface (no PyTorch headers, so ``nvcc``
+takes seconds, not minutes).  The first call to :func:`load` compiles
+every source at once, one ``nvcc`` process per file, into
+``kernels/build/`` (listed in ``.gitignore``); a library is
 named by the hash of its source and flags, so an edited source rebuilds
 and an unchanged one is reused.  Nothing here runs at import time.
 """
@@ -25,6 +26,7 @@ SOURCES = {
     "gather_cache": _HERE / "gather_cache" / "csrc" / "gather_rows.cu",
     "indexer": _HERE / "indexer" / "csrc" / "indexer.cu",
     "sparse_mla": _HERE / "sparse_mla" / "csrc" / "sparse_mla.cu",
+    "sparse_mla_tc": _HERE / "sparse_mla" / "csrc" / "sparse_mla_tc.cu",
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,3 +21,13 @@ def sparse_mla_partial_ref(q: torch.Tensor, rows: torch.Tensor,
     l = p.sum(dim=-1)
     o = torch.einsum("bqhk,bqkv->bqhv", p, rows[..., :rank].float())
     return o, m, l
+
+
+def merge_splits_ref(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """Combine partials of disjoint row splits, stacked on dim 0:
+    o [S,...,rank], m / l [S,...] -> (o, m, l) of the union.  An
+    all-invalid split (m = -2e38, l = 0, o = 0) adds nothing; if every
+    split is, the result is that sentinel partial."""
+    mx = m.amax(dim=0)
+    w = torch.exp(m - mx)
+    return (o * w[..., None]).sum(dim=0), mx, (l * w).sum(dim=0)

@@ -147,8 +147,9 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
     Attention is the exact causal DSA selection: per-query top-k over the
     sequence's indexer cache, prior-context rows fetched from the host tier,
-    intra-chunk rows from the chunk itself, one fp32 sparse-MLA partial per
-    query.  The pool is untouched.  A quantized tier quantizes each
+    intra-chunk rows from the chunk itself, one sparse-MLA partial per
+    query (fp32 math on the rows' own dtype: bf16 rows are not copied to
+    fp32 first).  The pool is untouched.  A quantized tier quantizes each
     layer's chunk rows once: intra-chunk queries read ``dequant(q, s)``,
     the value any later query reads back from the tier, and the stacked
     writes after the layer loop commit the same ``(q, s)``.  Returns
@@ -195,8 +196,9 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         rows = torch.where(local[..., None], new_lat[bi, loc], rows_h)
         del rows_h
         q_comb = M.absorbed_query(lp["mla"], cfg, h, positions)
-        # fp32 attend, as the reference's prefill
-        part = _attend_rows(q_comb.float(), rows.float(), req_valid, cfg)
+        # q and rows in their own dtype: the kernels (and the plain
+        # version) widen to fp32 inside, as the reference's fp32 prefill
+        part = _attend_rows(q_comb, rows, req_valid, cfg)
         del rows
         x = x + M.output_proj(lp["mla"], cfg,
                               M.finalize_partial(part, x.dtype))

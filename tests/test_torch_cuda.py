@@ -8,7 +8,9 @@ that has only PyTorch (the repository's conftest imports JAX, hence
   PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Both sides compute in fp32 from the same inputs, so the float kernels are
-held at rtol/atol 1e-4 (summation order only); the row and page gathers
+held at rtol/atol 1e-4 (summation order only: the sparse-MLA tensor-core
+route multiplies bf16 inputs exactly and keeps P to about 16 bits as a
+hi + lo pair of bf16 halves); the row and page gathers
 (plain and fused dequant), the scatter and the quantize-and-write path
 are bit-exact.
 """
@@ -97,6 +99,110 @@ def test_cuda_sparse_mla_partial_vs_plain(cuda, dt, H, D, K, R, shared):
                               0.07, R)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the sparse-MLA tensor-core route (bf16, D = 576, rank = 512, H % 64 == 0)
+# ---------------------------------------------------------------------------
+
+def _mla_bf16(g, B, Q, K, shared, H=128):
+    q = torch.randn((B, Q, H, 576), generator=g).bfloat16()
+    rshape = (B, K, 576) if shared else (B, Q, K, 576)
+    rows = torch.randn(rshape, generator=g).bfloat16()
+    valid = torch.rand(rshape[:-1], generator=g) < 0.9
+    return q, rows, valid
+
+
+def _tc_vs_plain(cuda, q, rows, valid, scale=0.07):
+    """The card's partial (tensor-core route) against the CPU plain fp32
+    version at rtol = atol = 1e-4; returns the card's partial."""
+    want = sops.partial_attend(q, rows, valid, scale, 512)
+    n_tc = sops.partial_attend.launches_tc
+    n_gen = sops.partial_attend.launches_general
+    got = sops.partial_attend(q.to(cuda), rows.to(cuda), valid.to(cuda),
+                              scale, 512)
+    assert sops.partial_attend.launches_tc == n_tc + 1
+    assert sops.partial_attend.launches_general == n_gen
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("shared", [True, False],
+                         ids=["shared", "per_query"])
+@pytest.mark.parametrize("K", [256, 300, 2048])
+def test_cuda_sparse_mla_tc_vs_plain(cuda, K, shared):
+    g = torch.Generator().manual_seed(6)
+    q, rows, valid = _mla_bf16(g, 2, 2, K, shared)
+    valid[..., -5:] = False
+    _tc_vs_plain(cuda, q, rows, valid)
+
+
+def test_cuda_sparse_mla_tc_whole_split_invalid(cuda):
+    g = torch.Generator().manual_seed(7)
+    B, K = 2, 2048
+    q, rows, valid = _mla_bf16(g, B, 1, K, True)
+    nsplit, per = sops.plan_splits(B, 128, K, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert nsplit > 2
+    valid[:, :per] = False                 # split 0 has no valid row
+    valid[0, per:3 * per] = False          # nor splits 1 and 2 of batch 0
+    _tc_vs_plain(cuda, q, rows, valid)
+
+
+@pytest.mark.parametrize("K", [300, 2048])
+def test_cuda_sparse_mla_tc_all_invalid_query(cuda, K):
+    g = torch.Generator().manual_seed(8)
+    q, rows, valid = _mla_bf16(g, 2, 2, K, False)
+    valid[1, 0] = False
+    o, m, l = _tc_vs_plain(cuda, q, rows, valid)
+    assert torch.all(m[1, 0] == -2.0e38)
+    assert torch.all(l[1, 0] == 0) and torch.all(o[1, 0] == 0)
+
+
+def test_cuda_sparse_mla_routes(cuda):
+    """bf16 at MLA's widths takes the tensor-core kernel; fp32, other
+    widths and head counts that are not a multiple of 64 the general one."""
+    g = torch.Generator().manual_seed(9)
+    cases = [(torch.bfloat16, 128, 576, 512, "tc"),
+             (torch.float32, 128, 576, 512, "general"),
+             (torch.bfloat16, 4, 40, 32, "general"),
+             (torch.bfloat16, 96, 576, 512, "general")]
+    for dt, H, D, R, route in cases:
+        q = torch.randn((1, 1, H, D), generator=g).to(dt).to(cuda)
+        rows = torch.randn((1, 70, D), generator=g).to(dt).to(cuda)
+        valid = torch.ones((1, 70), dtype=torch.bool, device=cuda)
+        assert sops.tc_route(q, rows, R) == (route == "tc")
+        n = (sops.partial_attend.launches_tc,
+             sops.partial_attend.launches_general)
+        sops.partial_attend(q, rows, valid, 0.1, R)
+        d = (sops.partial_attend.launches_tc - n[0],
+             sops.partial_attend.launches_general - n[1])
+        assert d == ((1, 0) if route == "tc" else (0, 1)), (dt, H, D, R)
+
+
+def test_cuda_sparse_mla_merge_vs_plain(cuda):
+    from repro_torch.kernels.sparse_mla import ref as sref
+    g = torch.Generator().manual_seed(10)
+    S, B, Q, H, R = 5, 2, 1, 128, 512
+    o = torch.randn((S, B, Q, H, R), generator=g)
+    m = torch.randn((S, B, Q, H), generator=g) * 3
+    l = torch.rand((S, B, Q, H), generator=g) * 10
+    for t in (o, l):
+        t[1] = 0
+        t[:, 1] = 0
+    m[1] = -2.0e38                         # an all-invalid split
+    m[:, 1] = -2.0e38                      # an all-invalid query
+    want = sref.merge_splits_ref(o, m, l)
+    n0 = sops.merge_splits.launches
+    got = sops.merge_splits(o.to(cuda), m.to(cuda), l.to(cuda))
+    assert sops.merge_splits.launches == n0 + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    assert torch.all(got[1][1].cpu() == -2.0e38)
+    assert torch.all(got[2][1].cpu() == 0) and torch.all(got[0][1].cpu() == 0)
 
 
 # ---------------------------------------------------------------------------

@@ -104,13 +104,21 @@ def _fake_cuda_calls():
             torch.zeros((1, 1, 4, 40), device=dev),
             torch.zeros((1, 6, 40), device=dev),
             torch.ones((1, 6), dtype=torch.bool, device=dev), 0.1, 32),
+        "partial_attend_tc": lambda: s.partial_attend(
+            torch.zeros((1, 1, 64, 576), dtype=torch.bfloat16, device=dev),
+            torch.zeros((1, 6, 576), dtype=torch.bfloat16, device=dev),
+            torch.ones((1, 6), dtype=torch.bool, device=dev), 0.1, 512),
+        "merge_splits": lambda: s.merge_splits(
+            torch.zeros((2, 3, 512), device=dev),
+            torch.zeros((2, 3), device=dev), torch.zeros((2, 3), device=dev)),
     }
 
 
 @pytest.mark.parametrize("name", ["gather_rows", "scatter_rows",
                                   "gather_rows_dequant", "gather_pages",
                                   "gather_pages_dequant", "indexer_scores",
-                                  "partial_attend"])
+                                  "partial_attend", "partial_attend_tc",
+                                  "merge_splits"])
 def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):
     """Fake CUDA tensors on a machine without CUDA or nvcc: the wrapper
     must try its kernel and fail, not return the plain version."""
