@@ -9,11 +9,17 @@ the script exits non-zero without a result line):
 1. build  — compile the CUDA kernels of ``src/repro_torch/kernels`` from
    the checkout (one nvcc per source, in parallel);
 2. card   — print ``nvidia-smi`` name and power limit;
-3. kernels — call each kernel's wrapper at the shapes the serve path gives
-   it, hold it against its plain PyTorch version (the gathers, dequant
-   included, and the scatter bit for bit), time kernel, plain version and,
-   where one exists, a single PyTorch call computing the same function,
-   and compute the card's lower bound for the work.  The sparse-MLA
+3. kernels — time the copy engine on the host link (256 MiB pinned <->
+   device copies), call each kernel's wrapper at the shapes the serve path
+   gives it, hold it against its plain PyTorch version (the gathers,
+   dequant included, and the scatter bit for bit), time kernel, plain
+   version and, where one exists, a single PyTorch call computing the
+   same function, and compute the card's lower bound for the work (for
+   the UVA kernels: the larger of the bytes that cross the host link over
+   its peak, PCIe Gen5 x16, and the device bytes over HBM; a contiguous
+   copy of the same bytes is timed beside them).  The row gathers run on both routes: the decode miss fetch (direct) and
+   a prefill chunk's per-query rows (staged; each distinct row must be
+   read once, by the kernel's own count).  The sparse-MLA
    partial runs at its three serve shapes (Attn0, Attn1, a whole prefill
    chunk) on the tensor-core route, each also timed on the general route
    (the CUDA-core kernel) on the same inputs; its split merge is held
@@ -26,7 +32,9 @@ the script exits non-zero without a result line):
    tokens with random weights from a seed, bf16 host tier; the launch
    counts of its kernels are read after this run and must be above 0, as
    must the decode misses (host-tier reads over UVA) and the pool
-   evictions; every sparse-MLA partial must take the tensor-core route;
+   evictions; every sparse-MLA partial must take the tensor-core route,
+   every prefill tier fetch the staged gather route and the decode ones
+   the direct route;
 6. quant serve — the same serve on the same weights with an int8 host
    tier (``--host-cache-dtype int8``): the fused gather-dequant kernel
    must carry every tier read;
@@ -53,6 +61,10 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 / fp32-TC ops/s
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "fp32": 495e12}
+# the host link, PCIe Gen5 x16 (data sheet: 128 GB/s both ways), each way
+LINK_BYTES_S = 64e9
+# the copy engine's pinned <-> device rates, measured by copy_rates()
+COPY_BYTES_S = {}
 
 PREFILL_CHUNK = 256
 SERVE_ARGS = ["--arch", "deepseek-v32-exp-ess", "--layers", "4",
@@ -124,10 +136,63 @@ def wall_ms(torch, fn, iters=5, warmup=1):
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
-    tb = nbytes / HBM_BYTES_S * 1e3
+def bound_ms(nbytes: float, ops: float, dtype: str,
+             host_bytes: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: the larger of the device bytes over HBM
+    and, for the UVA kernels, the bytes that cross the host link over its
+    peak (the two overlap), against the operations over the peak rate."""
+    tb = max(nbytes / HBM_BYTES_S, host_bytes / LINK_BYTES_S) * 1e3
     to = ops / PEAK_OPS_S[dtype] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def copy_rates(torch, dev, nbytes=256 * 2**20):
+    """Pinned host <-> device copy rates of one ``nbytes`` buffer (bytes/s):
+    what the copy engine reaches on this host's link, beside its peak."""
+    host = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    COPY_BYTES_S["h2d"] = nbytes / timed_ms(
+        torch, lambda: card.copy_(host, non_blocking=True), iters=5,
+        warmup=1) * 1e3
+    COPY_BYTES_S["d2h"] = nbytes / timed_ms(
+        torch, lambda: host.copy_(card, non_blocking=True), iters=5,
+        warmup=1) * 1e3
+    del host, card
+
+
+def host_us(torch, fn, uncached, n=200):
+    """Mean host time of one call of a wrapper (its enqueue, the device not
+    waited for), with the UVA mapping looked up anew each call when
+    ``uncached`` (the lookup before the wrapper cached it)."""
+    from repro_torch.kernels.gather_cache import ops as gops
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if uncached:
+            gops._UVA.clear()
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def prefill_ids(torch, g, dev, B, C, K, start, slot_rows):
+    """Tier rows a prefill chunk at ``start`` asks for, ``[B, C*K]``: each
+    query's top-K of random scores over its causal positions, the chunk's
+    own (local) positions -1, slot b's position p at row
+    ``b * slot_rows + p`` (identity block tables)."""
+    pos = torch.arange(start + C, device=dev)
+    qpos = start + torch.arange(C, device=dev)
+    sc = torch.rand((B, C, start + C), generator=g, device=dev)
+    sc = sc.masked_fill(pos[None, None] > qpos[None, :, None], -1.0)
+    ids = sc.topk(K, dim=-1).indices                           # [B,C,K]
+    rows = ids + torch.arange(B, device=dev)[:, None, None] * slot_rows
+    return torch.where(ids < start, rows, -1).reshape(B, C * K)
+
+
+def distinct_live(torch, ids, s):
+    return int(ids[ids >= 0].clamp_max(s - 1).unique().numel())
 
 
 def check_kernels(torch, dev):
@@ -151,17 +216,21 @@ def check_kernels(torch, dev):
     NP = B * -(-S // R)
     scale = mla_scale(cfg)
     lens = torch.tensor([8193, 8200, 8207, 8224], device=dev)
+    C = PREFILL_CHUNK
     records = {}
 
     def randn(shape, dt=torch.bfloat16, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(dt)
 
-    # -- gather_rows: one layer of the pinned paged tier, decode misses ----
+    # -- gather_rows: one layer of the pinned paged tier; the decode misses
+    #    (direct route) and a prefill chunk's per-query rows (staged) ------
     host = randn((NP * R, D)).cpu().pin_memory()
     for m_per_slot in (M, K):                   # decode envelope, warmup
         ids = torch.randint(0, NP * R, (B * m_per_slot,), generator=g,
                             device=dev)
         ids[::7] = -1
+        require(not gops.staged_route(ids.numel(), NP * R),
+                f"gather_rows at M={m_per_slot} must read directly")
         got = gops.gather_rows(host, ids)
         want = gref.gather_rows_ref(host, ids.cpu())
         torch.cuda.synchronize()
@@ -171,24 +240,79 @@ def check_kernels(torch, dev):
     ids[::7] = -1
     nrows = B * M
     row_b = D * 2
+    nread = int((ids >= 0).sum())
     dst = torch.empty((nrows, D), dtype=torch.bfloat16, device=dev)
-    # rows read (ids >= 0) + every row written + the ids
-    nb, _ = bound_ms((int((ids >= 0).sum()) + nrows) * row_b + 8 * nrows, 0,
-                     "bf16")
+    # rows read over the link; every row written + the ids in HBM
+    nb, _ = bound_ms(nrows * row_b + 8 * nrows, 0, "bf16",
+                     host_bytes=nread * row_b)
     records["gather_rows"] = dict(
         name="gather_rows", route="cuda",
         source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
         replaces="src/repro/kernels/gather_cache/gather_cache.py:46",
         max_abs_err=0.0,
         ms=timed_ms(torch, lambda: gops.gather_rows(host, ids)),
+        device_ms=graph_ms(torch, lambda: gops.gather_rows(host, ids)),
         plain_ms=wall_ms(torch, lambda: gref.gather_rows_ref(
             host, ids.cpu()).to(dev)),
-        bound_ms=nb, bound_by="bytes",
-        library_ms=timed_ms(torch, lambda: dst.copy_(host[:nrows],
-                                                     non_blocking=True)))
+        bound_ms=nb, bound_by="bytes", library_ms=None,
+        # the same bytes as one contiguous pinned -> device copy
+        copy_ms=timed_ms(torch, lambda: dst.copy_(host[:nrows],
+                                                  non_blocking=True)),
+        host_us=host_us(torch, lambda: gops.gather_rows(host, ids), False),
+        host_us_uncached=host_us(torch, lambda: gops.gather_rows(host, ids),
+                                 True),
+        shape=f"direct route, {nrows} ids ({nread} live) x {row_b} B")
+    del dst
+
+    # a prefill chunk at start 2048: 4 x 256 queries x top-2048 over 2048
+    # prior positions per slot, local ids -1 (one layer's call)
+    start = 2048
+    pids = prefill_ids(torch, g, dev, B, C, K, start, -(-S // R) * R)
+    require(gops.staged_route(pids.numel(), NP * R),
+            "the prefill call must take the staged route")
+    ndist, nlive = distinct_live(torch, pids, NP * R), int((pids >= 0).sum())
+    tier_dev = host.to(dev)
+    fetched = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = gops.gather_rows(host, pids, fetched=fetched)
+    want = gref.gather_rows_ref(tier_dev, pids)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "gather_rows (staged) differs")
+    require(int(fetched) == ndist,
+            f"gather_rows (staged) read {int(fetched)} rows, {ndist} distinct")
+    del got, want
+    npre = pids.numel()
+    cdst = torch.empty((ndist, D), dtype=torch.bfloat16, device=dev)
+    nb, _ = bound_ms(npre * row_b + 8 * npre, 0, "bf16",
+                     host_bytes=ndist * row_b)
+    records["gather_rows[prefill]"] = dict(
+        name="gather_rows[prefill]", route="cuda",
+        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_cache/gather_cache.py:46",
+        max_abs_err=0.0,
+        ms=timed_ms(torch, lambda: gops.gather_rows(host, pids), iters=5,
+                    warmup=1),
+        device_ms=graph_ms(torch, lambda: gops.gather_rows(host, pids),
+                           iters=5),
+        # the direct kernel on the same ids, cut into launches of at most
+        # the view's rows (what the prefill paid before the staged route)
+        direct_ms=timed_ms(torch, lambda: [gops.gather_rows(host, part)
+                                           for part in pids.view(-1).split(
+                                               NP * R)], iters=2, warmup=1),
+        # the plain version on a device copy of the tier (on the host it
+        # takes seconds at this size)
+        plain_ms=timed_ms(torch, lambda: gref.gather_rows_ref(tier_dev, pids),
+                          iters=3, warmup=1),
+        bound_ms=nb, bound_by="bytes", library_ms=None,
+        copy_ms=timed_ms(torch, lambda: cdst.copy_(host[:ndist],
+                                                   non_blocking=True)),
+        distinct_rows=ndist, live_ids=nlive,
+        shape=f"staged route, ids {list(pids.shape)} ({nlive} live, "
+              f"{ndist} distinct) x {row_b} B")
+    del cdst, tier_dev, host
+    torch.cuda.empty_cache()
 
     # -- scatter_rows: the stacked prefill flush (4 layers x B x 256 rows) --
-    Lh, C = 4, PREFILL_CHUNK
+    Lh = 4
     tier = torch.zeros((Lh * NP * R, D), dtype=torch.bfloat16).pin_memory()
     want_tier = tier.clone()
     tgt = torch.randperm(Lh * NP * R, generator=g, device=dev)[:Lh * B * C]
@@ -200,7 +324,10 @@ def check_kernels(torch, dev):
     require(torch.equal(tier, want_tier), "scatter_rows differs")
     n = rows.shape[0]
     host_dst = torch.empty((n, D), dtype=torch.bfloat16).pin_memory()
-    nb, _ = bound_ms(2 * int((tgt >= 0).sum()) * row_b + 8 * n, 0, "bf16")
+    # rows read + the targets in HBM, the kept rows written over the link
+    nkept = int((tgt >= 0).sum())
+    nb, _ = bound_ms(nkept * row_b + 8 * n, 0, "bf16",
+                     host_bytes=nkept * row_b)
     records["scatter_rows"] = dict(
         name="scatter_rows", route="cuda",
         source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
@@ -210,17 +337,19 @@ def check_kernels(torch, dev):
         ms=timed_ms(torch, lambda: gops.scatter_rows(tier, tgt, rows)),
         plain_ms=wall_ms(torch, lambda: gref.scatter_rows_ref(
             want_tier, tgt.cpu(), rows.cpu())),
-        bound_ms=nb, bound_by="bytes",
-        library_ms=timed_ms(torch, lambda: host_dst.copy_(
+        bound_ms=nb, bound_by="bytes", library_ms=None,
+        # the same bytes as one contiguous device -> pinned copy
+        copy_ms=timed_ms(torch, lambda: host_dst.copy_(
             rows, non_blocking=True)))
 
     # -- gather_rows_dequant: the decode miss fetch of an int8 / fp8 tier
-    #    (one layer of the serve cell's pinned tier, 4 slots x 256 rows) --
+    #    (one layer of the serve cell's pinned tier, 4 slots x 256 rows,
+    #    direct route) and the prefill chunk's call above (staged route) --
     from repro_torch.distributed import compression as cmp
     ids = torch.randint(0, NP * R, (B * M,), generator=g, device=dev)
     ids[::7] = -1
     nread = int((ids >= 0).sum())
-    deq = {}
+    deq, deq_pre = {}, {}
     for qname in ("fp8", "int8"):            # int8 last: its tier is timed
         q, sc = cmp.quantize_rows(randn((NP * R, D)), cmp.CACHE_QUANT_DTYPES[
             qname])
@@ -234,28 +363,83 @@ def check_kernels(torch, dev):
                     f"gather_rows_dequant differs ({qname}, {out_dt})")
         deq[qname] = dict(
             ms=timed_ms(torch, lambda: gops.gather_rows_dequant(q, sc, ids)),
+            device_ms=graph_ms(torch, lambda: gops.gather_rows_dequant(
+                q, sc, ids)),
             plain_ms=wall_ms(torch, lambda: gref.gather_rows_dequant_ref(
                 q, sc, ids.cpu()).to(dev)),
             # the same rows' payload alone, by the plain row gather: the
             # difference is the cost of the 2-byte scale reads (and of
             # writing bf16 instead of one byte)
-            payload_ms=timed_ms(torch, lambda: gops.gather_rows(q, ids)))
-    pay = torch.empty((nrows, D), dtype=q.dtype, device=dev)
-    scd = torch.empty((nrows, 1), dtype=torch.float16, device=dev)
+            payload_ms=timed_ms(torch, lambda: gops.gather_rows(q, ids)),
+            payload_device_ms=graph_ms(torch, lambda: gops.gather_rows(
+                q, ids)),
+            host_us=host_us(torch, lambda: gops.gather_rows_dequant(
+                q, sc, ids), False),
+            host_us_uncached=host_us(torch, lambda: gops.gather_rows_dequant(
+                q, sc, ids), True))
+        # the prefill call on this tier, against the plain version on a
+        # device copy of the tier
+        qd, sd = q.to(dev), sc.to(dev)
+        fetched = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = gops.gather_rows_dequant(q, sc, pids, fetched=fetched)
+        want = gref.gather_rows_dequant_ref(qd, sd, pids)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                f"gather_rows_dequant (staged, {qname}) differs")
+        require(int(fetched) == ndist,
+                f"gather_rows_dequant (staged, {qname}) read "
+                f"{int(fetched)} rows, {ndist} distinct")
+        del got, want
+        deq_pre[qname] = dict(
+            ms=timed_ms(torch, lambda: gops.gather_rows_dequant(q, sc, pids),
+                        iters=5, warmup=1),
+            device_ms=graph_ms(torch, lambda: gops.gather_rows_dequant(
+                q, sc, pids), iters=5),
+            direct_ms=timed_ms(torch, lambda: [
+                gops.gather_rows_dequant(q, sc, part)
+                for part in pids.view(-1).split(NP * R)], iters=2, warmup=1),
+            plain_ms=timed_ms(torch, lambda: gref.gather_rows_dequant_ref(
+                qd, sd, pids), iters=3, warmup=1))
+        del qd, sd
+        torch.cuda.empty_cache()
+    # int8 (the serve's quantized tier): copies of the same bytes
+    pay = torch.empty((max(nrows, ndist), D), dtype=q.dtype, device=dev)
+    scd = torch.empty((max(nrows, ndist), 1), dtype=torch.float16,
+                      device=dev)
 
-    def copy_q8():
-        pay.copy_(q[:nrows], non_blocking=True)
-        scd.copy_(sc[:nrows], non_blocking=True)
-    # rows read (payload + scale) + bf16 rows written + the ids
-    nb, _ = bound_ms(nread * (D + 2) + nrows * 2 * D + 8 * nrows, 0, "bf16")
+    def copy_q8(n):
+        pay[:n].copy_(q[:n], non_blocking=True)
+        scd[:n].copy_(sc[:n], non_blocking=True)
+    # rows read (payload + scale) over the link; bf16 rows written + the ids
+    nb, _ = bound_ms(nrows * 2 * D + 8 * nrows, 0, "bf16",
+                     host_bytes=nread * (D + 2))
     records["gather_rows_dequant"] = dict(
         name="gather_rows_dequant", route="cuda",
         source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
         replaces="src/repro/kernels/gather_cache/gather_cache.py:79",
         max_abs_err=0.0, ms=deq["int8"]["ms"],
+        device_ms=deq["int8"]["device_ms"],
         plain_ms=deq["int8"]["plain_ms"], bound_ms=nb, bound_by="bytes",
-        library_ms=timed_ms(torch, copy_q8), detail=deq)
-    del q, sc
+        library_ms=None, copy_ms=timed_ms(torch, lambda: copy_q8(nrows)),
+        host_us=deq["int8"]["host_us"],
+        host_us_uncached=deq["int8"]["host_us_uncached"], detail=deq,
+        shape=f"direct route, {nrows} ids ({nread} live) x ({D} + 2) B "
+              f"int8, bf16 out")
+    nb, _ = bound_ms(npre * 2 * D + 8 * npre, 0, "bf16",
+                     host_bytes=ndist * (D + 2))
+    records["gather_rows_dequant[prefill]"] = dict(
+        name="gather_rows_dequant[prefill]", route="cuda",
+        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_cache/gather_cache.py:79",
+        max_abs_err=0.0, ms=deq_pre["int8"]["ms"],
+        device_ms=deq_pre["int8"]["device_ms"],
+        direct_ms=deq_pre["int8"]["direct_ms"],
+        plain_ms=deq_pre["int8"]["plain_ms"], bound_ms=nb, bound_by="bytes",
+        library_ms=None, copy_ms=timed_ms(torch, lambda: copy_q8(ndist)),
+        distinct_rows=ndist, live_ids=nlive, detail=deq_pre,
+        shape=f"staged route, ids {list(pids.shape)} ({nlive} live, "
+              f"{ndist} distinct) x ({D} + 2) B int8, bf16 out")
+    del q, sc, pay, scd, pids
 
     # -- gather_pages / gather_pages_dequant: one slot's pages (129) in
     #    every layer (4) of the serve cell's tier, bf16 and int8 ----------
@@ -269,7 +453,8 @@ def check_kernels(torch, dev):
     require(torch.equal(got.cpu(), gref.gather_pages_ref(
         tier, pids.cpu()[None].expand(Lh, -1), R)), "gather_pages differs")
     ddst = torch.empty((Lh, NBs * R, D), dtype=torch.bfloat16, device=dev)
-    nb, _ = bound_ms(2 * 2 * pbytes + 8 * Lh * NBs, 0, "bf16")
+    nb, _ = bound_ms(2 * pbytes + 8 * Lh * NBs, 0, "bf16",
+                     host_bytes=2 * pbytes)
     records["gather_pages"] = dict(
         name="gather_pages", route="cuda",
         source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
@@ -278,9 +463,9 @@ def check_kernels(torch, dev):
         ms=timed_ms(torch, lambda: gops.gather_pages(tier, pids, R)),
         plain_ms=wall_ms(torch, lambda: gref.gather_pages_ref(
             tier, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
-        bound_ms=nb, bound_by="bytes",
+        bound_ms=nb, bound_by="bytes", library_ms=None,
         # the same bytes as one contiguous pinned -> device copy
-        library_ms=timed_ms(torch, lambda: ddst.view(-1, D).copy_(
+        copy_ms=timed_ms(torch, lambda: ddst.view(-1, D).copy_(
             tier.view(-1, D)[:Lh * NBs * R], non_blocking=True)))
     del tier
     q, sc = cmp.quantize_rows(randn((Lh, NP * R, D)), torch.int8)
@@ -301,8 +486,8 @@ def check_kernels(torch, dev):
                                non_blocking=True)
         sdst.view(-1, 1).copy_(sc.view(-1, 1)[:Lh * NBs * R],
                                non_blocking=True)
-    nb, _ = bound_ms(pbytes * (1 + 2) + Lh * NBs * R * 2 + 8 * Lh * NBs, 0,
-                     "bf16")
+    nb, _ = bound_ms(pbytes * 2 + 8 * Lh * NBs, 0, "bf16",
+                     host_bytes=pbytes + Lh * NBs * R * 2)
     records["gather_pages_dequant"] = dict(
         name="gather_pages_dequant", route="cuda",
         source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
@@ -311,8 +496,8 @@ def check_kernels(torch, dev):
         ms=timed_ms(torch, lambda: gops.gather_pages_dequant(q, sc, pids, R)),
         plain_ms=wall_ms(torch, lambda: gref.gather_pages_dequant_ref(
             q, sc, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
-        bound_ms=nb, bound_by="bytes", library_ms=timed_ms(torch,
-                                                           copy_pages_q8))
+        bound_ms=nb, bound_by="bytes", library_ms=None,
+        copy_ms=timed_ms(torch, copy_pages_q8))
     del q, sc
 
     # -- indexer_scores: decode (Q=1) and a prefill chunk (causal) ----------
@@ -633,6 +818,11 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     # 3. kernels
+    copy_rates(torch, dev)
+    print(f"host link: pinned -> device {COPY_BYTES_S['h2d'] / 1e9:.2f} GB/s, "
+          f"device -> pinned {COPY_BYTES_S['d2h'] / 1e9:.2f} GB/s (256 MiB "
+          f"copies; the bounds take its peak, {LINK_BYTES_S / 1e9:.0f} GB/s "
+          f"each way)  [{card}]", flush=True)
     records = check_kernels(torch, dev)
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -643,6 +833,13 @@ def main() -> int:
                  if "device_ms" in r else "")
               + (f", general route {r['general_ms']:.4f} ms, "
                  f"{r['nsplit']} split(s)" if "general_ms" in r else "")
+              + (f", copy of the same bytes {r['copy_ms']:.4f} ms"
+                 if "copy_ms" in r else "")
+              + (f", direct route on the same ids {r['direct_ms']:.4f} ms"
+                 if "direct_ms" in r else "")
+              + (f", wrapper host {r['host_us']:.2f} us (UVA lookup each "
+                 f"call: {r['host_us_uncached']:.2f} us)"
+                 if "host_us" in r else "")
               + (f"; {r['shape']}" if "shape" in r else "")
               + f"  [{card}]", flush=True)
     a0, pf = records["sparse_mla_partial[attn0]"], \
@@ -655,9 +852,18 @@ def main() -> int:
           f"shares of bound {a0['bound_ms'] / a0['ms']:.4f} (attn0), "
           f"{pf['bound_ms'] / pf['ms']:.4f} (prefill)  [{card}]", flush=True)
     for qname, d in records["gather_rows_dequant"]["detail"].items():
-        print(f"  gather_rows_dequant[{qname}]: kernel {d['ms']:.4f} ms, "
-              f"plain {d['plain_ms']:.4f} ms; the same rows' payload alone "
-              f"by gather_rows {d['payload_ms']:.4f} ms  [{card}]",
+        print(f"  gather_rows_dequant[{qname}]: kernel {d['ms']:.4f} ms "
+              f"(device {d['device_ms']:.4f}), plain {d['plain_ms']:.4f} ms; "
+              f"the same rows' payload alone by gather_rows "
+              f"{d['payload_ms']:.4f} ms (device "
+              f"{d['payload_device_ms']:.4f}); wrapper host "
+              f"{d['host_us']:.2f} us ({d['host_us_uncached']:.2f} with a "
+              f"UVA lookup each call)  [{card}]", flush=True)
+    for qname, d in records["gather_rows_dequant[prefill]"]["detail"].items():
+        print(f"  gather_rows_dequant[prefill, {qname}]: staged "
+              f"{d['ms']:.4f} ms (device {d['device_ms']:.4f}), direct "
+              f"route on the same ids {d['direct_ms']:.4f} ms, plain (device "
+              f"copy of the tier) {d['plain_ms']:.4f} ms  [{card}]",
               flush=True)
     # 4. small input against the CPU plain path (fp32: the general route)
     for k in ("launches_tc", "launches_general"):
@@ -681,20 +887,24 @@ def main() -> int:
                "indexer_scores": iops.indexer_scores,
                "sparse_mla_partial": sops.partial_attend,
                "sparse_mla_merge": sops.merge_splits}
-    # the sparse-MLA wrapper's per-route counts beside its total
-    routes = {"sparse_mla_tc": "launches_tc",
-              "sparse_mla_general": "launches_general"}
+    # the per-route counts of the sparse-MLA wrapper and the row gathers
+    # beside their totals
+    routes = {"sparse_mla_tc": (sops.partial_attend, "launches_tc"),
+              "sparse_mla_general": (sops.partial_attend, "launches_general")}
+    for name in ("gather_rows", "gather_rows_dequant"):
+        for r in ("direct", "staged"):
+            routes[f"{name}_{r}"] = (kernels[name], f"launches_{r}")
 
     def counted(fn):
         for k in kernels.values():
             k.launches = 0
-        for attr in routes.values():
-            setattr(sops.partial_attend, attr, 0)
+        for k, attr in routes.values():
+            setattr(k, attr, 0)
         out = fn()
         torch.cuda.synchronize()
         n = {name: k.launches for name, k in kernels.items()}
-        n.update({name: getattr(sops.partial_attend, attr)
-                  for name, attr in routes.items()})
+        n.update({name: getattr(k, attr)
+                  for name, (k, attr) in routes.items()})
         return out, n
 
     def require_tc_only(counts, phase):
@@ -708,14 +918,27 @@ def main() -> int:
             require(counts[name] > 0,
                     f"{name} was not launched by the {phase} run")
 
+    def require_gather_routes(counts, name, a, phase):
+        """The prefill's tier fetch (one per layer and chunk) takes the
+        staged route, the decode and warmup fetches the direct one."""
+        cfg = serve.config_from_args(a)
+        W = min(cfg.ess.warmup_windows, a.prompt_len - 1)
+        prefill = cfg.num_layers * -(-(a.prompt_len - W) // a.prefill_chunk)
+        staged, direct = counts[f"{name}_staged"], counts[f"{name}_direct"]
+        require(staged == prefill and direct > 0
+                and staged + direct == counts[name],
+                f"the {phase} run's {name} routes: {staged} staged (the "
+                f"prefill's {prefill} expected), {direct} direct")
+
     args = serve.build_parser().parse_args(SERVE_ARGS)
     print("serve: deepseek-v32-exp-ess at full width; cuts: num_layers "
           "61 -> 4 (3 dense + 1 MoE), mtp_depth 1 -> 0", flush=True)
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(args))
-    for name in ("gather_rows", "scatter_rows", "indexer_scores",
-                 "sparse_mla_merge"):
+    for name in ("scatter_rows", "indexer_scores", "sparse_mla_merge"):
         records[name]["launches"] = n[name]
+    records["gather_rows"]["launches"] = n["gather_rows_direct"]
+    records["gather_rows[prefill]"]["launches"] = n["gather_rows_staged"]
     for tag in ("attn0", "attn1", "prefill"):
         records[f"sparse_mla_partial[{tag}]"]["launches"] = n["sparse_mla_tc"]
     res = out["result"]
@@ -729,6 +952,7 @@ def main() -> int:
     require_launched(n, ("gather_rows", "scatter_rows", "indexer_scores",
                          "sparse_mla_partial", "sparse_mla_merge"), "serve")
     require_tc_only(n, "serve")
+    require_gather_routes(n, "gather_rows", args, "serve")
     require(res.misses.sum() > 0, "decode rounds read nothing from the tier")
     require(res.evicted > 0, "the pool never evicted")
     params, bf16_tokens = out["params"], res.tokens
@@ -739,7 +963,9 @@ def main() -> int:
         SERVE_ARGS + ["--host-cache-dtype", "int8"])
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(qargs, params=params))
-    records["gather_rows_dequant"]["launches"] = n["gather_rows_dequant"]
+    records["gather_rows_dequant"]["launches"] = n["gather_rows_dequant_direct"]
+    records["gather_rows_dequant[prefill]"]["launches"] = \
+        n["gather_rows_dequant_staged"]
     res = out["result"]
     agree = int((res.tokens == bf16_tokens).sum())
     print(f"quant serve: {serve.report(out)}  [{card}]", flush=True)
@@ -755,6 +981,7 @@ def main() -> int:
                          "indexer_scores", "sparse_mla_partial",
                          "sparse_mla_merge"), "quant serve")
     require_tc_only(n, "quant serve")
+    require_gather_routes(n, "gather_rows_dequant", qargs, "quant serve")
     require(n["gather_rows"] == 0, "quant serve read the tier unquantized")
     del out, res
 
@@ -769,7 +996,8 @@ def main() -> int:
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "general_ms")
+            "device_ms", "general_ms", "copy_ms", "direct_ms",
+            "distinct_rows")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

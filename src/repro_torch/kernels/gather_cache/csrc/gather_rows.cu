@@ -2,33 +2,50 @@
 // fused int8/fp8 dequant variants, and the write-back scatter.
 //
 // Replaces, in src/repro/kernels/gather_cache/gather_cache.py:
-//   gather_rows_kernel               -> gather_rows_kernel
-//   gather_rows_dequant_kernel       -> gather_rows_dequant_kernel
+//   gather_rows_kernel               -> gather_rows_kernel (direct route),
+//                                       mark/fetch/expand (staged route)
+//   gather_rows_dequant_kernel       -> gather_rows_dequant_kernel (direct),
+//                                       mark/fetch_dequant/expand (staged)
 //   gather_row_blocks_kernel         -> gather_pages_kernel
 //   gather_row_blocks_dequant_kernel -> gather_pages_dequant_kernel
 // The Pallas kernels move one row (or page) per grid step.  On the H100
 // the latent tier lives in pinned host memory; these kernels dereference
 // the tier's UVA device pointer directly, so the scattered rows cross PCIe
 // as the threads' own 16-byte loads and land packed in device memory: no
-// host-side gather and no staging copy.
+// host-side gather and no host staging copy.
 //
-// Bound: bytes.  Each row is read once from the tier and written once to
-// device memory; the dequant is one multiply per element.  Over PCIe the
-// host link, not HBM, is the limit, so each design keeps many independent
-// 16-byte reads in flight:
-// * rows: one warp per row, each lane keeps up to four loads in flight
-//   before its first store, a 256-thread block serves 8 rows.  The
-//   dequant variant reads the row's f16 scale with one lane and
-//   broadcasts it by shuffle; that 2-byte read is a separate small PCIe
-//   read per row, beside the row's 576 payload bytes.
+// Bound: bytes, and the host link (about 55 GB/s) rather than HBM
+// (3.35 TB/s) for every byte read from the tier.  Two routes for the row
+// gathers, chosen by the wrapper from shapes alone (ops.staged_route):
+// * direct (M ids <= S tier rows: the decode miss fetch, the warmup
+//   replay): one warp per row; every load of the row -- its 16-byte
+//   payload vectors and, for dequant, its f16 scale, read by every lane
+//   from the same address -- is issued before any is consumed, so a row
+//   costs one PCIe round trip, and the whole launch's rows are in flight
+//   at once at M = 1024 and M = 8192.
+// * staged (M > S, so ids must repeat: the prefill, where every query of
+//   a slot picks among the same prior rows): each distinct row crosses
+//   PCIe once per launch.  mark sets flags[clip(id)] for every live id
+//   (a flag plane [S] cleared per launch; every writer stores the same 1,
+//   so no winner is needed: the staging slot of a row is the row itself);
+//   fetch reads each flagged row once over UVA into an HBM staging buffer
+//   [S, row] (dequantized there for the fused variant); expand is the
+//   direct kernel run from that buffer, out[i] = staging[clip(ids[i])],
+//   with streaming stores so the output (M rows, GBs) does not evict the
+//   staging rows from L2.  Nothing depends on an order of atomics, so the
+//   result is deterministic.
 // * pages: one 256-thread block per (layer, page), so one launch covers
 //   every layer and a 64-row page (72 KB in bf16) is spread over 256
 //   threads instead of one warp.  The dequant variant first stages the
 //   page's scales in shared memory (one coalesced read of R x 2 bytes).
-// The widening is exact (int8 and e4m3 both fit f16/fp32), the product is
-// one fp32 multiply and the bf16 result is rounded to nearest even, so the
-// output equals the plain PyTorch version (q.float() * s.float()) bit for
-// bit.
+// The widening is exact (int8 and e4m3 both fit f16/fp32; e4m3 pairs go
+// through the paired converter), the product is one fp32 multiply and the
+// bf16 result is rounded to nearest even, so the output equals the plain
+// PyTorch version (q.float() * s.float()) bit for bit.
+//
+// A launch of a row gather may be given a counter (int32 on the device):
+// it adds the number of tier rows the launch read over the link (the live
+// ids on the direct route, the distinct flagged rows on the staged one).
 //
 // scatter_rows is the device-side write of new rows into the tier through
 // the same mapping (it replaces the XLA host-compute scatter of
@@ -48,41 +65,89 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 constexpr int kUnroll = 4;
 
-__global__ void gather_rows_kernel(const uint4* __restrict__ src,
-                                   const int64_t* __restrict__ ids,
-                                   uint4* __restrict__ out, int64_t m,
-                                   int64_t s, int vecs_per_row) {
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= m) return;
-  const int lane = threadIdx.x & 31;
-  int64_t id = ids[row];
-  uint4* dst = out + row * vecs_per_row;
-  if (id < 0) {
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (int j = lane; j < vecs_per_row; j += 32) dst[j] = z;
-    return;
-  }
-  if (id >= s) id = s - 1;
-  const uint4* srow = src + id * vecs_per_row;
-  for (int base = 0; base < vecs_per_row; base += 32 * kUnroll) {
+// Copies one row of vpr 16-byte vectors with the warp: every load is issued
+// before the first store.
+template <bool kStream>
+__device__ __forceinline__ void copy_row_warp(const uint4* __restrict__ srow,
+                                              uint4* __restrict__ dst,
+                                              int vpr, int lane) {
+  for (int base = 0; base < vpr; base += 32 * kUnroll) {
     uint4 buf[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u * 32 + lane;
-      if (j < vecs_per_row) buf[u] = srow[j];
+      if (j < vpr) buf[u] = srow[j];
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u * 32 + lane;
-      if (j < vecs_per_row) dst[j] = buf[u];
+      if (j < vpr) {
+        if constexpr (kStream) __stcs(dst + j, buf[u]);
+        else dst[j] = buf[u];
+      }
     }
   }
+}
+
+// out[i] = src[clip(ids[i], 0, s-1)], zero rows where ids[i] < 0; one warp
+// per row.  kStream: evict-first stores (the staged route's expand).
+template <bool kStream>
+__global__ void gather_rows_kernel(const uint4* __restrict__ src,
+                                   const int64_t* __restrict__ ids,
+                                   uint4* __restrict__ out, int64_t m,
+                                   int64_t s, int vpr, int* __restrict__ count) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= m) return;
+  const int lane = threadIdx.x & 31;
+  int64_t id = ids[row];
+  uint4* dst = out + row * vpr;
+  if (id < 0) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int j = lane; j < vpr; j += 32) {
+      if constexpr (kStream) __stcs(dst + j, z);
+      else dst[j] = z;
+    }
+    return;
+  }
+  if (id >= s) id = s - 1;
+  copy_row_warp<kStream>(src + id * vpr, dst, vpr, lane);
+  if (count != nullptr && lane == 0) atomicAdd(count, 1);
+}
+
+// ---- the staged route: mark, fetch, expand ------------------------------
+
+// flags[clip(ids[i])] = 1 for every ids[i] >= 0 (flags cleared before).
+__global__ void mark_rows_kernel(const int64_t* __restrict__ ids,
+                                 int* __restrict__ flags, int64_t m,
+                                 int64_t s) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    int64_t id = ids[i];
+    if (id < 0) continue;
+    if (id >= s) id = s - 1;
+    if (__ldcg(flags + id) == 0) flags[id] = 1;   // most ids are repeats
+  }
+}
+
+// staging[r] = src[r] for every flagged row r: each read once over UVA.
+__global__ void fetch_marked_rows_kernel(const uint4* __restrict__ src,
+                                         const int* __restrict__ flags,
+                                         uint4* __restrict__ staging,
+                                         int64_t s, int vpr,
+                                         int* __restrict__ count) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= s || flags[row] == 0) return;
+  const int lane = threadIdx.x & 31;
+  copy_row_warp<false>(src + row * vpr, staging + row * vpr, vpr, lane);
+  if (count != nullptr && lane == 0) atomicAdd(count, 1);
 }
 
 __global__ void scatter_rows_kernel(uint4* __restrict__ dst,
@@ -93,22 +158,8 @@ __global__ void scatter_rows_kernel(uint4* __restrict__ dst,
   if (row >= m) return;
   const int64_t t = tgt[row];
   if (t < 0 || t >= n) return;
-  const int lane = threadIdx.x & 31;
-  const uint4* srow = rows + row * vecs_per_row;
-  uint4* drow = dst + t * vecs_per_row;
-  for (int base = 0; base < vecs_per_row; base += 32 * kUnroll) {
-    uint4 buf[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * 32 + lane;
-      if (j < vecs_per_row) buf[u] = srow[j];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * 32 + lane;
-      if (j < vecs_per_row) drow[j] = buf[u];
-    }
-  }
+  copy_row_warp<false>(rows + row * vecs_per_row, dst + t * vecs_per_row,
+                       vecs_per_row, threadIdx.x & 31);
 }
 
 template <typename U>
@@ -131,42 +182,74 @@ __global__ void scatter_units_kernel(U* __restrict__ dst,
 struct Int8Q {};
 struct Fp8Q {};
 
+// 16 payload bytes -> 16 floats (exact: int8 and e4m3 fit fp32)
 template <typename Q>
-__device__ __forceinline__ float widen(uint8_t b);
-
-template <>
-__device__ __forceinline__ float widen<Int8Q>(uint8_t b) {
-  return (float)(int8_t)b;
-}
-
-template <>
-__device__ __forceinline__ float widen<Fp8Q>(uint8_t b) {
-  const __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b,
-                                               __NV_E4M3);
-  return __half2float(__half(h));
+__device__ __forceinline__ void widen16(const uint4 in, float (&f)[16]) {
+  if constexpr (std::is_same_v<Q, Fp8Q>) {
+    // two e4m3 per conversion (cvt.rn.f16x2.e4m3x2); the low byte is .x
+    const __nv_fp8x2_storage_t* p =
+        reinterpret_cast<const __nv_fp8x2_storage_t*>(&in);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(p[k], __NV_E4M3);
+      const float2 v = __half22float2(__half2(h));
+      f[2 * k] = v.x;
+      f[2 * k + 1] = v.y;
+    }
+  } else {
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&in);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) f[k] = (float)(int8_t)b[k];
+  }
 }
 
 // 16 payload bytes times one scale -> 16 outputs (64 B fp32 / 32 B bf16)
 template <typename Q, typename O>
 __device__ __forceinline__ void dequant16(const uint4 in, const float s,
                                           O* __restrict__ out) {
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&in);
+  float f[16];
+  widen16<Q>(in, f);
   if constexpr (sizeof(O) == 4) {
     float4* o = reinterpret_cast<float4*>(out);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      o[k] = make_float4(widen<Q>(b[4 * k]) * s, widen<Q>(b[4 * k + 1]) * s,
-                         widen<Q>(b[4 * k + 2]) * s,
-                         widen<Q>(b[4 * k + 3]) * s);
+      o[k] = make_float4(f[4 * k] * s, f[4 * k + 1] * s, f[4 * k + 2] * s,
+                         f[4 * k + 3] * s);
   } else {
     uint4 w[2];
-    __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w);
+    __nv_bfloat162* wb = reinterpret_cast<__nv_bfloat162*>(w);
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      wb[k] = __float2bfloat16_rn(widen<Q>(b[k]) * s);
+    for (int k = 0; k < 8; ++k)     // round to nearest even, .x = low half
+      wb[k] = __floats2bfloat162_rn(f[2 * k] * s, f[2 * k + 1] * s);
     uint4* o = reinterpret_cast<uint4*>(out);
     o[0] = w[0];
     o[1] = w[1];
+  }
+}
+
+// One row of d payload bytes (vpr = d / 16 vectors) and its f16 scale ->
+// d outputs, by the warp.  The scale (one address for every lane: one
+// transaction) and every payload vector are loaded before any is used, so
+// the row costs one round trip over the link.
+template <typename Q, typename O>
+__device__ __forceinline__ void dequant_row_warp(const uint4* __restrict__ srow,
+                                                 const __half* __restrict__ sp,
+                                                 O* __restrict__ dst, int vpr,
+                                                 int lane) {
+  const __half sh = *sp;
+  for (int base = 0; base < vpr; base += 32 * kUnroll) {
+    uint4 buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + u * 32 + lane;
+      if (j < vpr) buf[u] = srow[j];
+    }
+    const float sc = __half2float(sh);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + u * 32 + lane;
+      if (j < vpr) dequant16<Q, O>(buf[u], sc, dst + j * 16);
+    }
   }
 }
 
@@ -177,7 +260,8 @@ __global__ void gather_rows_dequant_kernel(const uint4* __restrict__ src,
                                            const __half* __restrict__ scales,
                                            const int64_t* __restrict__ ids,
                                            O* __restrict__ out, int64_t m,
-                                           int64_t s, int d) {
+                                           int64_t s, int d,
+                                           int* __restrict__ count) {
   const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   if (row >= m) return;
   const int lane = threadIdx.x & 31;
@@ -191,24 +275,25 @@ __global__ void gather_rows_dequant_kernel(const uint4* __restrict__ src,
     return;
   }
   if (id >= s) id = s - 1;
-  float sc = 0.f;
-  if (lane == 0) sc = __half2float(scales[id]);
-  sc = __shfl_sync(0xffffffffu, sc, 0);
   const int vpr = d / 16;
-  const uint4* srow = src + id * vpr;
-  for (int base = 0; base < vpr; base += 32 * kUnroll) {
-    uint4 buf[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * 32 + lane;
-      if (j < vpr) buf[u] = srow[j];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * 32 + lane;
-      if (j < vpr) dequant16<Q, O>(buf[u], sc, dst + j * 16);
-    }
-  }
+  dequant_row_warp<Q, O>(src + id * vpr, scales + id, dst, vpr, lane);
+  if (count != nullptr && lane == 0) atomicAdd(count, 1);
+}
+
+// staging[r] = dequant(src[r], scales[r]) for every flagged row r: each
+// payload row and scale read once over UVA, widened once.
+template <typename Q, typename O>
+__global__ void fetch_marked_rows_dequant_kernel(
+    const uint4* __restrict__ src, const __half* __restrict__ scales,
+    const int* __restrict__ flags, O* __restrict__ staging, int64_t s, int d,
+    int* __restrict__ count) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= s || flags[row] == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int vpr = d / 16;
+  dequant_row_warp<Q, O>(src + row * vpr, scales + row, staging + row * d,
+                         vpr, lane);
+  if (count != nullptr && lane == 0) atomicAdd(count, 1);
 }
 
 constexpr int kPageThreads = 256;
@@ -296,15 +381,47 @@ int ess_uva_pointer(void* host, void** dev) {
   return (int)cudaHostGetDevicePointer(dev, host, 0);
 }
 
-// out[i] = src[clip(ids[i], 0, s-1)], zero rows where ids[i] < 0.
-// src: device or UVA pointer to s rows of row_bytes (a multiple of 16).
+static dim3 row_grid(int64_t rows) {
+  return dim3((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
+}
+
+// out[i] = src[clip(ids[i], 0, s-1)], zero rows where ids[i] < 0 (direct
+// route).  src: device or UVA pointer to s rows of row_bytes (a multiple of
+// 16).  count (may be null): += rows read from src.
 int ess_gather_rows(const void* src, const int64_t* ids, void* out,
-                    int64_t m, int64_t s, int64_t row_bytes, void* stream) {
+                    int64_t m, int64_t s, int64_t row_bytes, int* count,
+                    void* stream) {
   if (m == 0) return 0;
+  gather_rows_kernel<false><<<row_grid(m), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)src, ids, (uint4*)out, m, s, (int)(row_bytes / 16),
+      count);
+  return (int)cudaGetLastError();
+}
+
+// The grid of the mark pass: a grid-stride loop over the m ids.
+static dim3 mark_grid(int64_t m) {
+  int64_t blocks = (m + kThreads - 1) / kThreads;
+  return dim3((unsigned)(blocks < 4096 ? blocks : 4096));
+}
+
+// The same result by the staged route: mark the distinct clipped live ids
+// in flags [s] (int32, scratch), fetch each marked row once into staging
+// [s, row_bytes] (device scratch), expand staging to out.
+int ess_gather_rows_staged(const void* src, const int64_t* ids, void* out,
+                           void* staging, int* flags, int64_t m, int64_t s,
+                           int64_t row_bytes, int* count, void* stream) {
+  if (m == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
   const int vpr = (int)(row_bytes / 16);
-  const dim3 grid((unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
-  gather_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)src, ids, (uint4*)out, m, s, vpr);
+  int rc = (int)cudaMemsetAsync(flags, 0, (size_t)s * sizeof(int), st);
+  if (rc) return rc;
+  mark_rows_kernel<<<mark_grid(m), kThreads, 0, st>>>(ids, flags, m, s);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  fetch_marked_rows_kernel<<<row_grid(s), kThreads, 0, st>>>(
+      (const uint4*)src, flags, (uint4*)staging, s, vpr, count);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  gather_rows_kernel<true><<<row_grid(m), kThreads, 0, st>>>(
+      (const uint4*)staging, ids, (uint4*)out, m, s, vpr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -319,8 +436,7 @@ int ess_scatter_rows(void* dst, const int64_t* tgt, const void* rows,
                          (uint64_t)row_bytes;
   if (align % 16 == 0) {
     const int vpr = (int)(row_bytes / 16);
-    const dim3 grid((unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
-    scatter_rows_kernel<<<grid, kThreads, 0, st>>>(
+    scatter_rows_kernel<<<row_grid(m), kThreads, 0, st>>>(
         (uint4*)dst, tgt, (const uint4*)rows, m, n, vpr);
     return (int)cudaGetLastError();
   }
@@ -354,26 +470,56 @@ int ess_scatter_rows(void* dst, const int64_t* tgt, const void* rows,
 }
 
 // out[i] = bf16|f32(float(src[c]) * float(scales[c])), c = clip(ids[i]);
-// zero rows where ids[i] < 0.  qkind: 0 int8, 1 e4m3; okind: 0 f32, 1 bf16.
-// d (payload bytes per row) is a multiple of 16.
+// zero rows where ids[i] < 0 (direct route).  qkind: 0 int8, 1 e4m3;
+// okind: 0 f32, 1 bf16.  d (payload bytes per row) is a multiple of 16.
+// count (may be null): += rows read from src.
 int ess_gather_rows_dequant(const void* src, const void* scales,
                             const int64_t* ids, void* out, int64_t m,
                             int64_t s, int64_t d, int qkind, int okind,
-                            void* stream) {
+                            int* count, void* stream) {
   if (m == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((m + kRowsPerBlock - 1) / kRowsPerBlock));
   const uint4* sp = (const uint4*)src;
   const __half* sc = (const __half*)scales;
-#define ESS_GRD(Q, O)                                                        \
-  gather_rows_dequant_kernel<Q, O><<<grid, kThreads, 0, st>>>(sp, sc, ids,   \
-                                                              (O*)out, m, s, \
-                                                              (int)d)
+#define ESS_GRD(Q, O)                                              \
+  gather_rows_dequant_kernel<Q, O><<<row_grid(m), kThreads, 0, st>>>( \
+      sp, sc, ids, (O*)out, m, s, (int)d, count)
   if (qkind == 0 && okind == 0) ESS_GRD(Int8Q, float);
   else if (qkind == 0) ESS_GRD(Int8Q, __nv_bfloat16);
   else if (okind == 0) ESS_GRD(Fp8Q, float);
   else ESS_GRD(Fp8Q, __nv_bfloat16);
 #undef ESS_GRD
+  return (int)cudaGetLastError();
+}
+
+// The same result by the staged route: mark as ess_gather_rows_staged,
+// fetch and dequantize each marked row once into staging [s, d] of the
+// output dtype, expand staging to out.
+int ess_gather_rows_dequant_staged(const void* src, const void* scales,
+                                   const int64_t* ids, void* out,
+                                   void* staging, int* flags, int64_t m,
+                                   int64_t s, int64_t d, int qkind, int okind,
+                                   int* count, void* stream) {
+  if (m == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint4* sp = (const uint4*)src;
+  const __half* sc = (const __half*)scales;
+  int rc = (int)cudaMemsetAsync(flags, 0, (size_t)s * sizeof(int), st);
+  if (rc) return rc;
+  mark_rows_kernel<<<mark_grid(m), kThreads, 0, st>>>(ids, flags, m, s);
+  if ((rc = (int)cudaGetLastError())) return rc;
+#define ESS_FMD(Q, O)                                                    \
+  fetch_marked_rows_dequant_kernel<Q, O><<<row_grid(s), kThreads, 0, st>>>( \
+      sp, sc, flags, (O*)staging, s, (int)d, count)
+  if (qkind == 0 && okind == 0) ESS_FMD(Int8Q, float);
+  else if (qkind == 0) ESS_FMD(Int8Q, __nv_bfloat16);
+  else if (okind == 0) ESS_FMD(Fp8Q, float);
+  else ESS_FMD(Fp8Q, __nv_bfloat16);
+#undef ESS_FMD
+  if ((rc = (int)cudaGetLastError())) return rc;
+  const int vpr = (int)(d * (okind == 0 ? 4 : 2) / 16);
+  gather_rows_kernel<true><<<row_grid(m), kThreads, 0, st>>>(
+      (const uint4*)staging, ids, (uint4*)out, m, s, vpr, nullptr);
   return (int)cudaGetLastError();
 }
 

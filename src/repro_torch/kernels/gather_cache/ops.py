@@ -6,6 +6,12 @@ they launch the kernels or raise.  The cache/tier side may be a CUDA
 tensor or a **pinned** host tensor, which the kernel reads (or writes)
 through its UVA device pointer.  Each wrapper counts its launches in a
 plain integer attribute, ``gather_rows.launches``.
+
+The row gathers take one of two routes, by :func:`staged_route` (shapes
+alone): *direct*, one warp per id reading its row over the link, or
+*staged*, where each distinct row crosses the link once per launch into a
+device staging buffer that is then expanded to the ids.  Their counters
+split ``launches`` into ``launches_direct`` and ``launches_staged``.
 """
 
 from __future__ import annotations
@@ -31,13 +37,20 @@ def _lib() -> ctypes.CDLL:
     if "gather_cache" not in _READY:
         lib.ess_uva_pointer.argtypes = [_P, ctypes.POINTER(_P)]
         lib.ess_uva_pointer.restype = ctypes.c_int
-        lib.ess_gather_rows.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
+        lib.ess_gather_rows.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P,
+                                        _P]
         lib.ess_gather_rows.restype = ctypes.c_int
+        lib.ess_gather_rows_staged.argtypes = [_P, _P, _P, _P, _P, _I64,
+                                               _I64, _I64, _P, _P]
+        lib.ess_gather_rows_staged.restype = ctypes.c_int
         lib.ess_scatter_rows.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
         lib.ess_scatter_rows.restype = ctypes.c_int
         lib.ess_gather_rows_dequant.argtypes = [
-            _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P]
+            _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _P]
         lib.ess_gather_rows_dequant.restype = ctypes.c_int
+        lib.ess_gather_rows_dequant_staged.argtypes = [
+            _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _P]
+        lib.ess_gather_rows_dequant_staged.restype = ctypes.c_int
         lib.ess_gather_pages.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64,
                                          _P]
         lib.ess_gather_pages.restype = ctypes.c_int
@@ -48,21 +61,47 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# UVA device address of each pinned host storage seen, by its host base.
+# A hit is used only while the storage is still pinned, so a base that was
+# unpinned and reused by ordinary memory raises instead of being read.
+_UVA: dict[int, int] = {}
+
+
 def device_pointer(t: torch.Tensor) -> int:
     """Address the card dereferences for ``t``: its own pointer on CUDA, the
     UVA mapping of its page-locked storage on the host (raises if the host
-    tensor is not pinned)."""
+    tensor is not pinned).  The mapping is looked up once per storage."""
     if t.is_cuda:
         return t.data_ptr()
     if not t.is_pinned():
-        raise ValueError("host tier must be pinned (page-locked) memory for "
-                         "the UVA kernels; allocate it with pin_memory=True")
-    lib = _lib()
+        raise ValueError("host tier must be pinned (page-locked) memory "
+                         "for the UVA kernels; allocate it with "
+                         "pin_memory=True")
     base = t.untyped_storage().data_ptr()
-    dev = _P()
-    _build.check(lib, lib.ess_uva_pointer(_P(base), ctypes.byref(dev)),
-                 "cudaHostGetDevicePointer")
-    return dev.value + (t.data_ptr() - base)
+    dev = _UVA.get(base)
+    if dev is None:
+        lib = _lib()
+        ptr = _P()
+        _build.check(lib, lib.ess_uva_pointer(_P(base), ctypes.byref(ptr)),
+                     "cudaHostGetDevicePointer")
+        dev = _UVA[base] = ptr.value
+    return dev + (t.data_ptr() - base)
+
+
+def staged_route(m: int, s: int) -> bool:
+    """The row gathers' route rule: stage when the launch's ``m`` ids
+    outnumber the ``s`` rows of the tier view they index, so that ids
+    repeat (by pigeonhole).  The prefill's per-query fetch takes it; the
+    decode miss fetch and the warmup replay (``m <= s``) read directly."""
+    return m > s
+
+
+def _count_ptr(fetched: torch.Tensor | None, device) -> _P:
+    if fetched is None:
+        return _P(None)
+    if fetched.dtype != torch.int32 or fetched.device != device:
+        raise ValueError("fetched must be an int32 tensor on the ids' device")
+    return _P(fetched.data_ptr())
 
 
 def _check_rows(t: torch.Tensor, what: str, *, vec16: bool = True) -> int:
@@ -90,28 +129,52 @@ def _flat_ids(cache: torch.Tensor, ids: torch.Tensor):
     return cache.reshape(B * S, D), flat
 
 
-def gather_rows(cache: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
+                fetched: torch.Tensor | None = None) -> torch.Tensor:
     """cache [S,D] (or [B,S,D]), ids [...] (or [B,M]) -> rows [..., D] on
-    ``ids.device``: ``cache[clip(ids)]``, zero rows where ``ids < 0``."""
+    ``ids.device``: ``cache[clip(ids)]``, zero rows where ``ids < 0``.
+
+    ``fetched`` (an int32 tensor beside ``ids``, optional) gains the number
+    of cache rows the call read: each live id's on the direct route, each
+    distinct row once on the staged route (:func:`staged_route`)."""
     cache, ids = _flat_ids(cache, ids)
+    m, s = ids.numel(), cache.shape[0]
     if ids.device.type == "cpu":
+        if fetched is not None:
+            fetched += ref.rows_read(ids, s, staged_route(m, s))
         return ref.gather_rows_ref(cache, ids)
     if ids.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {ids.device}")
     row_bytes = _check_rows(cache, "gather_rows cache")
     idf = ids.reshape(-1).to(torch.int64).contiguous()
-    out = torch.empty((idf.shape[0], cache.shape[1]), dtype=cache.dtype,
+    out = torch.empty((m, cache.shape[1]), dtype=cache.dtype,
                       device=ids.device)
     src = device_pointer(cache)
+    cnt = _count_ptr(fetched, ids.device)
     lib = _lib()
-    _build.check(lib, lib.ess_gather_rows(
-        _P(src), _P(idf.data_ptr()), _P(out.data_ptr()), idf.shape[0],
-        cache.shape[0], row_bytes, _build.stream_ptr(out)), "gather_rows")
+    stream = _build.stream_ptr(out)
+    if staged_route(m, s):
+        staging = torch.empty((s, cache.shape[1]), dtype=cache.dtype,
+                              device=ids.device)
+        flags = torch.empty(s, dtype=torch.int32, device=ids.device)
+        rc = lib.ess_gather_rows_staged(
+            _P(src), _P(idf.data_ptr()), _P(out.data_ptr()),
+            _P(staging.data_ptr()), _P(flags.data_ptr()), m, s, row_bytes,
+            cnt, stream)
+        gather_rows.launches_staged += 1
+    else:
+        rc = lib.ess_gather_rows(_P(src), _P(idf.data_ptr()),
+                                 _P(out.data_ptr()), m, s, row_bytes, cnt,
+                                 stream)
+        gather_rows.launches_direct += 1
+    _build.check(lib, rc, "gather_rows")
     gather_rows.launches += 1
     return out.reshape(*ids.shape, cache.shape[1])
 
 
 gather_rows.launches = 0
+gather_rows.launches_direct = 0
+gather_rows.launches_staged = 0
 
 
 def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
@@ -162,14 +225,18 @@ def _check_quant(cache: torch.Tensor, scales: torch.Tensor, out_dtype,
 
 
 def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
-                        ids: torch.Tensor, out_dtype=torch.bfloat16
-                        ) -> torch.Tensor:
+                        ids: torch.Tensor, out_dtype=torch.bfloat16, *,
+                        fetched: torch.Tensor | None = None) -> torch.Tensor:
     """Fused quantized-tier gather: cache [S,D] int8/fp8, scales [S,1] f16,
     ids [...] -> rows [..., D] ``out_dtype`` on ``ids.device``:
     ``float(q) * float(s)`` of row ``clip(ids)``, zero rows where
-    ``ids < 0``."""
+    ``ids < 0``.  Routes and ``fetched`` as :func:`gather_rows`; the
+    staged route widens each distinct row once."""
     _check_quant(cache, scales, out_dtype, "gather_rows_dequant")
+    m, s = ids.numel(), cache.shape[0]
     if ids.device.type == "cpu":
+        if fetched is not None:
+            fetched += ref.rows_read(ids, s, staged_route(m, s))
         return ref.gather_rows_dequant_ref(cache, scales, ids, out_dtype)
     if ids.device.type != "cuda":
         raise ValueError(f"gather_rows_dequant: unsupported device "
@@ -177,18 +244,33 @@ def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
     _check_rows(cache, "gather_rows_dequant cache")
     idf = ids.reshape(-1).to(torch.int64).contiguous()
     D = cache.shape[1]
-    out = torch.empty((idf.shape[0], D), dtype=out_dtype, device=ids.device)
+    out = torch.empty((m, D), dtype=out_dtype, device=ids.device)
     src, sc = device_pointer(cache), device_pointer(scales)
+    cnt = _count_ptr(fetched, ids.device)
     lib = _lib()
-    _build.check(lib, lib.ess_gather_rows_dequant(
-        _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()),
-        idf.shape[0], cache.shape[0], D, _QKIND[cache.dtype],
-        _OKIND[out_dtype], _build.stream_ptr(out)), "gather_rows_dequant")
+    stream = _build.stream_ptr(out)
+    kinds = (_QKIND[cache.dtype], _OKIND[out_dtype])
+    if staged_route(m, s):
+        staging = torch.empty((s, D), dtype=out_dtype, device=ids.device)
+        flags = torch.empty(s, dtype=torch.int32, device=ids.device)
+        rc = lib.ess_gather_rows_dequant_staged(
+            _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()),
+            _P(staging.data_ptr()), _P(flags.data_ptr()), m, s, D, *kinds,
+            cnt, stream)
+        gather_rows_dequant.launches_staged += 1
+    else:
+        rc = lib.ess_gather_rows_dequant(
+            _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()), m, s,
+            D, *kinds, cnt, stream)
+        gather_rows_dequant.launches_direct += 1
+    _build.check(lib, rc, "gather_rows_dequant")
     gather_rows_dequant.launches += 1
     return out.reshape(*ids.shape, D)
 
 
 gather_rows_dequant.launches = 0
+gather_rows_dequant.launches_direct = 0
+gather_rows_dequant.launches_staged = 0
 
 
 def _page_args(cache: torch.Tensor, block_ids: torch.Tensor,

@@ -15,6 +15,15 @@ def gather_rows_ref(cache: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where((ids >= 0)[..., None], rows, torch.zeros_like(rows))
 
 
+def rows_read(ids: torch.Tensor, s: int, staged: bool) -> int:
+    """Tier rows a row gather over ``s`` rows reads for ``ids``: every id
+    ``>= 0`` on the direct route, each distinct clipped one once on the
+    staged route."""
+    live = ids[ids >= 0]
+    return int(live.clamp_max(s - 1).unique().numel() if staged
+               else live.numel())
+
+
 def scatter_rows_ref(dst: torch.Tensor, tgt: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """In place: ``dst[tgt[i]] = rows[i]`` where ``0 <= tgt[i] < len(dst)``;

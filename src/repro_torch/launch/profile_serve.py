@@ -2,13 +2,15 @@
 ``torch.profiler``, on the card.
 
 Serves the same batch as :mod:`repro_torch.launch.serve` (same arguments),
-then prints, for one steady prefill chunk and for ``--rounds`` decode rounds
-after the first, the wall time, the device's busy share (summed kernel time
-over wall time) and the kernels with the most device time.
+then prints, for one prefill chunk (``--chunk``, 1-based, default the
+second) and for ``--rounds`` decode rounds after the first, the wall time,
+the device's busy share (summed kernel time over wall time), the kernels
+with the most device time and the tier gathers' share (every kernel of
+``kernels/gather_cache`` that reads rows: both routes' passes).
 
   python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
       --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
-      --prefill-chunk 256 --rounds 5 [--host-cache-dtype int8]
+      --prefill-chunk 256 --rounds 5 [--chunk 9] [--host-cache-dtype int8]
 """
 
 from __future__ import annotations
@@ -27,9 +29,14 @@ from repro_torch.models.params import init_params
 from repro_torch.serving import engine as E
 
 
+# kernel names of the row gathers' passes (direct, mark, fetch, expand)
+_GATHER_KERNELS = ("gather_rows_kernel", "gather_rows_dequant_kernel",
+                   "mark_rows_kernel", "fetch_marked_rows")
+
+
 def _summary(prof, wall_s: float, top: int) -> list[str]:
     rows = []
-    busy_us = 0.0
+    busy_us = gather_us = 0.0
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): the CPU ops that
         # launched them carry the same time again
@@ -39,9 +46,13 @@ def _summary(prof, wall_s: float, top: int) -> list[str]:
         if dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
             busy_us += dev_us
+            if any(k in ev.key for k in _GATHER_KERNELS):
+                gather_us += dev_us
     rows.sort(reverse=True)
     out = [f"wall {wall_s * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
-           f"({100 * busy_us / 1e6 / wall_s:.1f} % of wall)"]
+           f"({100 * busy_us / 1e6 / wall_s:.1f} % of wall); tier gathers "
+           f"{gather_us / 1e3:.3f} ms ({100 * gather_us / busy_us:.1f} % of "
+           f"busy)"]
     for us, n, key in rows[:top]:
         out.append(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f} %  "
                    f"x{n:<5d} {key[:90]}")
@@ -52,6 +63,8 @@ def main(argv=None) -> int:
     ap = build_parser()
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--chunk", type=int, default=2,
+                    help="the prefill chunk to profile (1-based)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
@@ -67,19 +80,22 @@ def main(argv=None) -> int:
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    # one steady prefill chunk (the second), profiled on its own caches
+    # one prefill chunk, profiled on its own caches after the ones before
     C = args.prefill_chunk
+    a, b = (args.chunk - 1) * C, args.chunk * C
     caches = LC.init_ess_caches(cfg, B, max_seq, device=dev)
-    _, caches = E.ess_prefill_chunk(params, cfg, tokens[:, :C],
-                                    positions[:, :C], caches)
+    for c0 in range(0, a, C):
+        _, caches = E.ess_prefill_chunk(params, cfg, tokens[:, c0:c0 + C],
+                                        positions[:, c0:c0 + C], caches,
+                                        want_logits=False)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        E.ess_prefill_chunk(params, cfg, tokens[:, C:2 * C],
-                            positions[:, C:2 * C], caches)
+        E.ess_prefill_chunk(params, cfg, tokens[:, a:b], positions[:, a:b],
+                            caches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"prefill chunk {C} x {B} (rows {C}..{2 * C}):")
+    print(f"prefill chunk {args.chunk}: {C} x {B} (rows {a}..{b}):")
     print("\n".join(_summary(prof, wall, args.top)))
     del caches
 

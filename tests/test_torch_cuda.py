@@ -11,8 +11,8 @@ Both sides compute in fp32 from the same inputs, so the float kernels are
 held at rtol/atol 1e-4 (summation order only: the sparse-MLA tensor-core
 route multiplies bf16 inputs exactly and keeps P to about 16 bits as a
 hi + lo pair of bf16 halves); the row and page gathers
-(plain and fused dequant), the scatter and the quantize-and-write path
-are bit-exact.
+(plain and fused dequant, both routes of the row gathers), the scatter
+and the quantize-and-write path are bit-exact.
 """
 
 import pytest
@@ -51,6 +51,60 @@ def test_cuda_gather_rows_refuses_unpinned_host(cuda):
     with pytest.raises(ValueError, match="pinned"):
         gops.gather_rows(torch.zeros((4, 8)), torch.zeros(2, dtype=torch.long,
                                                           device=cuda))
+
+
+def _heavy_ids(g, m, s, distinct):
+    """m ids (m > s) drawn from ``distinct`` rows of s, with -1 and ids
+    past the end (read as the last row): heavy duplication."""
+    pick = torch.randperm(s, generator=g)[:distinct]
+    ids = pick[torch.randint(0, distinct, (m,), generator=g)]
+    ids[::9] = -1
+    ids[5::97] = s + 3
+    return ids
+
+
+def _distinct_live(ids, s):
+    return int(ids[ids >= 0].clamp_max(s - 1).unique().numel())
+
+
+@pytest.mark.parametrize("on_card", [False, True], ids=["pinned", "device"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_gather_rows_staged_bitwise(cuda, dt, on_card):
+    g = torch.Generator().manual_seed(6)
+    S = 300
+    cache = torch.randn((S, 576), generator=g).to(TORCH_DT[dt])
+    cache = cache.to(cuda) if on_card else cache.pin_memory()
+    ids = _heavy_ids(g, 20 * S, S, 37).reshape(4, 5 * S)
+    assert gops.staged_route(ids.numel(), S)
+    n0, st0, di0 = (gops.gather_rows.launches, gops.gather_rows.launches_staged,
+                    gops.gather_rows.launches_direct)
+    fetched = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = gops.gather_rows(cache, ids.to(cuda), fetched=fetched)
+    assert (gops.gather_rows.launches, gops.gather_rows.launches_staged,
+            gops.gather_rows.launches_direct) == (n0 + 1, st0 + 1, di0)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 5 * S, 576)
+    assert torch.equal(got.cpu(), gref.gather_rows_ref(cache.cpu(), ids))
+    assert int(fetched) == _distinct_live(ids, S)     # each row read once
+
+
+def test_cuda_gather_rows_direct_route_and_counts(cuda):
+    g = torch.Generator().manual_seed(7)
+    host = torch.randn((300, 576), generator=g).bfloat16().pin_memory()
+    ids = _heavy_ids(g, 300, 300, 20)                  # M == S: direct
+    st0, di0 = (gops.gather_rows.launches_staged,
+                gops.gather_rows.launches_direct)
+    fetched = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = gops.gather_rows(host, ids.to(cuda), fetched=fetched)
+    assert (gops.gather_rows.launches_staged,
+            gops.gather_rows.launches_direct) == (st0, di0 + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gref.gather_rows_ref(host, ids))
+    assert int(fetched) == int((ids >= 0).sum())      # every live id read
+    # the UVA mapping of the tier is looked up once and reused
+    assert host.untyped_storage().data_ptr() in gops._UVA
+    assert gops.device_pointer(host[7:]) == \
+        gops.device_pointer(host) + 7 * 576 * 2
 
 
 def test_cuda_scatter_rows_uva_bitwise(cuda):
@@ -227,12 +281,35 @@ def test_cuda_gather_rows_dequant_uva_bitwise(cuda, name, dt):
     q, s = _quantized_tier(g, (300, 576), name)
     ids = torch.randint(-2, 310, (257,), generator=g)
     n0 = gops.gather_rows_dequant.launches
+    di0 = gops.gather_rows_dequant.launches_direct
     got = gops.gather_rows_dequant(q, s, ids.to(cuda), TORCH_DT[dt])
     assert gops.gather_rows_dequant.launches == n0 + 1
+    assert gops.gather_rows_dequant.launches_direct == di0 + 1
     torch.cuda.synchronize()
     want = gref.gather_rows_dequant_ref(q, s, ids, TORCH_DT[dt])
     assert got.dtype == want.dtype
     assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_gather_rows_dequant_staged_bitwise(cuda, name, dt):
+    g = torch.Generator().manual_seed(8)
+    S = 300
+    q, s = _quantized_tier(g, (S, 576), name)
+    ids = _heavy_ids(g, 16 * S, S, 41).reshape(2, 8 * S)
+    st0, di0 = (gops.gather_rows_dequant.launches_staged,
+                gops.gather_rows_dequant.launches_direct)
+    fetched = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = gops.gather_rows_dequant(q, s, ids.to(cuda), TORCH_DT[dt],
+                                   fetched=fetched)
+    assert (gops.gather_rows_dequant.launches_staged,
+            gops.gather_rows_dequant.launches_direct) == (st0 + 1, di0)
+    torch.cuda.synchronize()
+    want = gref.gather_rows_dequant_ref(q, s, ids, TORCH_DT[dt])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    assert int(fetched) == _distinct_live(ids, S)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
