@@ -19,22 +19,30 @@ the script exits non-zero without a result line):
    its peak, PCIe Gen5 x16, and the device bytes over HBM; a contiguous
    copy of the same bytes is timed beside them).  The row gathers run on both routes: the decode miss fetch (direct) and
    a prefill chunk's per-query rows (staged; each distinct row must be
-   read once, by the kernel's own count).  The sparse-MLA
+   read once, by the kernel's own count).  The indexer runs at its two
+   serve shapes (decode, Q = 1 over the cache; a causal prefill chunk,
+   Q = 256) on the tensor-core route, each also timed on the general route
+   (the CUDA-core kernel) on the same inputs, back to back and from a CUDA
+   graph; the prefill chunk's top-2048 must overlap the plain scores'
+   by 0.999 or more.  The sparse-MLA
    partial runs at its three serve shapes (Attn0, Attn1, a whole prefill
    chunk) on the tensor-core route, each also timed on the general route
    (the CUDA-core kernel) on the same inputs; its split merge is held
    against its own plain version;
 4. small  — the smoke config in fp32 on the card against the plain CPU path
    (prefill + teacher-forced decode), a reference on a small input; its
-   sparse-MLA partials must all take the general route;
+   sparse-MLA partials and indexer scores must all take the general
+   route;
 5. serve  — ``deepseek-v32-exp-ess`` at full width, cut to 4 layers (3
    dense + 1 MoE) and no MTP, 4 requests x 8192-token prompts x 32 new
    tokens with random weights from a seed, bf16 host tier; the launch
    counts of its kernels are read after this run and must be above 0, as
    must the decode misses (host-tier reads over UVA) and the pool
-   evictions; every sparse-MLA partial must take the tensor-core route,
-   every prefill tier fetch the staged gather route and the decode ones
-   the direct route;
+   evictions; every sparse-MLA partial and indexer launch must take the
+   tensor-core route, every prefill tier fetch the staged gather route and
+   the decode ones the direct route; the launches per kernel shape, as
+   the indexer and sparse-MLA wrappers count them, must equal what the
+   serve's arguments give (``serve_shapes``);
 6. quant serve — the same serve on the same weights with an int8 host
    tier (``--host-cache-dtype int8``): the fused gather-dequant kernel
    must carry every tier read;
@@ -500,8 +508,14 @@ def check_kernels(torch, dev):
         copy_ms=timed_ms(torch, copy_pages_q8))
     del q, sc
 
-    # -- indexer_scores: decode (Q=1) and a prefill chunk (causal) ----------
-    def indexer_case(Q, causal):
+    # -- indexer_scores: the decode case (Q = 1 over the whole cache) and a
+    #    causal prefill chunk (Q = 256 ending at each slot's length), each
+    #    on the tensor-core route against the plain version, timed beside
+    #    the general route on the same inputs; for information, cuBLAS's
+    #    dots alone (bmm) and the stable-sort top-k of the scores --------
+    from repro_torch.models.mla import topk_desc
+
+    def indexer_case(tag, Q, causal):
         q = randn((B, Q, Hi, Di))
         w = randn((B, Q, Hi))
         keys = randn((B, S, Di))
@@ -511,31 +525,65 @@ def check_kernels(torch, dev):
         else:
             valid = (torch.arange(S, device=dev)[None, None]
                      < lens[:, None, None]).expand(B, Q, S)
+        require(iops.tc_route(q, keys), f"indexer {tag}: not the tc route")
         got = iops.indexer_scores(q, w, keys, valid)
+        gen = iops.general_scores(q, w, keys, valid)
         want = iref.indexer_scores_ref(q, w, keys, valid)
         torch.cuda.synchronize()
-        require(torch.equal(got <= -1e37, want <= -1e37),
-                "indexer_scores mask differs")
-        mk = want > -1e37
-        err = float((got[mk] - want[mk]).abs().max())
-        torch.testing.assert_close(got[mk], want[mk], rtol=1e-4, atol=1e-3)
-        return q, w, keys, valid, err
+        err = 0.0
+        live = want != -2.0e38
+        for a, route in ((got, "tc"), (gen, "general")):
+            require(torch.equal(a == -2.0e38, ~live),
+                    f"indexer {tag} ({route}): -2e38 positions differ")
+            torch.testing.assert_close(a[live], want[live], rtol=1e-4,
+                                       atol=1e-3)
+            err = max(err, float((a[live] - want[live]).abs().max()))
+        del gen
+        # top-2048 of the kernel's scores against the plain version's
+        ia, ib = topk_desc(got, K), topk_desc(want, K)
+        hit = torch.zeros(got.shape, dtype=torch.bool, device=dev)
+        hit = hit.scatter_(2, ia, True).gather(2, ib)
+        overlap = float(hit.float().mean())
+        del want, ia, ib, hit, live
+        nvalid = int(valid.sum())
+        nbytes = (q.numel() + w.numel() + keys.numel()) * 2 \
+            + valid.numel() + 4 * got.numel()
+        bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
+        it = 3 if causal else 20
+        qh = q.reshape(B, Q * Hi, Di).transpose(1, 2)           # [B,Di,Q*Hi]
+        rec = dict(
+            name=f"indexer_scores[{tag}]", route="cuda",
+            source="src/repro_torch/kernels/indexer/csrc/indexer_tc.cu",
+            replaces="src/repro/kernels/indexer/indexer.py:41",
+            max_abs_err=err,
+            ms=timed_ms(torch, lambda: iops.indexer_scores(q, w, keys, valid),
+                        iters=max(it, 10)),
+            device_ms=graph_ms(torch, lambda: iops.indexer_scores(
+                q, w, keys, valid), iters=max(it, 10)),
+            general_ms=timed_ms(torch, lambda: iops.general_scores(
+                q, w, keys, valid), iters=it, warmup=1),
+            general_device_ms=graph_ms(torch, lambda: iops.general_scores(
+                q, w, keys, valid), iters=it),
+            plain_ms=timed_ms(torch, lambda: iref.indexer_scores_ref(
+                q, w, keys, valid), iters=it, warmup=1),
+            bound_ms=bms, bound_by=bby, library_ms=None,
+            # information only: the dots alone on cuBLAS, and the top-k
+            bmm_ms=timed_ms(torch, lambda: torch.bmm(keys, qh), iters=it),
+            topk_ms=timed_ms(torch, lambda: topk_desc(got, K), iters=it,
+                             warmup=1),
+            valid_pairs=nvalid,
+            shape=f"q {list(q.shape)}, keys {list(keys.shape)} bf16, "
+                  f"{'causal' if causal else 'decode'} mask, {nvalid} "
+                  f"valid pairs")
+        if causal:
+            rec["top2048_overlap"] = overlap
+            require(overlap >= 0.999, f"indexer {tag}: top-{K} overlap with "
+                    f"the plain scores {overlap:.5f} < 0.999")
+        records[rec["name"]] = rec
 
-    q, w, keys, valid, err = indexer_case(1, False)
-    err = max(err, indexer_case(C, True)[-1])
-    nvalid = int(valid.sum())
-    nbytes = (q.numel() + w.numel() + keys.numel()) * 2 + valid.numel() \
-        + 4 * B * S
-    bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
-    records["indexer_scores"] = dict(
-        name="indexer_scores", route="cuda",
-        source="src/repro_torch/kernels/indexer/csrc/indexer.cu",
-        replaces="src/repro/kernels/indexer/indexer.py:41",
-        max_abs_err=err,
-        ms=timed_ms(torch, lambda: iops.indexer_scores(q, w, keys, valid)),
-        plain_ms=timed_ms(torch, lambda: iref.indexer_scores_ref(
-            q, w, keys, valid)),
-        bound_ms=bms, bound_by=bby, library_ms=None)
+    indexer_case("decode", 1, False)
+    indexer_case("prefill", C, True)
+    torch.cuda.empty_cache()
 
     # -- sparse_mla_partial: the tensor-core route at the serve's three
     #    shapes (Attn0 K=2048, Attn1 K=256 at decode; a whole prefill chunk
@@ -831,8 +879,17 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}"
               + (f", device (graph) {r['device_ms']:.4f} ms"
                  if "device_ms" in r else "")
-              + (f", general route {r['general_ms']:.4f} ms, "
-                 f"{r['nsplit']} split(s)" if "general_ms" in r else "")
+              + (f", general route {r['general_ms']:.4f} ms"
+                 if "general_ms" in r else "")
+              + (f" (device {r['general_device_ms']:.4f} ms)"
+                 if "general_device_ms" in r else "")
+              + (f", {r['nsplit']} split(s)" if "nsplit" in r else "")
+              + (f"; for information: cuBLAS bmm of the dots alone "
+                 f"{r['bmm_ms']:.4f} ms, stable-sort top-k "
+                 f"{r['topk_ms']:.4f} ms" if "bmm_ms" in r else "")
+              + (f", top-2048 overlap with the plain scores "
+                 f"{r['top2048_overlap']:.6f}" if "top2048_overlap" in r
+                 else "")
               + (f", copy of the same bytes {r['copy_ms']:.4f} ms"
                  if "copy_ms" in r else "")
               + (f", direct route on the same ids {r['direct_ms']:.4f} ms"
@@ -851,6 +908,14 @@ def main() -> int:
           f"{pf['general_ms']:.4f} ms ({pf['general_ms'] / pf['ms']:.2f}x); "
           f"shares of bound {a0['bound_ms'] / a0['ms']:.4f} (attn0), "
           f"{pf['bound_ms'] / pf['ms']:.4f} (prefill)  [{card}]", flush=True)
+    for tag in ("decode", "prefill"):
+        r = records[f"indexer_scores[{tag}]"]
+        print(f"  indexer {tag}: tc {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}) vs general {r['general_ms']:.4f} ms "
+              f"(device {r['general_device_ms']:.4f}): "
+              f"{r['general_device_ms'] / r['device_ms']:.2f}x in device "
+              f"time; share of bound {r['bound_ms'] / r['device_ms']:.4f} "
+              f"({r['bound_by']})  [{card}]", flush=True)
     for qname, d in records["gather_rows_dequant"]["detail"].items():
         print(f"  gather_rows_dequant[{qname}]: kernel {d['ms']:.4f} ms "
               f"(device {d['device_ms']:.4f}), plain {d['plain_ms']:.4f} ms; "
@@ -865,17 +930,23 @@ def main() -> int:
               f"route on the same ids {d['direct_ms']:.4f} ms, plain (device "
               f"copy of the tier) {d['plain_ms']:.4f} ms  [{card}]",
               flush=True)
-    # 4. small input against the CPU plain path (fp32: the general route)
+    # 4. small input against the CPU plain path (fp32: the general routes)
     for k in ("launches_tc", "launches_general"):
         setattr(sops.partial_attend, k, 0)
+        setattr(iops.indexer_scores, k, 0)
     err = check_small(torch, dev)
     print(f"small: smoke config fp32 card vs CPU, max logit diff {err:.3g}; "
           f"sparse-MLA launches: general "
           f"{sops.partial_attend.launches_general}, tc "
-          f"{sops.partial_attend.launches_tc}", flush=True)
+          f"{sops.partial_attend.launches_tc}; indexer launches: general "
+          f"{iops.indexer_scores.launches_general}, tc "
+          f"{iops.indexer_scores.launches_tc}", flush=True)
     require(sops.partial_attend.launches_general > 0
             and sops.partial_attend.launches_tc == 0,
             "small: fp32 must take the general sparse-MLA route")
+    require(iops.indexer_scores.launches_general > 0
+            and iops.indexer_scores.launches_tc == 0,
+            "small: fp32 must take the general indexer route")
     # 5. serve (bf16 tier), 6. quant serve (int8 tier), 7. graft: each
     #    path runs with every count set to 0 just before it and read just
     #    after; a kernel's "launches" is the count of the path it carries
@@ -887,31 +958,88 @@ def main() -> int:
                "indexer_scores": iops.indexer_scores,
                "sparse_mla_partial": sops.partial_attend,
                "sparse_mla_merge": sops.merge_splits}
-    # the per-route counts of the sparse-MLA wrapper and the row gathers
-    # beside their totals
+    # the per-route counts of the sparse-MLA and indexer wrappers and the
+    # row gathers beside their totals
     routes = {"sparse_mla_tc": (sops.partial_attend, "launches_tc"),
-              "sparse_mla_general": (sops.partial_attend, "launches_general")}
+              "sparse_mla_general": (sops.partial_attend, "launches_general"),
+              "indexer_tc": (iops.indexer_scores, "launches_tc"),
+              "indexer_general": (iops.indexer_scores, "launches_general")}
     for name in ("gather_rows", "gather_rows_dequant"):
         for r in ("direct", "staged"):
             routes[f"{name}_{r}"] = (kernels[name], f"launches_{r}")
+
+    # the per-shape counts, each wrapper's own: the indexer's by query
+    # count Q, the sparse-MLA partial's by (Q, rows per query K)
+    shape_counts = {"indexer_by_q": iops.indexer_scores.launches_by_q,
+                    "sparse_mla_by_shape":
+                        sops.partial_attend.launches_by_shape}
 
     def counted(fn):
         for k in kernels.values():
             k.launches = 0
         for k, attr in routes.values():
             setattr(k, attr, 0)
+        for d in shape_counts.values():
+            d.clear()
         out = fn()
         torch.cuda.synchronize()
         n = {name: k.launches for name, k in kernels.items()}
         n.update({name: getattr(k, attr)
                   for name, (k, attr) in routes.items()})
+        n.update({name: dict(sorted(d.items()))
+                  for name, d in shape_counts.items()})
         return out, n
 
     def require_tc_only(counts, phase):
-        require(counts["sparse_mla_tc"] > 0
-                and counts["sparse_mla_general"] == 0,
-                f"the {phase} run's sparse-MLA partials must all take the "
-                f"tensor-core route: {counts}")
+        for name, what in (("sparse_mla", "sparse-MLA partials"),
+                           ("indexer", "indexer launches")):
+            require(counts[f"{name}_tc"] > 0
+                    and counts[f"{name}_general"] == 0,
+                    f"the {phase} run's {what} must all take the "
+                    f"tensor-core route: {counts}")
+
+    def serve_shapes(counts, a, phase):
+        """Launches per kernel shape, as the wrappers counted them: the
+        indexer at Q = 1 (decode) and Q > 1 (a prefill chunk); sparse-MLA's
+        partial at Q = 1 over K rows (attn0), at Q = 1 over the miss
+        envelope (attn1) and at Q > 1 (prefill).  Each must equal what the
+        serve's arguments give: per layer, one indexer call and one partial
+        per prefill chunk; per warmup window and decode round one indexer
+        call, Attn0 over the K selected rows and Attn1 over the fetched
+        ones, K rows in the warmup (max_miss_ratio 1: the attn0 shape) and
+        the envelope at decode.  Every launch must fall in one shape.
+        Returns the counted launches per shape."""
+        cfg = serve.config_from_args(a)
+        L = cfg.num_layers
+        W = min(cfg.ess.warmup_windows, a.prompt_len - 1)
+        chunks = -(-(a.prompt_len - W) // a.prefill_chunk)
+        rounds = a.new_tokens - 1
+        K = cfg.dsa.index_topk
+        M = max(1, int(cfg.ess.max_miss_ratio * K))
+        expected = {"indexer_scores[decode]": L * (W + rounds),
+                    "indexer_scores[prefill]": L * chunks,
+                    "sparse_mla_partial[attn0]": L * (W + rounds) + L * W,
+                    "sparse_mla_partial[attn1]": L * rounds,
+                    "sparse_mla_partial[prefill]": L * chunks}
+        by_q, by_s = counts["indexer_by_q"], counts["sparse_mla_by_shape"]
+        got = {"indexer_scores[decode]": by_q.get(1, 0),
+               "indexer_scores[prefill]": sum(
+                   v for q, v in by_q.items() if q > 1),
+               "sparse_mla_partial[attn0]": by_s.get((1, K), 0),
+               "sparse_mla_partial[attn1]": by_s.get((1, M), 0),
+               "sparse_mla_partial[prefill]": sum(
+                   v for (q, _), v in by_s.items() if q > 1)}
+        n_idx = got["indexer_scores[decode]"] + \
+            got["indexer_scores[prefill]"]
+        n_mla = sum(v for k, v in got.items() if k.startswith("sparse"))
+        require(n_idx == counts["indexer_tc"]
+                and n_mla == counts["sparse_mla_tc"],
+                f"the {phase} run's launches outside the serve's shapes: "
+                f"indexer {by_q}, sparse-MLA {by_s}")
+        require(got == expected,
+                f"the {phase} run's launches per shape {got}, expected "
+                f"from its arguments {expected}")
+        return got
 
     def require_launched(counts, names, phase):
         for name in names:
@@ -935,12 +1063,10 @@ def main() -> int:
           "61 -> 4 (3 dense + 1 MoE), mtp_depth 1 -> 0", flush=True)
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(args))
-    for name in ("scatter_rows", "indexer_scores", "sparse_mla_merge"):
+    for name in ("scatter_rows", "sparse_mla_merge"):
         records[name]["launches"] = n[name]
     records["gather_rows"]["launches"] = n["gather_rows_direct"]
     records["gather_rows[prefill]"]["launches"] = n["gather_rows_staged"]
-    for tag in ("attn0", "attn1", "prefill"):
-        records[f"sparse_mla_partial[{tag}]"]["launches"] = n["sparse_mla_tc"]
     res = out["result"]
     print(f"serve: {serve.report(out)}  [{card}]", flush=True)
     print(f"serve: init {out['init_s']:.1f} s, peak device memory "
@@ -952,6 +1078,8 @@ def main() -> int:
     require_launched(n, ("gather_rows", "scatter_rows", "indexer_scores",
                          "sparse_mla_partial", "sparse_mla_merge"), "serve")
     require_tc_only(n, "serve")
+    for name, v in serve_shapes(n, args, "serve").items():
+        records[name]["launches"] = v
     require_gather_routes(n, "gather_rows", args, "serve")
     require(res.misses.sum() > 0, "decode rounds read nothing from the tier")
     require(res.evicted > 0, "the pool never evicted")
@@ -981,6 +1109,7 @@ def main() -> int:
                          "indexer_scores", "sparse_mla_partial",
                          "sparse_mla_merge"), "quant serve")
     require_tc_only(n, "quant serve")
+    serve_shapes(n, qargs, "quant serve")
     require_gather_routes(n, "gather_rows_dequant", qargs, "quant serve")
     require(n["gather_rows"] == 0, "quant serve read the tier unquantized")
     del out, res
@@ -996,8 +1125,8 @@ def main() -> int:
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "general_ms", "copy_ms", "direct_ms",
-            "distinct_rows")
+            "device_ms", "general_ms", "general_device_ms", "copy_ms",
+            "direct_ms", "distinct_rows", "top2048_overlap")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each source (``csrc/*.cu``; sparse-MLA has two, the general kernel and the
-tensor-core one) has a plain C interface (no PyTorch headers, so ``nvcc``
-takes seconds, not minutes).  The first call to :func:`load` compiles
-every source at once, one ``nvcc`` process per file, into
-``kernels/build/`` (listed in ``.gitignore``); a library is
+Each source (``csrc/*.cu``; sparse-MLA and the indexer have two each, the
+general kernel and the tensor-core one) has a plain C interface (no
+PyTorch headers, so ``nvcc`` takes seconds, not minutes).  The first call
+to :func:`load` compiles every source at once, one ``nvcc`` process per
+file, into ``kernels/build/`` (listed in ``.gitignore``); a library is
 named by the hash of its source and flags, so an edited source rebuilds
 and an unchanged one is reused.  Nothing here runs at import time.
 """
@@ -25,6 +25,7 @@ BUILD_DIR = _HERE / "build"
 SOURCES = {
     "gather_cache": _HERE / "gather_cache" / "csrc" / "gather_rows.cu",
     "indexer": _HERE / "indexer" / "csrc" / "indexer.cu",
+    "indexer_tc": _HERE / "indexer" / "csrc" / "indexer_tc.cu",
     "sparse_mla": _HERE / "sparse_mla" / "csrc" / "sparse_mla.cu",
     "sparse_mla_tc": _HERE / "sparse_mla" / "csrc" / "sparse_mla_tc.cu",
 }
@@ -107,5 +108,9 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device, by PyTorch's raw accessor
+    (the one Triton's launcher uses), which returns the pointer without
+    building the Stream object ``torch.cuda.current_stream(dev)`` makes on
+    every call: host time on every kernel launch."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

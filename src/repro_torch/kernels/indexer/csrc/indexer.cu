@@ -1,16 +1,19 @@
 // Lightning-indexer scores (DSA, DeepSeek-V3.2-Exp):
 //   score[s] = sum_h w[h] * ReLU(q[h] . k[s])   in fp32, -2e38 where invalid.
 //
-// Replaces: src/repro/kernels/indexer/indexer.py indexer_scores_kernel
-// (Pallas; two MXU matmuls per 256-key block).  In the port it carries every
-// indexer score of the ESS path: decode (Q=1), chunked prefill and the LRU
-// warmup replay.
+// Replaces: src/repro/kernels/indexer/indexer.py:41 indexer_scores_kernel
+// (Pallas; two MXU matmuls per 256-key block).  This is the general route
+// (ops.general_scores): every shape and dtype that ops.tc_route does not
+// send to the tensor-core kernel in indexer_tc.cu (fp32, small widths).
+// The serve's bf16 calls at Di = 128 take that kernel.
 //
-// Bound: bytes at decode.  Per (b, q) the keys [S, Di] are read once and
-// one fp32 score per key is written; the arithmetic is Hi*Di*2 = 16K flops
-// per 256-byte bf16 key, about 64 flops per byte, under the H100's
-// ~295 flops/byte ridge.  At prefill, with Q queries per key, the same keys
-// are reused Q times from L2 and the CUDA-core FMA rate becomes the limit.
+// Bound.  The function reads the keys [S, Di] once per (b, q) and writes
+// one fp32 score per key; it does Hi*(2*Di + 2) operations per valid key,
+// about 64 per byte of a bf16 key at Hi = 64, Di = 128.  This kernel does
+// them on fp32 CUDA cores, whose ridge on the H100 is about 20 operations
+// per byte (67 TFLOP/s over 3.35 TB/s), so operations bound it at every
+// shape, decode included; it cannot approach the function's bound (bytes
+// at decode, operations at the bf16 tensor-core peak at prefill).
 //
 // Design: one CTA per (b*q, block of 128 keys), one thread per key.  The
 // query heads and weights are staged once per CTA in shared memory as fp32
@@ -19,7 +22,6 @@
 // in registers, so every shared-memory read is a broadcast float4 that
 // feeds 4 FMAs.  More than 64 heads run in passes of 64.  Keys whose valid
 // flag is false skip the arithmetic (half of a causal prefill chunk).
-// Tensor cores (wgmma) are work for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

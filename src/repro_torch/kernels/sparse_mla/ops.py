@@ -12,7 +12,8 @@ and dtype (:func:`tc_route`):
   widths): the general CUDA-core kernel.
 
 ``partial_attend.launches`` counts every partial launch, and
-``.launches_tc`` / ``.launches_general`` each route's own;
+``.launches_tc`` / ``.launches_general`` each route's own,
+``.launches_by_shape`` each ``(Q, K)``'s (queries, rows per query);
 ``merge_splits.launches`` counts the merges.
 """
 
@@ -186,6 +187,9 @@ def partial_attend(q_comb: torch.Tensor, rows: torch.Tensor,
     else:
         part = Partial(*general_attend(q_comb, rows, valid, scale, rank))
     partial_attend.launches += 1
+    key = (Q, rows.shape[-2])
+    partial_attend.launches_by_shape[key] = \
+        partial_attend.launches_by_shape.get(key, 0) + 1
     return part
 
 
@@ -231,4 +235,5 @@ def general_attend(q_comb: torch.Tensor, rows: torch.Tensor,
 partial_attend.launches = 0
 partial_attend.launches_tc = 0
 partial_attend.launches_general = 0
+partial_attend.launches_by_shape = {}
 merge_splits.launches = 0

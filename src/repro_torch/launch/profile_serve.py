@@ -5,8 +5,9 @@ Serves the same batch as :mod:`repro_torch.launch.serve` (same arguments),
 then prints, for one prefill chunk (``--chunk``, 1-based, default the
 second) and for ``--rounds`` decode rounds after the first, the wall time,
 the device's busy share (summed kernel time over wall time), the kernels
-with the most device time and the tier gathers' share (every kernel of
-``kernels/gather_cache`` that reads rows: both routes' passes).
+with the most device time, the tier gathers' share (every kernel of
+``kernels/gather_cache`` that reads rows: both routes' passes) and the
+indexer's (both routes' kernels), each also per decode round.
 
   python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
       --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
@@ -32,11 +33,16 @@ from repro_torch.serving import engine as E
 # kernel names of the row gathers' passes (direct, mark, fetch, expand)
 _GATHER_KERNELS = ("gather_rows_kernel", "gather_rows_dequant_kernel",
                    "mark_rows_kernel", "fetch_marked_rows")
+# kernel names of the indexer's two routes (tensor-core, general)
+_INDEXER_KERNELS = ("indexer_tc_kernel", "indexer_scores_kernel")
 
 
-def _summary(prof, wall_s: float, top: int) -> list[str]:
+def _summary(prof, wall_s: float, top: int, windows: int = 1) -> list[str]:
+    """Device time of the profiled window, summed by kernel; the tier
+    gathers' and the indexer's sums are also given per ``windows`` (the
+    chunk, or each decode round)."""
     rows = []
-    busy_us = gather_us = 0.0
+    busy_us = gather_us = index_us = 0.0
     for ev in prof.key_averages():
         # device-side events only (kernels, copies): the CPU ops that
         # launched them carry the same time again
@@ -48,11 +54,15 @@ def _summary(prof, wall_s: float, top: int) -> list[str]:
             busy_us += dev_us
             if any(k in ev.key for k in _GATHER_KERNELS):
                 gather_us += dev_us
+            if any(k in ev.key for k in _INDEXER_KERNELS):
+                index_us += dev_us
     rows.sort(reverse=True)
     out = [f"wall {wall_s * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
            f"({100 * busy_us / 1e6 / wall_s:.1f} % of wall); tier gathers "
            f"{gather_us / 1e3:.3f} ms ({100 * gather_us / busy_us:.1f} % of "
-           f"busy)"]
+           f"busy, {gather_us / 1e3 / windows:.3f} ms each); indexer "
+           f"{index_us / 1e3:.3f} ms ({100 * index_us / busy_us:.1f} % of "
+           f"busy, {index_us / 1e3 / windows:.3f} ms each)"]
     for us, n, key in rows[:top]:
         out.append(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f} %  "
                    f"x{n:<5d} {key[:90]}")
@@ -115,7 +125,7 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     print(f"decode: {args.rounds} rounds after the first "
           f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler):")
-    print("\n".join(_summary(prof, wall, args.top)))
+    print("\n".join(_summary(prof, wall, args.top, args.rounds)))
     return 0
 
 

@@ -10,7 +10,9 @@ that has only PyTorch (the repository's conftest imports JAX, hence
 Both sides compute in fp32 from the same inputs, so the float kernels are
 held at rtol/atol 1e-4 (summation order only: the sparse-MLA tensor-core
 route multiplies bf16 inputs exactly and keeps P to about 16 bits as a
-hi + lo pair of bf16 halves); the row and page gathers
+hi + lo pair of bf16 halves), the indexer scores at rtol 1e-4, atol 1e-3
+with their -2e38 entries bit for bit (both routes: bf16 products are
+exact in fp32, summation order only); the row and page gathers
 (plain and fused dequant, both routes of the row gathers), the scatter
 and the quantize-and-write path are bit-exact.
 """
@@ -135,6 +137,162 @@ def test_cuda_indexer_scores_vs_plain(cuda, dt, Hi, Di, S):
     assert torch.equal(got <= -1e37, want <= -1e37)
     m = want > -1e37
     torch.testing.assert_close(got[m], want[m], rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the indexer's tensor-core route (bf16, Di = 128, Hi % 64 == 0, Hi <= 256)
+# ---------------------------------------------------------------------------
+
+def _idx_inputs(g, B, Q, S, Hi=64, Di=128, dt=torch.bfloat16):
+    return (torch.randn((B, Q, Hi, Di), generator=g).to(dt),
+            torch.randn((B, Q, Hi), generator=g).to(dt),
+            torch.randn((B, S, Di), generator=g).to(dt))
+
+
+def _idx_vs_plain(cuda, q, w, keys, valid, route="tc"):
+    """The card's scores on ``route`` against the plain fp32 version on the
+    card (the serve's shapes are too large for the host's einsum): the
+    -2e38 entries equal bit for bit, the others at rtol 1e-4, atol 1e-3
+    (summation order only: bf16 products are exact in fp32)."""
+    q, w, keys = q.to(cuda), w.to(cuda), keys.to(cuda)
+    valid = None if valid is None else valid.to(cuda)
+    assert iops.tc_route(q, keys) == (route == "tc")
+    n = (iops.indexer_scores.launches_tc,
+         iops.indexer_scores.launches_general)
+    got = iops.indexer_scores(q, w, keys, valid)
+    d = (iops.indexer_scores.launches_tc - n[0],
+         iops.indexer_scores.launches_general - n[1])
+    assert d == ((1, 0) if route == "tc" else (0, 1))
+    want = iref.indexer_scores_ref(q, w, keys, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got == -2.0e38, want == -2.0e38)
+    m = want != -2.0e38
+    torch.testing.assert_close(got[m], want[m], rtol=1e-4, atol=1e-3)
+    return got
+
+
+def _prefix_mask(lens, Q, S, causal):
+    """[B,Q,S]: key s valid below each query's length; causal chunks end at
+    ``lens`` (query i of Q sits at lens - Q + i)."""
+    lens = torch.as_tensor(lens)
+    ar = torch.arange(S)
+    if causal:
+        qpos = lens[:, None] - Q + torch.arange(Q)
+        return ar[None, None] <= qpos[..., None]
+    return (ar[None, None] < lens[:, None, None]).expand(len(lens), Q, S)
+
+
+@pytest.mark.parametrize("case", ["decode", "decode_q2", "prefill_causal"])
+def test_cuda_indexer_tc_serve_shapes(cuda, case):
+    """The serve's shapes: Q = 1 and Q = 2 decode over S = 8224 cached keys,
+    and a causal Q = 256 chunk (its tiles past each group's last position
+    skipped)."""
+    g = torch.Generator().manual_seed(21)
+    lens = [8193, 8200, 8207, 8224]
+    Q, B = {"decode": (1, 4), "decode_q2": (2, 4),
+            "prefill_causal": (256, 2)}[case]
+    q, w, keys = _idx_inputs(g, B, Q, 8224)
+    _idx_vs_plain(cuda, q, w, keys,
+                  _prefix_mask(lens[:B], Q, 8224, case == "prefill_causal"))
+
+
+@pytest.mark.parametrize("S", [1000, 1001, 64, 8224])
+@pytest.mark.parametrize("Q", [1, 3, 8])
+def test_cuda_indexer_tc_holey_masks(cuda, S, Q):
+    """Random holes, a query with no valid key, whole tiles (and whole key
+    spans) without one, S not a multiple of 64 and rows not 16-byte
+    aligned (S = 1001: the flags are read a byte at a time)."""
+    g = torch.Generator().manual_seed(22)
+    B = 2
+    q, w, keys = _idx_inputs(g, B, Q, S)
+    valid = torch.rand((B, Q, S), generator=g) < 0.5
+    valid[0, 0] = False                          # no valid key
+    valid[1, :, :min(S, 640)] = False            # tiles 0-9 skipped
+    if S > 5000:
+        valid[0, :, 4096:] = False               # whole spans at decode
+    got = _idx_vs_plain(cuda, q, w, keys, valid)
+    assert bool((got[0, 0] == -2.0e38).all())
+
+
+def test_cuda_indexer_tc_mask_forms(cuda):
+    """valid None, [B,S] (broadcast over Q, stride 0) and a [B,Q,S] view
+    whose keys are not contiguous give the plain version's scores."""
+    g = torch.Generator().manual_seed(23)
+    B, Q, S = 2, 5, 777
+    q, w, keys = _idx_inputs(g, B, Q, S)
+    _idx_vs_plain(cuda, q, w, keys, None)
+    v2 = torch.rand((B, S), generator=g) < 0.7
+    _idx_vs_plain(cuda, q, w, keys, v2)
+    wide = torch.rand((B, Q, 2 * S), generator=g) < 0.7
+    _idx_vs_plain(cuda, q, w, keys, wide[..., ::2])
+
+
+@pytest.mark.parametrize("dt,Hi,Di,route", [
+    (torch.bfloat16, 64, 128, "tc"), (torch.bfloat16, 128, 128, "tc"),
+    (torch.bfloat16, 192, 128, "tc"), (torch.bfloat16, 256, 128, "tc"),
+    (torch.float32, 64, 128, "general"), (torch.bfloat16, 96, 128, "general"),
+    (torch.bfloat16, 64, 64, "general"), (torch.bfloat16, 320, 128,
+                                          "general")])
+@pytest.mark.parametrize("Q", [1, 2, 7])
+def test_cuda_indexer_routes(cuda, dt, Hi, Di, route, Q):
+    """bf16 at Di = 128 and Hi a multiple of 64 up to 256 takes the
+    tensor-core kernel (every query grouping: 1, 2 or 4 per CTA); fp32 and
+    other widths the general one.  Both agree with the plain version."""
+    g = torch.Generator().manual_seed(24)
+    B, S = 2, 300
+    q, w, keys = _idx_inputs(g, B, Q, S, Hi, Di, dt)
+    valid = torch.rand((B, Q, S), generator=g) < 0.8
+    _idx_vs_plain(cuda, q, w, keys, valid, route)
+
+
+def test_cuda_stream_ptr_is_the_current_stream(cuda):
+    """Every wrapper launches on PyTorch's current stream, a side stream
+    (as under CUDA-graph capture) included."""
+    from repro_torch.kernels import _build
+    t = torch.zeros(1, device=cuda)
+    # c_void_p(0).value is None: the legacy default stream
+    assert (_build.stream_ptr(t).value or 0) == \
+        torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(t).value == side.cuda_stream != 0
+
+
+def test_cuda_indexer_general_route_at_serve_shape(cuda):
+    """The general kernel, called directly, on the decode shape, against
+    the tensor-core route that ``indexer_scores`` takes there (chip_smoke
+    times the two side by side)."""
+    g = torch.Generator().manual_seed(25)
+    q, w, keys = _idx_inputs(g, 4, 1, 8224)
+    valid = _prefix_mask([8193, 8200, 8207, 8224], 1, 8224, False).to(cuda)
+    q, w, keys = q.to(cuda), w.to(cuda), keys.to(cuda)
+    n = (iops.indexer_scores.launches_tc,
+         iops.indexer_scores.launches_general)
+    got = iops.general_scores(q, w, keys, valid)
+    tc = iops.indexer_scores(q, w, keys, valid)
+    assert (iops.indexer_scores.launches_tc,
+            iops.indexer_scores.launches_general) == (n[0] + 1, n[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got == -2.0e38, tc == -2.0e38)
+    m = got != -2.0e38
+    torch.testing.assert_close(tc[m], got[m], rtol=1e-4, atol=1e-3)
+
+
+def test_cuda_indexer_tc_rejects_misaligned_weights(cuda):
+    """The tensor-core kernel reads w as bf16 pairs: a contiguous w at an
+    odd element offset raises a ValueError before any launch."""
+    g = torch.Generator().manual_seed(26)
+    B, Q, S = 2, 3, 200
+    q, _, keys = _idx_inputs(g, B, Q, S)
+    flat = torch.randn(B * Q * 64 + 1, generator=g).bfloat16().to(cuda)
+    w_odd = flat[1:].view(B, Q, 64)
+    assert w_odd.is_contiguous() and w_odd.data_ptr() % 4 == 2
+    n = iops.indexer_scores.launches
+    with pytest.raises(ValueError, match="4-byte"):
+        iops.indexer_scores(q.to(cuda), w_odd, keys.to(cuda))
+    assert iops.indexer_scores.launches == n
+    # the same weights, aligned, give the plain version's scores
+    _idx_vs_plain(cuda, q, w_odd.cpu(), keys, None)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
