@@ -48,10 +48,30 @@ the script exits non-zero without a result line):
    must carry every tier read;
 7. graft  — a 2048-token prompt prefilled alone, grafted into slot 2 of a
    fresh 4-slot cache through the page gathers, bf16 and int8 tiers
-   (:func:`check_graft`).
+   (:func:`check_graft`);
+8. session A — the continuous-batching ``ServeSession`` on the same
+   weights: 4 slots, ``max_seq`` 8224, prefill chunk 256, bf16 tier, no
+   warmup, 8 greedy requests of ragged prompt lengths (``SESSION_PROMPTS``,
+   ``SESSION_NEW``), so slots recycle and last chunks are padded.  Run
+   twice: the decode round replayed as a CUDA graph (``compiled=True``),
+   then eagerly; the token streams must be bit-identical and the launch
+   counts (the graph's replays added) equal.  Every request must end with
+   one terminal event; every decode round's plan and compute stages, and
+   every prefill round, run under ``torch.cuda.set_sync_debug_mode
+   ("error")``, and each decode round makes exactly one host fetch
+   (:func:`run_session`); the launches per route and shape must equal what
+   the run's rounds and chunks give.  Prints decode ms/round, the device's
+   busy share (``torch.profiler`` over three rounds) and prefill tokens/s;
+9. session B — the same with an int8 tier, the LRU warmup at admission
+   (``do_warmup=True``) and 4 requests, graph then eager as in session A:
+   the gather-dequant kernel and ``lru_warmup`` on the card.
 
-Each of phases 5-7 sets every launch count to 0 just before it runs and
-reads them just after.
+Each of phases 5-9 sets every launch count to 0 just before it runs and
+reads them just after.  The kernels line's ``launches`` are session A's
+eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
+merge), session B's eager run's (the gather-dequant routes) and the
+grafts' (the page gathers): counted where the wrappers launch, not derived
+from a graph's replays, which the graph runs' equal counts then confirm.
 
 The last two lines are the ``kernels`` JSON object and the result object.
 """
@@ -78,7 +98,7 @@ PREFILL_CHUNK = 256
 SERVE_ARGS = ["--arch", "deepseek-v32-exp-ess", "--layers", "4",
               "--requests", "4", "--prompt-len", "8192", "--new-tokens", "32",
               "--prefill-chunk", str(PREFILL_CHUNK), "--seed", "0",
-              "--device", "cuda"]
+              "--device", "cuda", "--fixed-batch"]
 
 
 def require(cond, msg: str) -> None:
@@ -831,6 +851,277 @@ def check_graft(torch, dev, serve, params, tier, counted):
             ), counts
 
 
+def require_tc_only(counts, phase):
+    for name, what in (("sparse_mla", "sparse-MLA partials"),
+                       ("indexer", "indexer launches")):
+        require(counts[f"{name}_tc"] > 0
+                and counts[f"{name}_general"] == 0,
+                f"the {phase} run's {what} must all take the "
+                f"tensor-core route: {counts}")
+
+
+def check_shapes(counts, cfg, expected, phase):
+    """Launches per kernel shape, as the wrappers counted them: the
+    indexer at Q = 1 (decode) and Q > 1 (a prefill chunk, or the
+    warmup's W windows); sparse-MLA's partial at Q = 1 over K rows
+    (attn0), at Q = 1 over the miss envelope (attn1) and at Q > 1
+    (prefill).  Every launch must fall in one shape and each shape
+    must equal ``expected``.  Returns the counted launches per
+    shape."""
+    K = cfg.dsa.index_topk
+    M = max(1, int(cfg.ess.max_miss_ratio * K))
+    by_q, by_s = counts["indexer_by_q"], counts["sparse_mla_by_shape"]
+    got = {"indexer_scores[decode]": by_q.get(1, 0),
+           "indexer_scores[prefill]": sum(
+               v for q, v in by_q.items() if q > 1),
+           "sparse_mla_partial[attn0]": by_s.get((1, K), 0),
+           "sparse_mla_partial[attn1]": by_s.get((1, M), 0),
+           "sparse_mla_partial[prefill]": sum(
+               v for (q, _), v in by_s.items() if q > 1)}
+    n_idx = got["indexer_scores[decode]"] + \
+        got["indexer_scores[prefill]"]
+    n_mla = sum(v for k, v in got.items() if k.startswith("sparse"))
+    require(n_idx == counts["indexer_tc"]
+            and n_mla == counts["sparse_mla_tc"],
+            f"the {phase} run's launches outside the serve's shapes: "
+            f"indexer {by_q}, sparse-MLA {by_s}")
+    require(got == expected,
+            f"the {phase} run's launches per shape {got}, expected "
+            f"{expected}")
+    return got
+
+
+# the session phases: deepseek-v32-exp-ess cut as the serve, 4 slots,
+# ragged prompts (ragged last chunks) and more requests than slots
+SESSION_PROMPTS = (8192, 3000, 6144, 8192, 1000, 4500, 8192, 2048)
+SESSION_NEW = (32, 16, 32, 24, 32, 16, 32, 32)
+SESSION_SLOTS, SESSION_MAX_SEQ = 4, 8224
+# decode rounds (by index) profiled for the device's busy share
+PROFILED_ROUNDS = (20, 40, 60)
+
+
+def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
+                n_req):
+    """One session run: the first ``n_req`` session requests through
+    ``ServeSession.run``, greedy, prompts from seed 0.  Measures and
+    checks around the session's own stages (the session itself is
+    untouched):
+
+    * the plan and compute stages of every decode round, and each prefill
+      round without warmup, run under
+      ``torch.cuda.set_sync_debug_mode("error")``: a host sync in them
+      raises;
+    * each decode round that steps calls the one fetch
+      (``engine.device_get``) exactly once, and a round that does not step
+      calls it never;
+    * timing: each prefill round between two synchronizes (prefill
+      tokens/s), each decode round on the host clock (it ends in its
+      fetch) with the prefill's work already done; the rounds in
+      ``PROFILED_ROUNDS`` run under ``torch.profiler`` for the busy share
+      (summed kernel time over wall) and are left out of ms/round, as is a
+      graph session's first round (eager, then the capture).
+
+    Returns ``(session, report, counts, metrics)``."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n))
+               for n in SESSION_PROMPTS[:n_req]]
+    session = E.ServeSession(
+        params, cfg, num_slots=SESSION_SLOTS, max_seq=SESSION_MAX_SEQ,
+        prompt_fn=lambda r: prompts[r.rid], do_warmup=do_warmup,
+        prefill_chunk=PREFILL_CHUNK, compiled=compiled, device=dev)
+    m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0)
+    fetches = [0]
+    fetch = E.device_get
+
+    def counting_fetch(*a, **k):
+        fetches[0] += 1
+        return fetch(*a, **k)
+
+    def sync_free(fn):
+        def wrapped(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return wrapped
+
+    session._plan_round = sync_free(session._plan_round)
+    session._compute_round = sync_free(session._compute_round)
+    prefill = session.prefill_round if do_warmup \
+        else sync_free(session.prefill_round)
+    decode = session.decode_round
+
+    def timed_prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ran = prefill()
+        torch.cuda.synchronize()
+        m["prefill_s"] += time.perf_counter() - t0
+        return ran
+
+    def timed_decode():
+        k, n0 = session.report.rounds, fetches[0]
+        if k in PROFILED_ROUNDS:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                done = decode()
+                wall = time.perf_counter() - t0
+            m["profiled_ms"] += 1e3 * wall
+            m["busy_ms"] += sum(
+                ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA) / 1e3
+        else:
+            t0 = time.perf_counter()
+            done = decode()
+            wall = time.perf_counter() - t0
+            if session.report.rounds > k and not (compiled and k == 0):
+                m["decode_ms"].append(1e3 * wall)
+        stepped = session.report.rounds - k
+        require(fetches[0] - n0 == stepped,
+                f"decode round {k}: {fetches[0] - n0} host fetches for "
+                f"{stepped} stepped round(s)")
+        return done
+
+    session.prefill_round = timed_prefill
+    session.decode_round = timed_decode
+    reqs = [Request(rid=i, prompt_len=SESSION_PROMPTS[i],
+                    max_new_tokens=SESSION_NEW[i]) for i in range(n_req)]
+    E.device_get = counting_fetch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, counts = counted(lambda: session.run(reqs, max_rounds=10000))
+        m["wall_s"] = time.perf_counter() - t0
+    finally:
+        E.device_get = fetch
+        torch.cuda.set_sync_debug_mode(0)
+    m["fetches"] = fetches[0]
+    return session, rep, counts, m
+
+
+def session_phases(torch, dev, serve, params, args, qargs, records, counted,
+                   card):
+    """Phases 8-9 (see the module docstring); sets the kernel records'
+    launches from session A's eager run and session B's."""
+    # 8. session A: bf16 tier, no warmup, 8 requests through 4 slots, the
+    #    decode round replayed as a CUDA graph, then the same run eager
+    scfg = serve.config_from_args(args)
+    L = scfg.num_layers
+    W = scfg.ess.warmup_windows
+
+    def session_summary(tag, sess, rep, m):
+        dm = m["decode_ms"]
+        print(f"session {tag}: {len(rep.finished_rids)} requests, "
+              f"{rep.rounds} decode rounds, {rep.decode_tokens} decode "
+              f"tokens, {rep.prefill_chunks} prefill chunks; wall "
+              f"{m['wall_s']:.2f} s; decode {sum(dm) / len(dm):.2f} ms/round "
+              f"(mean of {len(dm)} rounds; median "
+              f"{sorted(dm)[len(dm) // 2]:.2f}, min {min(dm):.2f}); device "
+              f"busy {100 * m['busy_ms'] / m['profiled_ms']:.1f} % of "
+              f"{len(PROFILED_ROUNDS)} profiled rounds "
+              f"({m['profiled_ms'] / len(PROFILED_ROUNDS):.2f} ms/round "
+              f"under the profiler); prefill "
+              f"{rep.prefill_tokens / m['prefill_s']:.1f} tok/s "
+              f"({m['prefill_s']:.2f} s); pool hit rate "
+              f"{rep.pool_hit_rate:.4f}, {rep.h2d_rows / rep.rounds:.1f} "
+              f"miss rows/round; {m['fetches']} host fetches  [{card}]",
+              flush=True)
+
+    def check_session(tag, sess, rep, n, n_req, warm):
+        """Every request ends once; the launches per route and shape, with
+        the graph's replays counted, equal what the run's rounds and
+        chunks give."""
+        terminal = [e.rid for e in sess.token_events if e.is_terminal]
+        require(sorted(terminal) == list(range(n_req))
+                and sorted(rep.finished_rids) == list(range(n_req)),
+                f"session {tag}: terminal events {terminal}")
+        for rid in range(n_req):
+            require(len(sess.outputs[rid]) == SESSION_NEW[rid],
+                    f"session {tag}: rid {rid} emitted "
+                    f"{len(sess.outputs[rid])} tokens")
+        R, ch = rep.rounds, rep.prefill_chunks
+        require(ch == sum(-(-p // PREFILL_CHUNK)
+                          for p in SESSION_PROMPTS[:n_req]),
+                f"session {tag}: {ch} prefill chunks")
+        require_tc_only(n, f"session {tag}")
+        got = check_shapes(n, scfg, {
+            "indexer_scores[decode]": L * R,
+            "indexer_scores[prefill]": L * (ch + (n_req if warm else 0)),
+            "sparse_mla_partial[attn0]": L * R,
+            "sparse_mla_partial[attn1]": L * R,
+            "sparse_mla_partial[prefill]": L * ch}, f"session {tag}")
+        gname = "gather_rows" if tag.startswith("A") \
+            else "gather_rows_dequant"
+        other = "gather_rows_dequant" if gname == "gather_rows" \
+            else "gather_rows"
+        planes = 1 if gname == "gather_rows" else 2
+        want = {f"{gname}_staged": L * ch,
+                f"{gname}_direct": L * (R + (n_req * W if warm else 0)),
+                other: 0, "scatter_rows": planes * (ch + L * R)}
+        require(all(n[k] == v for k, v in want.items())
+                and n[gname] == n[f"{gname}_staged"] + n[f"{gname}_direct"]
+                and n["sparse_mla_merge"] > 0,
+                f"session {tag}: launches {n}, expected {want}")
+        return got
+
+    def graph_and_eager(tag, cfg, n_req, warm):
+        """The session run twice: its decode round replayed as a graph,
+        then eagerly.  The streams must be bit-identical and the launch
+        counts (the graph's with its replays added) equal.  Returns the
+        eager run's counts and shapes, counted where the wrappers launch."""
+        runs = {}
+        for compiled in (True, False):
+            name = f"{tag} {'graph' if compiled else 'eager'}"
+            sess, rep, n, m = run_session(torch, dev, params, cfg, counted,
+                                          compiled=compiled, do_warmup=warm,
+                                          n_req=n_req)
+            session_summary(name, sess, rep, m)
+            got = check_session(name, sess, rep, n, n_req, warm)
+            if compiled:
+                require(sess.programs.replays == rep.rounds - 1,
+                        f"session {name}: {sess.programs.replays} graph "
+                        f"replays for {rep.rounds} rounds")
+            runs[compiled] = (dict(sess.outputs), rep.rounds, n, got)
+            del sess
+            torch.cuda.empty_cache()
+        (og, rg, ng, _), (oe, re_, ne, got) = runs[True], runs[False]
+        require(og == oe and rg == re_,
+                f"session {tag}: the graph and the eager session's streams "
+                f"differ")
+        require(ng == ne, f"session {tag}: launch counts differ, graph {ng}, "
+                f"eager {ne}")
+        print(f"session {tag}: graph and eager streams bit-identical over "
+              f"{rg} rounds ({sum(len(v) for v in og.values())} tokens); "
+              f"launch counts equal: "
+              + ", ".join(f"{k} {v}" for k, v in ne.items()), flush=True)
+        return ne, got
+
+    n, got = graph_and_eager("A", scfg, len(SESSION_PROMPTS), False)
+    for name, v in got.items():
+        records[name]["launches"] = v
+    for name in ("scatter_rows", "sparse_mla_merge"):
+        records[name]["launches"] = n[name]
+    records["gather_rows"]["launches"] = n["gather_rows_direct"]
+    records["gather_rows[prefill]"]["launches"] = n["gather_rows_staged"]
+
+    # 9. session B: int8 tier, LRU warmup at admission, 4 requests
+    qcfg = serve.config_from_args(qargs)
+    n, _ = graph_and_eager("B int8 warmup", qcfg, 4, True)
+    records["gather_rows_dequant"]["launches"] = \
+        n["gather_rows_dequant_direct"]
+    records["gather_rows_dequant[prefill]"]["launches"] = \
+        n["gather_rows_dequant_staged"]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         return fail("run from a checkout: src/repro_torch is missing")
@@ -990,56 +1281,24 @@ def main() -> int:
                   for name, d in shape_counts.items()})
         return out, n
 
-    def require_tc_only(counts, phase):
-        for name, what in (("sparse_mla", "sparse-MLA partials"),
-                           ("indexer", "indexer launches")):
-            require(counts[f"{name}_tc"] > 0
-                    and counts[f"{name}_general"] == 0,
-                    f"the {phase} run's {what} must all take the "
-                    f"tensor-core route: {counts}")
-
     def serve_shapes(counts, a, phase):
-        """Launches per kernel shape, as the wrappers counted them: the
-        indexer at Q = 1 (decode) and Q > 1 (a prefill chunk); sparse-MLA's
-        partial at Q = 1 over K rows (attn0), at Q = 1 over the miss
-        envelope (attn1) and at Q > 1 (prefill).  Each must equal what the
-        serve's arguments give: per layer, one indexer call and one partial
-        per prefill chunk; per warmup window and decode round one indexer
+        """The fixed-batch serve's launches per shape, against what its
+        arguments give: per layer, one indexer call and one partial per
+        prefill chunk; per warmup window and decode round one indexer
         call, Attn0 over the K selected rows and Attn1 over the fetched
-        ones, K rows in the warmup (max_miss_ratio 1: the attn0 shape) and
-        the envelope at decode.  Every launch must fall in one shape.
-        Returns the counted launches per shape."""
+        ones, K rows in the warmup (max_miss_ratio 1: the attn0 shape)
+        and the envelope at decode."""
         cfg = serve.config_from_args(a)
         L = cfg.num_layers
         W = min(cfg.ess.warmup_windows, a.prompt_len - 1)
         chunks = -(-(a.prompt_len - W) // a.prefill_chunk)
         rounds = a.new_tokens - 1
-        K = cfg.dsa.index_topk
-        M = max(1, int(cfg.ess.max_miss_ratio * K))
-        expected = {"indexer_scores[decode]": L * (W + rounds),
-                    "indexer_scores[prefill]": L * chunks,
-                    "sparse_mla_partial[attn0]": L * (W + rounds) + L * W,
-                    "sparse_mla_partial[attn1]": L * rounds,
-                    "sparse_mla_partial[prefill]": L * chunks}
-        by_q, by_s = counts["indexer_by_q"], counts["sparse_mla_by_shape"]
-        got = {"indexer_scores[decode]": by_q.get(1, 0),
-               "indexer_scores[prefill]": sum(
-                   v for q, v in by_q.items() if q > 1),
-               "sparse_mla_partial[attn0]": by_s.get((1, K), 0),
-               "sparse_mla_partial[attn1]": by_s.get((1, M), 0),
-               "sparse_mla_partial[prefill]": sum(
-                   v for (q, _), v in by_s.items() if q > 1)}
-        n_idx = got["indexer_scores[decode]"] + \
-            got["indexer_scores[prefill]"]
-        n_mla = sum(v for k, v in got.items() if k.startswith("sparse"))
-        require(n_idx == counts["indexer_tc"]
-                and n_mla == counts["sparse_mla_tc"],
-                f"the {phase} run's launches outside the serve's shapes: "
-                f"indexer {by_q}, sparse-MLA {by_s}")
-        require(got == expected,
-                f"the {phase} run's launches per shape {got}, expected "
-                f"from its arguments {expected}")
-        return got
+        return check_shapes(counts, cfg, {
+            "indexer_scores[decode]": L * (W + rounds),
+            "indexer_scores[prefill]": L * chunks,
+            "sparse_mla_partial[attn0]": L * (W + rounds) + L * W,
+            "sparse_mla_partial[attn1]": L * rounds,
+            "sparse_mla_partial[prefill]": L * chunks}, phase)
 
     def require_launched(counts, names, phase):
         for name in names:
@@ -1063,10 +1322,6 @@ def main() -> int:
           "61 -> 4 (3 dense + 1 MoE), mtp_depth 1 -> 0", flush=True)
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(args))
-    for name in ("scatter_rows", "sparse_mla_merge"):
-        records[name]["launches"] = n[name]
-    records["gather_rows"]["launches"] = n["gather_rows_direct"]
-    records["gather_rows[prefill]"]["launches"] = n["gather_rows_staged"]
     res = out["result"]
     print(f"serve: {serve.report(out)}  [{card}]", flush=True)
     print(f"serve: init {out['init_s']:.1f} s, peak device memory "
@@ -1078,8 +1333,7 @@ def main() -> int:
     require_launched(n, ("gather_rows", "scatter_rows", "indexer_scores",
                          "sparse_mla_partial", "sparse_mla_merge"), "serve")
     require_tc_only(n, "serve")
-    for name, v in serve_shapes(n, args, "serve").items():
-        records[name]["launches"] = v
+    serve_shapes(n, args, "serve")
     require_gather_routes(n, "gather_rows", args, "serve")
     require(res.misses.sum() > 0, "decode rounds read nothing from the tier")
     require(res.evicted > 0, "the pool never evicted")
@@ -1091,9 +1345,6 @@ def main() -> int:
         SERVE_ARGS + ["--host-cache-dtype", "int8"])
     torch.cuda.reset_peak_memory_stats()
     out, n = counted(lambda: serve.run(qargs, params=params))
-    records["gather_rows_dequant"]["launches"] = n["gather_rows_dequant_direct"]
-    records["gather_rows_dequant[prefill]"]["launches"] = \
-        n["gather_rows_dequant_staged"]
     res = out["result"]
     agree = int((res.tokens == bf16_tokens).sum())
     print(f"quant serve: {serve.report(out)}  [{card}]", flush=True)
@@ -1122,6 +1373,10 @@ def main() -> int:
         records[page_kernel]["launches"] = n[page_kernel]
         print(f"graft {tier}: {gr}  [{card}]", flush=True)
         require_launched(n, (page_kernel, "scatter_rows"), f"graft {tier}")
+
+    # 8-9. the serve sessions
+    session_phases(torch, dev, serve, params, args, qargs, records, counted,
+                   card)
     print(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

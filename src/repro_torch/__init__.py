@@ -25,3 +25,12 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without waiting for the card: copied
+    from pinned memory, non-blocking (a copy from pageable memory
+    synchronizes).  On the CPU, ``t`` itself."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -19,11 +19,12 @@ The decode and prefill steps update ``host_latent``, ``ikeys`` and
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from collections import deque
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, upload
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
@@ -88,13 +89,18 @@ def host_page_bytes(cfg: ArchConfig, dtype=torch.bfloat16) -> int:
 
 
 def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
-                    *, device=None) -> ESSCaches:
+                    *, device=None, num_pages: Optional[int] = None,
+                    map_slots: bool = True) -> ESSCaches:
     """Decode caches for ``batch`` slots of up to ``max_seq`` tokens on
     ``device`` (the card by default; raises without one unless
     ``device="cpu"``).  The host tier (and a quantized tier's scale plane)
-    stays on the CPU, pinned for a CUDA device.  Paged: ``batch * NB``
-    pages, slot ``b`` mapped onto pages ``[b*NB, (b+1)*NB)`` (the
-    reference's ``map_slots=True`` layout for fixed-batch callers)."""
+    stays on the CPU, pinned for a CUDA device.
+
+    Paged: ``num_pages`` pages (default ``batch * NB``).  ``map_slots``
+    maps slot ``b`` onto pages ``[b*NB, (b+1)*NB)`` (the layout for
+    fixed-batch callers); ``map_slots=False`` leaves every block table
+    unmapped (-1), for a serve loop that maps pages at admission
+    (:class:`HostPageAllocator`, :func:`map_slot`)."""
     dev = resolve_device(device)
     dtype = cfg.param_dtype if dtype is None else dtype
     qdt, sdt = host_storage_dtype(cfg, dtype)
@@ -106,9 +112,18 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
     if uses_paged_host(cfg):
         R = cfg.ess.host_page_rows
         NB = num_blocks(cfg, max_seq)
-        lead = (Lh, batch * NB, R)
-        block_tables = torch.arange(batch * NB, dtype=torch.int64,
-                                    device=dev).view(batch, NB)
+        NP = batch * NB if num_pages is None else num_pages
+        lead = (Lh, NP, R)
+        if not map_slots:
+            block_tables = torch.full((batch, NB), -1, dtype=torch.int64,
+                                      device=dev)
+        elif NP < batch * NB:
+            raise ValueError(f"identity slot mapping needs {batch * NB} "
+                             f"pages, pool has {NP}; pass map_slots=False "
+                             f"and admit through a HostPageAllocator")
+        else:
+            block_tables = torch.arange(batch * NB, dtype=torch.int64,
+                                        device=dev).view(batch, NB)
     else:
         lead = (Lh, batch, max_seq)
         pin = pin and cfg.ess.offload_kv
@@ -126,6 +141,100 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                for _ in range(Lh)],
         block_tables=block_tables,
         host_scales=None if sdt is None else tier(1, sdt))
+
+
+# ---------------------------------------------------------------------------
+# Slot lifecycle (continuous batching)
+# ---------------------------------------------------------------------------
+#
+# Every edit is in place: a decode round replayed from a CUDA graph reads
+# the same lens, pools and block-table tensors it was captured with.
+
+def reset_slot(caches: ESSCaches, slot: int) -> ESSCaches:
+    """Full per-slot reset of a recycled decode slot, in place: ``lens``
+    and every layer's pool maps (``ids`` / ``last_use`` / ``slot_of``).
+    Pool ``data`` rows become unreachable and are left as they are (an
+    admission overwrites them).  ``fill_`` of a Python scalar: no host
+    copy (an indexed assignment of a scalar would copy it from the host
+    and wait for the card)."""
+    for p in caches.pools:
+        p.ids[slot].fill_(-1)
+        p.last_use[slot].fill_(-1)
+        p.slot_of[slot].fill_(-1)
+    caches.lens[slot].fill_(0)
+    return caches
+
+
+def map_slot(caches: ESSCaches, slot: int,
+             pages: Sequence[int]) -> ESSCaches:
+    """Install a slot's block table from an allocator's page list (the
+    table's row is written in place; dense tiers have none)."""
+    if caches.block_tables is None:
+        return caches
+    NB = caches.block_tables.shape[1]
+    if len(pages) > NB:
+        raise ValueError(f"{len(pages)} pages > {NB} blocks per slot")
+    bt = caches.block_tables
+    row = torch.tensor(list(pages) + [-1] * (NB - len(pages)),
+                       dtype=bt.dtype)
+    bt[slot].copy_(upload(row, bt.device))
+    return caches
+
+
+def pages_owned_mask(block_tables: torch.Tensor,
+                     num_pages: int) -> torch.Tensor:
+    """[NP] bool — physical pages mapped by any row of ``block_tables``."""
+    flat = block_tables.reshape(-1)
+    mask = torch.zeros((num_pages + 1,), dtype=torch.bool,
+                       device=flat.device)
+    mask.index_fill_(0, torch.where(flat >= 0, flat, num_pages), True)
+    return mask[:num_pages]
+
+
+def unmap_slot(caches: ESSCaches, slot: int) -> ESSCaches:
+    if caches.block_tables is not None:
+        caches.block_tables[slot].fill_(-1)
+    return caches
+
+
+class HostPageAllocator:
+    """Host-side free list for the global page pool (deterministic FIFO;
+    the port's own copy of the reference's).
+
+    The serve loop owns one: admission asks ``can_alloc`` (the free-page
+    gate), maps the returned pages into the slot's block table, and
+    ``release`` returns them when the slot finishes or is preempted."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free: deque[int] = deque(range(num_pages))
+        self._owned: dict[int, list[int]] = {}
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, slot: int, n: int) -> list[int]:
+        if not self.can_alloc(n):
+            raise RuntimeError(f"allocator: want {n} pages, "
+                               f"{len(self._free)} free")
+        if slot in self._owned:
+            raise RuntimeError(f"slot {slot} already owns pages")
+        pages = [self._free.popleft() for _ in range(n)]
+        self._owned[slot] = pages
+        return pages
+
+    def release(self, slot: int) -> list[int]:
+        pages = self._owned.pop(slot, [])
+        self._free.extend(pages)
+        return pages
+
+    def owned(self, slot: int) -> list[int]:
+        """Pages one slot owns, in allocation order."""
+        return list(self._owned.get(slot, []))
 
 
 def from_jax_caches(jc, device="cpu") -> ESSCaches:

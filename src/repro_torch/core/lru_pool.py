@@ -70,13 +70,15 @@ def put_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     """In place ``dst[b, idx[b,j]] = vals[b,j]`` where ``keep[b,j]``; other
     entries write nothing (the reference's ``.at[...].set(mode="drop")``).
 
-    dst [B, N, ...], idx [B, M], vals [B, M, ...] (or broadcastable),
-    keep [B, M].  Kept indices of one row must be distinct and in range.
-    A dropped entry is redirected onto its row's first kept entry with that
-    entry's value (an identical duplicate write), or, in a row with nothing
-    kept, onto position 0 with its current value — so no host sync and no
-    write to a live position."""
+    dst [B, N, ...], idx [B, M], vals [B, M, ...] (or broadcastable, or a
+    Python scalar: no host-to-device copy), keep [B, M].  Kept indices of
+    one row must be distinct and in range.  A dropped entry is redirected
+    onto its row's first kept entry with that entry's value (an identical
+    duplicate write), or, in a row with nothing kept, onto position 0 with
+    its current value — so no host sync and no write to a live position."""
     B, M = idx.shape
+    if not isinstance(vals, torch.Tensor):
+        vals = dst.new_full((1, 1) + dst.shape[2:], vals)
     vals = vals.expand(B, M, *dst.shape[2:]).to(dst.dtype)
     first = keep.to(torch.int8).argmax(dim=1, keepdim=True)      # [B,1]
     any_kept = keep.any(dim=1, keepdim=True)
@@ -161,15 +163,13 @@ def admit(pool: PoolState, miss_ids: torch.Tensor, rows: torch.Tensor, *,
     if protect_slots is not None:
         score = score.clone()
         put_drop(score, protect_slots.clamp_min(0),
-                 torch.tensor(torch.iinfo(torch.int32).max,
-                              device=score.device), protect_slots >= 0)
+                 torch.iinfo(torch.int32).max, protect_slots >= 0)
     # coldest M slots; empty slots (-1) first, lowest slot among equal stamps
     evict = topk_desc(-score, M)                                  # [B,M]
 
     old_ids = pool.ids.gather(1, evict)
     old_valid = (old_ids >= 0) & valid
-    put_drop(pool.slot_of, old_ids.clamp_min(0),
-             torch.tensor(-1, device=evict.device), old_valid)
+    put_drop(pool.slot_of, old_ids.clamp_min(0), -1, old_valid)
     put_drop(pool.slot_of, miss_ids.clamp_min(0), evict, valid)
     put_drop(pool.ids, evict, miss_ids, valid)
     put_drop(pool.last_use, evict, pool.step, valid)
@@ -180,6 +180,20 @@ def admit(pool: PoolState, miss_ids: torch.Tensor, rows: torch.Tensor, *,
 
 def tick(pool: PoolState) -> PoolState:
     pool.step.add_(1)
+    return pool
+
+
+def invalidate_beyond(pool: PoolState, lens: torch.Tensor) -> PoolState:
+    """Drop pool entries for positions ``>= lens[b]``, in place (a rollback:
+    those positions will be written again with other content, so their
+    pool rows must not survive).  Clears the forward map (``ids`` /
+    ``last_use``) and the inverse map (``slot_of``) alike, so it is
+    idempotent; a row whose ``lens`` did not move keeps its entries."""
+    stale = pool.ids >= lens[:, None]                            # [B,P]
+    pool.ids.masked_fill_(stale, -1)
+    pool.last_use.masked_fill_(stale, -1)
+    pos = torch.arange(pool.slot_of.shape[1], device=lens.device)
+    pool.slot_of.masked_fill_(pos[None, :] >= lens[:, None], -1)
     return pool
 
 

@@ -91,7 +91,7 @@ def _fetch_valid(lk: LP.Lookup, B: int, Q: int, K: int, M_env: int
     out = torch.zeros((B, Q, M_env + 1), dtype=torch.bool,
                       device=lk.miss_rank.device)
     bi = torch.arange(B, device=out.device)[:, None].expand(B, Q * K)
-    out[bi, qidx, scat] = True
+    out.index_put_((bi, qidx, scat), out.new_ones(()))
     return out[:, :, :M_env]
 
 

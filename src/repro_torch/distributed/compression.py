@@ -14,8 +14,10 @@ the reference's compiled serve path bit for bit.  There XLA rewrites the
 scale's ``amax / qmax`` as ``amax * (1 / qmax)`` (a division by a
 constant), which can differ from the quotient in the last bit and so move
 an f16 scale by one step where it lands on a rounding tie; the port
-writes that product out, with the fp32 reciprocal as a tensor on the
-row's device.
+writes that product out.  The reciprocal is a Python float: PyTorch
+rounds a scalar operand to the fp32 tensor's dtype, so the product is
+the same fp32 ``amax * (1/qmax)`` on either device, with no
+host-to-device copy in the step.
 """
 
 from __future__ import annotations
@@ -44,8 +46,7 @@ def quantize_rows(x: torch.Tensor, dtype=torch.int8
     xf = x.float()
     m = quant_max(dtype)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    inv = torch.tensor(1.0 / m, dtype=torch.float32, device=x.device)
-    scale = (amax * inv).to(SCALE_DTYPE)
+    scale = (amax * (1.0 / m)).to(SCALE_DTYPE)
     s = scale.float()
     y = xf / torch.where(s > 0, s, torch.ones_like(s))
     if dtype == torch.int8:

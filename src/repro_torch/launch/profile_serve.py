@@ -95,9 +95,9 @@ def main(argv=None) -> int:
     a, b = (args.chunk - 1) * C, args.chunk * C
     caches = LC.init_ess_caches(cfg, B, max_seq, device=dev)
     for c0 in range(0, a, C):
-        _, caches = E.ess_prefill_chunk(params, cfg, tokens[:, c0:c0 + C],
-                                        positions[:, c0:c0 + C], caches,
-                                        want_logits=False)
+        caches = E.ess_prefill_chunk(params, cfg, tokens[:, c0:c0 + C],
+                                     positions[:, c0:c0 + C], caches,
+                                     want_logits=False)[1]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()

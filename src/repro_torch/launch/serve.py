@@ -1,18 +1,23 @@
-"""Serve a fixed batch of synthetic prompts through the ESS path.
+"""Serve synthetic prompts through the ESS path.
 
-Builds random weights from ``--seed`` on the device, synthetic prompts from
-the same seed with numpy, runs :func:`repro_torch.serving.engine
-.generate_batch` and prints tokens/s, ms per decode round, the pool hit
-rate, the miss rows and bytes per round and the host tier's bytes.
-``--layers`` cuts the depth (widths stay) and turns MTP off;
-``--host-cache-dtype`` stores the tier as bf16 (the param dtype), int8 or
-fp8 with one f16 scale per row.
+Builds random weights from ``--seed`` on the device and synthetic prompts
+from the same seed with numpy, then serves them through the
+continuous-batching :class:`repro_torch.serving.engine.ServeSession`
+(one decode slot per request, the decode round replayed as a CUDA graph
+on the card and run eagerly on the CPU), or, with ``--fixed-batch``, as
+one fixed batch through :func:`repro_torch.serving.engine.generate_batch`
+(with its LRU-warmup replay).  Prints
+tokens/s, ms per decode round, the pool hit rate, the miss rows and bytes
+per round and the host tier's bytes.  ``--layers`` cuts the depth (widths
+stay) and turns MTP off; ``--host-cache-dtype`` stores the tier as bf16
+(the param dtype), int8 or fp8 with one f16 scale per row.
 
   python -m repro_torch.launch.serve --device cuda \\
       --arch deepseek-v32-exp-ess --layers 4 --requests 4 \\
       --prompt-len 8192 --new-tokens 32 --prefill-chunk 256
   python -m repro_torch.launch.serve --device cpu   # smoke config
   python -m repro_torch.launch.serve --device cpu --host-cache-dtype int8
+  python -m repro_torch.launch.serve --device cpu --fixed-batch
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import cut_depth, get_config
 from repro_torch.models.params import init_params
-from repro_torch.serving.engine import generate_batch
+from repro_torch.cache import latent_cache as LC
+from repro_torch.serving.engine import ServeSession, generate_batch
+from repro_torch.serving.scheduler import Request
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "with a per-row f16 scale")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--fixed-batch", action="store_true",
+                    help="serve the prompts as one fixed batch "
+                         "(generate_batch) instead of the session")
     return ap
 
 
@@ -74,6 +84,9 @@ def run(args, params=None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.requests, args.prompt_len), dtype=np.int64)
+    if not args.fixed_batch:
+        return _run_session(args, cfg, params, prompts, max_seq, dev,
+                            init_s)
     res = generate_batch(params, cfg, prompts, args.new_tokens, max_seq,
                          prefill_chunk=args.prefill_chunk, device=dev)
     rounds = len(res.round_s)
@@ -95,7 +108,44 @@ def run(args, params=None) -> dict:
     }
 
 
+def _run_session(args, cfg, params, prompts, max_seq, dev, init_s) -> dict:
+    session = ServeSession(
+        params, cfg, num_slots=args.requests, max_seq=max_seq,
+        prompt_fn=lambda req: prompts[req.rid][None],
+        prefill_chunk=args.prefill_chunk, compiled=dev.type == "cuda",
+        device=dev)
+    rep = session.run([Request(rid=i, prompt_len=args.prompt_len,
+                               max_new_tokens=args.new_tokens)
+                       for i in range(args.requests)],
+                      max_rounds=1 << 30)
+    steady = rep.rounds - rep.fill_rounds
+    return {
+        "cfg": cfg, "params": params, "session": session, "report": rep,
+        "init_s": init_s, "decode_rounds": rep.rounds,
+        "decode_ms_per_round": 1e3 / rep.rounds_per_s if steady else 0.0,
+        "decode_tok_s": rep.tokens_per_s,
+        "pool_hit_rate": rep.pool_hit_rate,
+        "miss_rows_per_round": rep.h2d_rows / max(rep.rounds, 1),
+        "tier_bytes": LC.tier_nbytes(session.caches),
+        "miss_bytes_per_round": rep.h2d_bytes / max(rep.rounds, 1),
+    }
+
+
 def report(out: dict) -> str:
+    if "session" in out:
+        rep = out["report"]
+        return (f"session: {len(rep.finished_rids)} requests, "
+                f"{rep.prefill_tokens} prompt tokens in "
+                f"{rep.prefill_chunks} chunks, {rep.decode_tokens} decode "
+                f"tokens in {rep.rounds} rounds ({rep.fill_rounds} fill); "
+                f"{out['decode_tok_s']:.1f} tok/s over {rep.wall_s:.2f} s, "
+                f"decode {out['decode_ms_per_round']:.2f} ms/round "
+                f"(steady rounds); pool hit rate "
+                f"{out['pool_hit_rate']:.4f}, "
+                f"{out['miss_rows_per_round']:.1f} miss rows/round; "
+                f"{out['cfg'].ess.host_cache_dtype} host tier "
+                f"{out['tier_bytes']} bytes, "
+                f"{out['miss_bytes_per_round']:.1f} miss bytes/round")
     return (f"prefill {out['prefill_tok_s']:.1f} tok/s "
             f"({out['prefill_s']:.2f} s incl. warmup); decode "
             f"{out['decode_ms_per_round']:.2f} ms/round, "
@@ -112,10 +162,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     out = run(args)
     print(report(out))
-    toks = out["result"].tokens
-    for b in range(toks.shape[0]):
-        print(f"  req{b}: {toks[b, :8].tolist()}"
-              f"{'...' if toks.shape[1] > 8 else ''}")
+    toks = out["result"].tokens.tolist() if "result" in out else \
+        [out["session"].outputs[b] for b in range(args.requests)]
+    for b, t in enumerate(toks):
+        print(f"  req{b}: {t[:8]}{'...' if len(t) > 8 else ''}")
     return 0
 
 

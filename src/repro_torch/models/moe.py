@@ -48,7 +48,8 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
     capacity = min(max(1, int(math.ceil(T * K / E * mo.capacity_factor))), T)
     # position of each (token, choice) inside its expert: token-major cumsum
-    flat = F.one_hot(top_ids.reshape(T * K), E)              # [T*K,E]
+    flat = (top_ids.reshape(T * K, 1) == torch.arange(
+        E, device=x.device)).long()                          # [T*K,E]
     pos = ((flat.cumsum(0) - flat) * flat).sum(-1)           # [T*K]
     keep = pos < capacity
     w = torch.where(keep.view(T, K), w, torch.zeros_like(w))
@@ -57,7 +58,7 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     slot = torch.where(keep, top_ids.reshape(-1) * capacity + pos,
                        E * capacity)
     xin = x2.new_zeros((E * capacity + 1, d))
-    xin[slot] = x2.repeat_interleave(K, dim=0)
+    xin[slot] = x2[:, None].expand(T, K, d).reshape(T * K, d)
     xin = xin[:E * capacity].view(E, capacity, d)
     h = F.silu(torch.bmm(xin, p["w_gate"])) * torch.bmm(xin, p["w_up"])
     out_e = torch.bmm(h, p["w_down"]).view(E * capacity, d)

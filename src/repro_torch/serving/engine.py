@@ -11,31 +11,42 @@ host tier).
   replayed as single-token decode steps with the full miss envelope.
 * :func:`generate_batch` — a fixed batch of equal-length prompts: prefill,
   then greedy Q=1 decode rounds.
+* :class:`ServeSession` — the continuous-batching serve loop: chunked
+  per-slot prefill interleaved with decode rounds, slots recycled,
+  admission gated in host bytes, the decode round replayed as a CUDA
+  graph (:mod:`repro_torch.serving.step`) with one host fetch per round.
 
 Caches are updated in place (host tier, indexer cache, pools); each step
-still returns an ``ESSCaches`` with the new ``lens``.
+still returns an ``ESSCaches`` with the new ``lens``.  The steps are free
+of host syncs on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, upload
 from repro_torch.cache import latent_cache as LC
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
+from repro_torch.core import warmup as WU
 from repro_torch.core.overlap import (ESSLayerState, _attend_rows,
                                       ess_sparse_attention)
 from repro_torch.distributed import compression as cmp
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
 from repro_torch.models import moe as MoE
+from repro_torch.serving import state as ES
+from repro_torch.serving import step as SP
+from repro_torch.serving.api import TokenEvent
+from repro_torch.serving.sampling import greedy
+from repro_torch.serving.scheduler import Request, Scheduler
 
 
 class DecodeOut(NamedTuple):
@@ -137,39 +148,61 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                       positions: torch.Tensor, caches: LC.ESSCaches, *,
-                      want_logits: bool = True
-                      ) -> tuple[Optional[torch.Tensor], LC.ESSCaches]:
-    """One chunked-prefill step: ``tokens [B,C]`` continue every sequence
+                      slot: Optional[int] = None, want_logits: bool = True,
+                      collect_tail: int = 0, n_valid: Optional[int] = None
+                      ) -> tuple[Optional[torch.Tensor], LC.ESSCaches, tuple,
+                                 Optional[torch.Tensor]]:
+    """One chunked-prefill step: ``tokens [Bc,C]`` continue the sequence(s)
     at ``caches.lens``; their latents land in the mapped host pages (one
     stacked write per plane after the layer loop) and their indexer keys
-    in the device cache.  (The reference's per-slot ``slot`` and padded
-    ``n_valid`` forms serve the continuous-batching loop, a later slice.)
+    in the device cache.
 
-    Attention is the exact causal DSA selection: per-query top-k over the
-    sequence's indexer cache, prior-context rows fetched from the host tier,
-    intra-chunk rows from the chunk itself, one sparse-MLA partial per
-    query (fp32 math on the rows' own dtype: bf16 rows are not copied to
-    fp32 first).  The pool is untouched.  A quantized tier quantizes each
-    layer's chunk rows once: intra-chunk queries read ``dequant(q, s)``,
-    the value any later query reads back from the tier, and the stacked
-    writes after the layer loop commit the same ``(q, s)``.  Returns
-    ``(logits | None, caches)``."""
-    B, C = tokens.shape
+    * ``slot`` (a Python int) restricts the step to one decode slot of a
+      shared continuous-batching cache (``Bc = 1``); ``None`` runs every
+      row (the fixed-batch :func:`ess_prefill`).
+    * ``n_valid`` (a Python int) marks the first ``n_valid`` positions as
+      real and the rest as the padding of a shape-bucketed ragged last
+      chunk.  Pad positions write nothing (``widx = -1``: indexer keys and
+      tier rows dropped), no valid query attends to them, and ``lens``
+      advance by ``n_valid``.  Their own outputs are discarded.
+    * Attention is the exact causal DSA selection: per-query top-k over the
+      slot's indexer cache, prior-context rows fetched from the host tier,
+      intra-chunk rows from the chunk itself, one sparse-MLA partial per
+      query (fp32 math on the rows' own dtype: bf16 rows are not copied to
+      fp32 first).  The pool is untouched.  A quantized tier quantizes
+      each layer's chunk rows once: intra-chunk queries read
+      ``dequant(q, s)``, the value any later query reads back from the
+      tier, and the stacked writes after the layer loop commit the same
+      ``(q, s)``.
+
+    Sync-free: ``slot`` and ``n_valid`` stay host ints.  Returns
+    ``(logits | None, caches, tails, hidden_last)``: ``tails`` holds each
+    layer's post-ln1 hidden states of the last ``collect_tail`` positions
+    (the LRU warmup's input) and ``hidden_last`` the post-final-norm hidden
+    at the last valid position (``None`` unless ``want_logits``)."""
+    b0, Bc = (0, tokens.shape[0]) if slot is None else (slot, 1)
+    C = tokens.shape[1]
     dev = tokens.device
-    start = caches.lens                                           # [B]
+    nv = C if n_valid is None else n_valid
+    start = caches.lens[b0:b0 + Bc]                               # [Bc]
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
-    widx = start[:, None] + torch.arange(C, device=dev)[None, :]  # [B,C]
+    cpos = torch.arange(C, device=dev)
+    widx = torch.where(cpos[None, :] < nv, start[:, None] + cpos[None, :],
+                       -1)                                        # [Bc,C]
     host, host_scales = caches.host_latent, caches.host_scales
+    bt = caches.block_tables
     S = caches.ikeys[0].shape[1]
     K = min(cfg.dsa.index_topk, S)
     causal = torch.arange(S, device=dev)[None, None, :] <= widx[:, :, None]
-    bi = torch.arange(B, device=dev)[:, None, None]
-    lat_stack, scale_stack = [], []
+    bi = torch.arange(Bc, device=dev)[:, None, None]
+    lat_stack, scale_stack, tails = [], [], []
 
     for layer in range(cfg.num_layers):
         lp, is_moe = _layer_params(params, cfg, layer)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        ik = caches.ikeys[layer]
+        if collect_tail:
+            tails.append(h[:, -collect_tail:])
+        ik = caches.ikeys[layer][b0:b0 + Bc]          # a view: in place
         _append_ikeys(ik, widx, M.indexer_keys(lp["indexer"], h))
         new_lat = M.latent_entries(lp["mla"], cfg, h, positions)
         if host_scales is None:
@@ -182,16 +215,16 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             new_lat = cmp.dequantize_rows(q_lat, s_lat, cfg.param_dtype)
 
         iq = M.indexer_query(lp["indexer"], h)
-        sc = M.indexer_scores(iq, ik, causal)                # [B,C,S]
-        ids = M.topk_ids(sc, K, causal)                           # [B,C,K]
+        sc = M.indexer_scores(iq, ik, causal)                # [Bc,C,S]
+        ids = M.topk_ids(sc, K, causal)                           # [Bc,C,K]
         req_valid = causal.gather(2, ids)
         # prior context from the host tier, intra-chunk rows from the chunk
         local = ids >= start[:, None, None]
         prior_ids = torch.where(local, -1, ids)
         rows_h = offload.gather_tier_rows(
-            host, host_scales, prior_ids.reshape(B, C * K),
-            layer=layer, block_table=caches.block_tables,
-            out_dtype=new_lat.dtype).view(B, C, K, -1)
+            host, host_scales, prior_ids.reshape(Bc, C * K), layer=layer,
+            batch_offset=b0, block_table=bt,
+            out_dtype=new_lat.dtype).view(Bc, C, K, -1)
         loc = (ids - start[:, None, None]).clamp(0, C - 1)
         rows = torch.where(local[..., None], new_lat[bi, loc], rows_h)
         del rows_h
@@ -204,19 +237,23 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                               M.finalize_partial(part, x.dtype))
         x = x + _ffn(lp, cfg, x, is_moe)
 
-    # one stacked write per plane for the whole chunk (all layers)
+    # one stacked write per plane for the whole chunk (all layers; pad
+    # rows carry widx == -1 and drop)
     offload.host_scatter_rows_stacked(
         host, widx, torch.stack(lat_stack), slot_mask=None,
-        block_table=caches.block_tables)
+        batch_offset=b0, block_table=bt)
     if host_scales is not None:
         offload.host_scatter_rows_stacked(
             host_scales, widx, torch.stack(scale_stack), slot_mask=None,
-            block_table=caches.block_tables)
-    logits = None
+            batch_offset=b0, block_table=bt)
+    new_lens = caches.lens.clone()
+    new_lens[b0:b0 + Bc].add_(nv)
+    logits = hidden_last = None
     if want_logits:
         xf = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.unembed(params.get("unembed", params["embed"]), xf)
-    return logits, caches._replace(lens=start + C)
+        hidden_last = xf[:, max(nv - 1, 0)]                       # [Bc,d]
+    return logits, caches._replace(lens=new_lens), tuple(tails), hidden_last
 
 
 def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -243,7 +280,7 @@ def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for c0 in range(0, Sp, C):
         ck = min(C, Sp - c0)
         last = c0 + ck == Sp
-        lg, caches = ess_prefill_chunk(
+        lg, caches, _, _ = ess_prefill_chunk(
             params, cfg, tokens[:, c0:c0 + ck], positions[:, c0:c0 + ck],
             caches, want_logits=not last_logits_only or (last and W == 0))
         if lg is not None:
@@ -335,3 +372,658 @@ def generate_batch(params: dict, cfg: ArchConfig, prompts,
         prefill_s=prefill_s, evicted=evicted,
         logits_finite=bool(finite), tier_bytes=LC.tier_nbytes(caches),
         miss_bytes=(misses - ovf).sum(1) * row_bytes, caches=caches)
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching serve session
+# ---------------------------------------------------------------------------
+
+def device_get(parts: list, pinned: Optional[torch.Tensor] = None
+               ) -> np.ndarray:
+    """The serve round's one host fetch: the int64 device tensors
+    ``parts`` packed on the device, one non-blocking copy into the
+    ``pinned`` host buffer, one event wait.  On the CPU, a copy."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    if flat.device.type != "cuda":
+        return flat.numpy().copy()
+    dst = pinned[:flat.numel()]
+    dst.copy_(flat, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return dst.numpy().copy()
+
+
+# decode rounds before a freshly promoted slot's working set is warm;
+# excluded from the decode cadence (ServeReport.rounds_per_s), as in the
+# reference, whose pipelined round needs them to fill its slab
+PIPELINE_FILL_ROUNDS = 2
+
+
+@dataclasses.dataclass
+class ServeReport:
+    rounds: int = 0                     # decode rounds stepped
+    decode_tokens: int = 0              # tokens emitted by decode rounds
+    prefill_chunks: int = 0
+    prefill_tokens: int = 0
+    wall_s: float = 0.0
+    # wall time inside decode rounds (plan -> commit) outside each slot's
+    # first PIPELINE_FILL_ROUNDS rounds (those count in fill_rounds)
+    decode_wall_s: float = 0.0
+    fill_rounds: int = 0
+    h2d_rows: int = 0                   # miss rows read from the host tier
+    hit_rows: int = 0                   # pool hits (port-only counter)
+    d2h_rows: int = 0                   # latent rows written (all layers)
+    host_bytes_per_row: int = 0         # payload + scale bytes of a row
+    finished_rids: list = dataclasses.field(default_factory=list)
+    admissions_blocked: int = 0
+    peak_pages_in_use: int = 0
+    num_pages: int = 0
+    ttft_rounds: dict = dataclasses.field(default_factory=dict)
+    ttft_s: dict = dataclasses.field(default_factory=dict)
+    events: list = dataclasses.field(default_factory=list)
+    rejected: int = 0
+    aborted: int = 0
+    finish_reasons: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.decode_tokens / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def rounds_per_s(self) -> float:
+        denom = self.decode_wall_s if self.decode_wall_s > 0 else self.wall_s
+        return (self.rounds - self.fill_rounds) / denom if denom > 0 else 0.0
+
+    @property
+    def pool_hit_rate(self) -> float:
+        tot = self.hit_rows + self.h2d_rows
+        return self.hit_rows / tot if tot else 0.0
+
+    @property
+    def h2d_bytes(self) -> int:
+        return self.h2d_rows * self.host_bytes_per_row
+
+
+class _RoundPlan(NamedTuple):
+    active: list            # slots stepping this round
+    pending: list           # (slot, req, t0 device scalar) first tokens
+    t0: float               # plan-stage entry time
+
+
+@dataclasses.dataclass
+class _PrefillTask:
+    req: Request
+    tokens: torch.Tensor     # [1, prompt_len] on the session's device
+    cursor: int = 0
+    # per-layer post-ln1 tails of the last warmup_windows prompt positions
+    # (do_warmup sessions), accumulated across chunks
+    tails: Optional[list] = None
+
+
+class ServeSession:
+    """One long-lived ESS decode batch driven by the continuous-batching
+    scheduler (counterpart of ``repro.serving.engine.ServeSession`` in its
+    greedy, Q = 1, synchronous form: no MTP, TBO or pipelined slab).
+
+    * ``num_slots`` decode slots share one batch; more requests than slots
+      stream through as slots free up.
+    * Prefill is chunked and interleaved: each round runs one
+      ``prefill_chunk``-token chunk for at most one admitting slot, then
+      one decode step for all running slots.  Chunk latents go straight
+      into the slot's mapped host pages.
+    * Admission is gated in host **bytes** (``host_byte_budget``, floored
+      to whole pages of the tier's storage dtype) or pages
+      (``num_host_pages``), and in pool entries.  A finished, preempted or
+      aborted slot returns its pages and gets a full reset (``lens`` and
+      pool maps) in place; decode masks frozen slots inside the step.
+    * ``compiled=True`` replays the decode round as a CUDA graph over the
+      persistent :class:`~repro_torch.serving.state.EngineState`
+      (:mod:`repro_torch.serving.step`); ``compiled=False`` runs the same
+      round function eagerly, and emits the same streams.  The CPU has
+      only the eager form.
+    * Exactly one host fetch per decode round, in :meth:`_commit_round`:
+      the packed round result and the just-promoted slots' first tokens,
+      one non-blocking copy into a pinned buffer and one event wait
+      (:func:`device_get`).  Prefill chunks and decode rounds are
+      otherwise free of host syncs.
+    * ``do_warmup=True`` runs the LRU-warmup replay after a slot's last
+      chunk (ragged chunks, the first token resolved on the host, as the
+      reference's legacy path does).
+    * Greedy requests only: a request with ``temperature > 0`` is refused
+      at :meth:`submit` until the reference's sampler is ported.
+    """
+
+    def __init__(self, params: dict, cfg: ArchConfig, *, num_slots: int,
+                 max_seq: int, num_host_pages: Optional[int] = None,
+                 host_byte_budget: Optional[int] = None,
+                 prompt_fn: Optional[Callable[[Request], Any]] = None,
+                 do_warmup: bool = False, prefill_chunk: int = 64,
+                 compiled: bool = True, device=None):
+        self.params = params
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_slots = num_slots
+        self.max_seq = max_seq
+        self.do_warmup = do_warmup
+        self.compiled = compiled
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.paged = LC.uses_paged_host(cfg)
+        blocks_per_slot = LC.num_blocks(cfg, max_seq)
+        self.num_pages = 0
+        self.allocator: Optional[LC.HostPageAllocator] = None
+        self.host_row_bytes = LC.host_row_bytes(cfg, cfg.param_dtype)
+        self.host_page_bytes = LC.host_page_bytes(cfg, cfg.param_dtype)
+        if self.paged:
+            if host_byte_budget is not None:
+                by_bytes = host_byte_budget // max(1, self.host_page_bytes)
+                self.num_pages = by_bytes if num_host_pages is None \
+                    else min(by_bytes, num_host_pages)
+            else:
+                self.num_pages = (num_host_pages
+                                  if num_host_pages is not None
+                                  else num_slots * blocks_per_slot)
+            self.allocator = LC.HostPageAllocator(self.num_pages)
+        caches = LC.init_ess_caches(
+            cfg, num_slots, max_seq, cfg.param_dtype, device=self.device,
+            num_pages=self.num_pages if self.paged else None,
+            map_slots=not self.paged)
+        self.state = ES.init_engine_state(cfg, caches, num_slots)
+        self._out = ES.init_round_out(num_slots, 1, self.device)
+        # the fetch's host side: the round result plus a first token per
+        # slot at most
+        self._pinned = None
+        if self.device.type == "cuda":
+            self._pinned = torch.empty(
+                (self._out.packed.numel() + num_slots,),
+                dtype=torch.int64).pin_memory()
+        self._programs = SP.StepPrograms(cfg)
+        self.pool_entries_per_slot = LC.pool_entries(cfg, max_seq)
+        self.free_pool_entries = num_slots * self.pool_entries_per_slot
+        self.sched = Scheduler(num_slots, max_seq,
+                               admission_gate=self._admission_gate,
+                               release_hook=self._release_slot,
+                               reject_hook=self._reject)
+        self.outputs: dict[int, list[int]] = {}
+        self.report = ServeReport(num_pages=self.num_pages,
+                                  host_bytes_per_row=self.host_row_bytes)
+        self.token_events: list[TokenEvent] = []
+        self._pending_events: list[TokenEvent] = []
+        self._terminal: dict[int, str] = {}
+        self._last_done: list[Request] = []
+        self._prompt_fn = prompt_fn or self._default_prompt
+        self._promised_pages = 0
+        self._promised_slots = 0
+        self._prefill: dict[int, _PrefillTask] = {}
+        self._pending_first: list[tuple] = []
+        self._rounds_since_promote: dict[int, int] = {}
+        self._round = 0
+        self._submit_round: dict[int, int] = {}
+        self._submit_time: dict[int, float] = {}
+
+    @property
+    def caches(self) -> LC.ESSCaches:
+        return self.state.caches
+
+    @property
+    def programs(self) -> SP.StepPrograms:
+        return self._programs
+
+    # -- resource accounting -------------------------------------------------
+
+    def _default_prompt(self, req: Request) -> torch.Tensor:
+        """Random prompt tokens from a CPU ``torch.Generator`` seeded with
+        ``1000 + rid``.  This differs from the reference's default prompt,
+        which draws with ``jax.random``: a comparison of the two packages
+        passes the same ``prompt_fn`` to both."""
+        g = torch.Generator().manual_seed(1000 + req.rid)
+        return torch.randint(0, self.cfg.vocab_size, (1, req.prompt_len),
+                             generator=g)
+
+    def _prompt_tokens(self, req: Request) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(self._prompt_fn(req))).long()
+        return upload(t.reshape(1, -1), self.device)
+
+    def pages_needed(self, req: Request) -> int:
+        return LC.pages_for_len(self.cfg, req.prompt_len + req.max_new_tokens)
+
+    def _admission_gate(self, req: Request) -> bool:
+        need_entries = self.pool_entries_per_slot * (self._promised_slots + 1)
+        if self.free_pool_entries < need_entries:
+            return False
+        need = self.pages_needed(req)
+        if self.allocator is not None:
+            # pages are the allocation unit; host bytes are the budget
+            need_bytes = need * self.host_page_bytes
+            free_bytes = (self.allocator.free_pages
+                          - self._promised_pages) * self.host_page_bytes
+            if need_bytes > free_bytes:
+                ev = (f"blocked rid={req.rid}: needs {need_bytes} host "
+                      f"bytes ({need} pages), {free_bytes} free")
+                if not self.report.events or self.report.events[-1] != ev:
+                    self.report.events.append(ev)
+                return False
+        self._promised_pages += need
+        self._promised_slots += 1
+        return True
+
+    def _release_slot(self, slot: int) -> None:
+        # a mid-prefill preemption drops the chunk cursor
+        self._prefill.pop(slot, None)
+        if self.allocator is not None:
+            self.allocator.release(slot)
+            LC.unmap_slot(self.caches, slot)
+        LC.reset_slot(self.caches, slot)
+        ES.release_slot(self.state, slot)
+        self._rounds_since_promote.pop(slot, None)
+        self.free_pool_entries += self.pool_entries_per_slot
+
+    def _sample_pages(self) -> None:
+        if self.allocator is not None:
+            used = self.num_pages - self.allocator.free_pages
+            self.report.peak_pages_in_use = max(
+                self.report.peak_pages_in_use, used)
+
+    # -- event stream --------------------------------------------------------
+
+    def _event(self, ev: TokenEvent) -> None:
+        self._pending_events.append(ev)
+        self.token_events.append(ev)
+
+    def drain_events(self) -> list[TokenEvent]:
+        evs, self._pending_events = self._pending_events, []
+        return evs
+
+    def _finalize(self, req: Request) -> None:
+        """The request's single terminal event."""
+        reason = req.finish_reason or "length"
+        if req.rid in self._terminal:
+            raise RuntimeError(f"rid={req.rid} already terminal "
+                               f"({self._terminal[req.rid]})")
+        self._terminal[req.rid] = reason
+        self.report.finish_reasons[req.rid] = reason
+        self._event(TokenEvent(rid=req.rid, token=None,
+                               index=len(self.outputs.get(req.rid, [])),
+                               finish_reason=reason,
+                               t=time.perf_counter()))
+
+    def _reject(self, req: Request) -> None:
+        self.report.rejected += 1
+        self.report.events.append(
+            f"rejected rid={req.rid}: prompt {req.prompt_len} + max_new "
+            f"{req.max_new_tokens} > max_seq {self.sched.max_seq}")
+        self._finalize(req)
+
+    # -- request flow --------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if req.sampling:
+            raise NotImplementedError(
+                f"rid={req.rid}: temperature {req.temperature} > 0; sampled "
+                f"streams need the reference's per-request keys (threefry "
+                f"fold_in and categorical), which are not ported yet")
+        self._submit_round[req.rid] = self._round
+        self._submit_time[req.rid] = time.perf_counter()
+        if self.allocator is not None \
+                and self.pages_needed(req) > self.num_pages:
+            req.finished = True
+            req.finish_reason = "rejected"
+            self.sched.finished.append(req)
+            self.report.rejected += 1
+            self.report.events.append(
+                f"rejected rid={req.rid}: needs {self.pages_needed(req)} "
+                f"pages, pool has {self.num_pages}")
+            self._finalize(req)
+            return
+        self.sched.submit(req)
+
+    def abort(self, rid: int, *, reason: str = "abort") -> bool:
+        """Abort a queued or running request between rounds; a running
+        slot returns its pages and is reset at once."""
+        req = self.sched.running.get(rid)
+        if req is None:
+            req = next((r for r in self.sched.queue if r.rid == rid), None)
+        if req is None or req.finished:
+            return False
+        req.finish_reason = reason
+        if not self.sched.abort(rid):
+            raise RuntimeError(f"rid={rid}: the scheduler lost it")
+        self.report.aborted += 1
+        self.report.events.append(
+            f"round {self._round}: rid={rid} aborted ({reason})")
+        self._finalize(req)
+        return True
+
+    def preempt(self, slot: int) -> None:
+        """Evict a running slot; it requeues, and its pages return and its
+        caches reset through the scheduler's release hook."""
+        self.sched.preempt(slot)
+
+    def admit(self) -> list[tuple[int, Request]]:
+        """Admit queued requests into free slots: allocate and map host
+        pages and queue the slot's prompt for chunked prefill."""
+        self._promised_pages = 0
+        self._promised_slots = 0
+        admitted = self.sched.admit()
+        for slot, req in admitted:
+            if self.allocator is not None:
+                pages = self.allocator.alloc(slot, self.pages_needed(req))
+                LC.map_slot(self.caches, slot, pages)
+            self._sample_pages()
+            self.free_pool_entries -= self.pool_entries_per_slot
+            self._prefill[slot] = _PrefillTask(req, self._prompt_tokens(req))
+            ES.admit_slot(self.state, slot, req)
+            self.outputs[req.rid] = []
+            self.report.events.append(
+                f"round {self._round}: rid={req.rid} -> slot {slot} "
+                f"(prefill {req.prompt_len} toks, "
+                f"preempted {req.preempted_count}x)")
+        return admitted
+
+    def prefill_round(self) -> bool:
+        """One prefill chunk for the oldest admitting slot (if any).
+
+        Without warmup the chunk is bucketed to a power of two (a ragged
+        last chunk zero-padded and masked by ``n_valid``); the last chunk
+        selects the first token on the device and promotes the slot, and
+        the token rides this round's one fetch in :meth:`decode_round`.
+        With ``do_warmup`` the chunk is ragged, collects the warmup tails,
+        and the last one runs the LRU-warmup replay and resolves the first
+        token on the host."""
+        if not self._prefill:
+            return False
+        slot = next(iter(self._prefill))         # FIFO by insertion order
+        task = self._prefill[slot]
+        n = task.req.prompt_len
+        c0 = task.cursor
+        ck = min(self.prefill_chunk, n - c0)
+        last = c0 + ck >= n
+        if self.do_warmup:
+            t0 = self._prefill_chunk_warmup(slot, task, c0, ck, n, last)
+        else:
+            C = SP.chunk_bucket(ck, self.prefill_chunk)
+            toks = task.tokens[:, c0:c0 + ck]
+            if C > ck:
+                toks = torch.nn.functional.pad(toks, (0, C - ck))
+            t0_dev = self._programs.prefill(C, last)(
+                self.params, self.state, toks, slot, ck)
+        task.cursor += ck
+        self.report.prefill_chunks += 1
+        self.report.prefill_tokens += ck
+        self.report.events.append(
+            f"round {self._round}: rid={task.req.rid} prefill chunk "
+            f"[{c0}:{c0 + ck})/{n} (slot {slot})")
+        if last:
+            if self.do_warmup:
+                self._finish_prefill(slot, task, t0)
+            else:
+                self.sched.promote(slot)
+                self._rounds_since_promote[slot] = 0
+                del self._prefill[slot]
+                self._pending_first.append((slot, task.req, t0_dev))
+        return True
+
+    def _prefill_chunk_warmup(self, slot: int, task: _PrefillTask, c0: int,
+                              ck: int, n: int, last: bool) -> Optional[int]:
+        W = max(0, min(self.cfg.ess.warmup_windows, n - 1))
+        toks = task.tokens[:, c0:c0 + ck]
+        pos = torch.arange(c0, c0 + ck, device=self.device)[None]
+        lg, new, tails, hid_last = ess_prefill_chunk(
+            self.params, self.cfg, toks, pos, self.caches, slot=slot,
+            want_logits=last, collect_tail=min(W, ck))
+        self.caches.lens.copy_(new.lens)
+        if W > 0:
+            if task.tails is None:
+                task.tails = list(tails)
+            else:
+                task.tails = [torch.cat([a, b], dim=1)[:, -W:]
+                              for a, b in zip(task.tails, tails)]
+        if not last:
+            return None
+        if W > 0:
+            self._warmup_slot(slot, tuple(task.tails), n)
+        t0 = greedy(lg[:, -1])
+        ES.promote_slot(self.state, slot, t0[0], hid_last[0])
+        # the legacy path resolves the first token here, on the host
+        return int(t0[0])
+
+    def _deliver_first_token(self, slot: int, req: Request, t0: int,
+                             now: Optional[float] = None) -> Optional[str]:
+        """Deliver a freshly promoted slot's first token; returns
+        ``"stop"`` / ``"length"`` when the request ends there."""
+        if now is None:
+            now = time.perf_counter()
+        self.outputs[req.rid] = [t0]
+        self._event(TokenEvent(rid=req.rid, token=t0, index=0, t=now))
+        rid = req.rid
+        ttft = self._round - self._submit_round[rid]
+        self.report.ttft_rounds.setdefault(rid, ttft)
+        self.report.ttft_s.setdefault(rid, now - self._submit_time[rid])
+        self.report.events.append(
+            f"round {self._round}: rid={rid} first token ready "
+            f"(ttft {ttft} rounds)")
+        if t0 in req.stop_set:
+            req.finish_reason = "stop"
+            return "stop"
+        if self.sched.budget_left(slot) == 0:
+            return "length"
+        return None
+
+    def _finish_prefill(self, slot: int, task: _PrefillTask,
+                        t0: int) -> None:
+        req = task.req
+        self.sched.promote(slot)
+        self._rounds_since_promote[slot] = 0
+        del self._prefill[slot]
+        done = self._deliver_first_token(slot, req, t0)
+        if done == "stop":
+            self._handle_done([self.sched.finish(slot)])
+        elif done == "length":
+            self._handle_done(self.sched.record_tokens({slot: 0}))
+
+    def _warmup_slot(self, slot: int, tails: tuple, prompt_len: int) -> None:
+        """LRU-warmup replay for one freshly prefilled slot: the top-K sets
+        of the last W prefill windows go into a fresh batch-1 pool, read
+        from the slot's mapped pages, which is then grafted into the
+        shared pool with clock-clamped stamps."""
+        caches = self.caches
+        lens1 = torch.full((1,), prompt_len, dtype=torch.int64,
+                           device=self.device)
+        for layer, x_tail in enumerate(tails):
+            lp, _ = _layer_params(self.params, self.cfg, layer)
+            full = caches.pools[layer]
+            one = LP.init_pool(1, full.data.shape[1],
+                               caches.ikeys[layer].shape[1],
+                               full.data.shape[2], full.data.dtype,
+                               self.device)
+            one = WU.lru_warmup(
+                one, caches.host_latent, x_tail, lp["indexer"],
+                caches.ikeys[layer][slot:slot + 1], lens1, self.cfg,
+                slot_mask=None, layer=layer, batch_offset=slot,
+                block_table=caches.block_tables,
+                host_scales=caches.host_scales)
+            LC.graft_pool_into(full, one, slot)
+
+    # -- decode stepping -----------------------------------------------------
+
+    def _slot_req(self, slot: int) -> Request:
+        return self.sched.running[self.sched.slots[slot].rid]
+
+    def _emit(self, slot: int, req: Request, tokens: list[int],
+              now: Optional[float] = None) -> tuple[int, bool]:
+        """Deliver one slot's tokens of the round; returns
+        ``(budget charge, stop-token hit)``.  The charge equals the
+        delivery: both are clamped by the same headroom."""
+        out = self.outputs.setdefault(req.rid, [])
+        delivered = tokens[:max(0, self.sched.remaining(slot))]
+        stopped = False
+        for j, t in enumerate(delivered):
+            if t in req.stop_set:
+                delivered = delivered[:j + 1]
+                stopped = True
+                break
+        if now is None:
+            now = time.perf_counter()
+        for t in delivered:
+            self._event(TokenEvent(rid=req.rid, token=t, index=len(out),
+                                   t=now))
+            out.append(t)
+        if stopped:
+            req.finish_reason = "stop"
+        return len(delivered), stopped
+
+    def _plan_round(self) -> Optional[_RoundPlan]:
+        """Plan stage: sample page pressure, collect the just-promoted
+        slots' first tokens, pick the active slots (None: nothing to
+        step).  No device work."""
+        self._sample_pages()
+        pending, self._pending_first = self._pending_first, []
+        # drop entries of slots preempted or aborted before their fetch
+        pending = [(s, r, t) for s, r, t in pending
+                   if self.sched.slots[s].active
+                   and self.sched.slots[s].rid == r.rid]
+        active = self.sched.active_slots()
+        if not active:
+            if pending:
+                raise RuntimeError("a promoted slot must be active")
+            return None
+        return _RoundPlan(active=active, pending=pending,
+                          t0=time.perf_counter())
+
+    def _compute_round(self, plan: _RoundPlan) -> ES.RoundOut:
+        """Compute stage: the decode round (a graph replay, or eager) over
+        the persistent state; nothing here waits for the card."""
+        self._programs.decode(self.compiled)(self.params, self.state,
+                                             self._out)
+        return self._out
+
+    def _commit_round(self, plan: _RoundPlan,
+                      out: ES.RoundOut) -> list[Request]:
+        """Commit stage: the round's single fetch (the packed result and
+        the pending first tokens), then scheduler bookkeeping and the
+        stream, stamped with the delivery instant."""
+        active, pending = plan.active, plan.pending
+        host = device_get([out.packed] + [t for _, _, t in pending],
+                          self._pinned)
+        t_deliver = time.perf_counter()
+        B, n = self.num_slots, out.packed.numel()
+        toks = host[:B * out.tokens.shape[1]].reshape(B, -1)
+        n_emit = host[B * out.tokens.shape[1]:n - 2]
+        self.report.h2d_rows += int(host[n - 2])
+        self.report.hit_rows += int(host[n - 1])
+        t0s = host[n:]
+        self.report.d2h_rows += len(active) * self.cfg.num_layers
+        slot_tokens = {}
+        stop_slots = []
+        first_done = {}
+        for (s0, r0, _), t0 in zip(pending, t0s):
+            fd = self._deliver_first_token(s0, r0, int(t0), now=t_deliver)
+            if fd is not None:
+                first_done[s0] = fd
+        for i in active:
+            req = self._slot_req(i)
+            if i in first_done:
+                # ended at its first token; the slot's decode step is
+                # discarded when it releases (full reset)
+                slot_tokens[i] = 0
+                if first_done[i] == "stop":
+                    stop_slots.append(i)
+                continue
+            k = int(n_emit[i])
+            charged, stopped = self._emit(i, req,
+                                          [int(t) for t in toks[i, :k]],
+                                          now=t_deliver)
+            slot_tokens[i] = charged
+            if stopped:
+                # a Q = 1 round stops at its only token: nothing past it to
+                # roll back (a speculative round's rollback is
+                # lru_pool.invalidate_beyond)
+                stop_slots.append(i)
+        done = self.sched.record_tokens(slot_tokens)
+        for i in stop_slots:
+            if self.sched.slots[i].active:
+                done.append(self.sched.finish(i))
+        fill = any(self._rounds_since_promote.get(i, PIPELINE_FILL_ROUNDS)
+                   < PIPELINE_FILL_ROUNDS for i in active)
+        for i in active:
+            if self._rounds_since_promote.get(i, 99) < PIPELINE_FILL_ROUNDS:
+                self._rounds_since_promote[i] += 1
+        self.report.rounds += 1
+        self.report.decode_tokens += sum(slot_tokens.values())
+        if fill:
+            self.report.fill_rounds += 1
+        else:
+            self.report.decode_wall_s += time.perf_counter() - plan.t0
+        return done
+
+    def decode_round(self) -> list[Request]:
+        """One decode round over the running slots (plan -> compute ->
+        commit); returns the requests it finished."""
+        plan = self._plan_round()
+        if plan is None:
+            return []
+        out = self._compute_round(plan)
+        return self._commit_round(plan, out)
+
+    def _handle_done(self, done: list[Request]) -> None:
+        for req in done:
+            out = self.outputs.get(req.rid, [])
+            if len(out) != req.generated + 1:
+                raise RuntimeError(f"rid={req.rid}: delivered {len(out)} != "
+                                   f"generated {req.generated} + 1")
+            self._finalize(req)
+            self.report.events.append(
+                f"round {self._round}: rid={req.rid} finished "
+                f"({len(out)} tokens, {req.finish_reason})")
+
+    def step_round(self) -> list[TokenEvent]:
+        """One serve round — admissions, one prefill chunk for at most one
+        admitting slot, one decode step for all running slots; returns the
+        round's TokenEvents."""
+        t0 = time.perf_counter()
+        self.admit()
+        self.prefill_round()
+        done = self.decode_round()
+        self._handle_done(done)
+        self._round += 1
+        self._last_done = done
+        self.report.wall_s += time.perf_counter() - t0
+        return self.drain_events()
+
+    def step(self) -> list[Request]:
+        """:meth:`step_round` returning the round's finished requests
+        (events stay buffered)."""
+        evs = self.step_round()
+        self._pending_events = evs + self._pending_events
+        return self._last_done
+
+    def _terminate_remaining(self, reason: str) -> None:
+        for rid in [r.rid for r in self.sched.queue] + \
+                list(self.sched.running):
+            self.abort(rid, reason=reason)
+
+    def run(self, requests=None, *, max_rounds: int = 200,
+            on_round: Optional[Callable[["ServeSession", int], None]] = None
+            ) -> ServeReport:
+        """Drive :meth:`step_round` until every submitted request has its
+        terminal event; requests still unfinished after ``max_rounds``
+        rounds end with ``finish_reason="budget"``."""
+        for req in (requests or []):
+            self.submit(req)
+        budget = max_rounds
+        while self.sched.running or self.sched.queue:
+            self.step_round()
+            if on_round is not None:
+                on_round(self, self._round - 1)
+            budget -= 1
+            if budget <= 0:
+                self.report.events.append("max_rounds reached")
+                self._terminate_remaining("budget")
+                break
+        self.report.finished_rids = [r.rid for r in self.sched.finished]
+        self.report.admissions_blocked = self.sched.blocked_admissions
+        missing = [rid for rid in self._submit_round
+                   if rid not in self._terminal]
+        if missing:
+            raise RuntimeError(f"no terminal event for rids {missing}")
+        return self.report

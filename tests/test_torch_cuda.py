@@ -558,3 +558,115 @@ def test_cuda_scatter_refuses_bf16_rows_into_int8_tier(cuda):
     with pytest.raises(TypeError, match="quantize"):
         gops.scatter_rows(tier, torch.tensor([0, 1], device=cuda), rows)
     assert (tier == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The serve step without host syncs, and the decode round as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _mini_cfg(tier="bf16"):
+    """deepseek-v32-exp-ess's attention widths (the kernels' tensor-core
+    routes: 128 heads x 576, indexer 64 x 128) under a narrow model: 2
+    layers (1 dense + 1 MoE of 16 experts), d_model 512, vocab 1024."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v32-exp-ess")
+    return dataclasses.replace(
+        cfg, num_layers=2, d_model=512, d_ff=1024, vocab_size=1024,
+        mtp_depth=0,
+        moe=dataclasses.replace(cfg.moe, num_experts=16, d_expert=128,
+                                first_dense_layers=1, dense_d_ff=1024),
+        ess=dataclasses.replace(cfg.ess, host_cache_dtype=tier,
+                                warmup_windows=4))
+
+
+class _SyncFree:
+    """``torch.cuda.set_sync_debug_mode("error")`` for a block: any host
+    sync inside raises."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8", "fp8"])
+def test_cuda_serve_steps_free_of_host_syncs(cuda, tier):
+    """A per-slot prefill chunk (ragged: 100 valid of 128) and two
+    ``ess_decode`` steps, slot 0 masked, under sync-debug "error"."""
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _mini_cfg(tier)
+    params = init_params(cfg, 0, device=cuda)
+    caches = LC.init_ess_caches(cfg, 2, 300, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=g,
+                         device=cuda)
+    pos = torch.arange(128, device=cuda)[None]
+    live = torch.tensor([False, True], device=cuda)
+    with _SyncFree():
+        lg, caches, tails, hid = E.ess_prefill_chunk(
+            params, cfg, toks, pos, caches, slot=1, collect_tail=4,
+            n_valid=100)
+        tok = lg[0, 99].argmax()[None].expand(2)[:, None]
+        for _ in range(2):
+            o = E.ess_decode(params, cfg, tok, caches.lens[:, None], caches,
+                             slot_mask=live)
+            caches = o.caches
+            tok = o.logits[:, 0].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches.lens.tolist() == [0, 102]
+    assert bool(torch.isfinite(o.logits[1]).all())
+    assert int(o.stats["misses"][1]) > 0 and int(o.stats["misses"][0]) == 0
+
+
+def test_cuda_session_graph_replay_matches_eager(cuda):
+    """The decode round replayed from a CUDA graph against the same session
+    run eagerly: streams and the caches afterwards bit for bit, over 8
+    rounds or more; the wrappers' launch counts (replays added) equal the
+    eager run's; plan, compute and prefill stages free of host syncs."""
+    from repro_torch.kernels import counters
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+    cfg = _mini_cfg()
+    params = init_params(cfg, 1, device=cuda)
+
+    def sync_free(fn):
+        def wrapped(*a, **k):
+            with _SyncFree():
+                return fn(*a, **k)
+        return wrapped
+
+    def run(compiled):
+        s = E.ServeSession(params, cfg, num_slots=2, max_seq=300,
+                           prefill_chunk=64, compiled=compiled, device=cuda)
+        for name in ("_plan_round", "_compute_round", "prefill_round"):
+            setattr(s, name, sync_free(getattr(s, name)))
+        before = counters.snapshot()
+        rep = s.run([Request(rid=0, prompt_len=150, max_new_tokens=12),
+                     Request(rid=1, prompt_len=90, max_new_tokens=6),
+                     Request(rid=2, prompt_len=200, max_new_tokens=9)])
+        torch.cuda.synchronize()
+        return s, rep, counters.diff(counters.snapshot(), before)
+
+    g, rg, ng = run(True)
+    e, re_, ne = run(False)
+    assert g.outputs == e.outputs and rg.rounds == re_.rounds >= 8
+    assert g.programs.replays == rg.rounds - 1
+    assert ng == ne
+    assert ng[("indexer_scores", "launches_by_q")][1] == \
+        cfg.num_layers * rg.rounds
+    cg, ce = g.caches, e.caches
+    assert torch.equal(cg.lens, ce.lens)
+    assert torch.equal(cg.host_latent.view(torch.int16),
+                       ce.host_latent.view(torch.int16))
+    for a, b in zip(cg.pools, ce.pools):
+        for f in ("ids", "last_use", "slot_of", "step"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(a.data.view(torch.int16), b.data.view(torch.int16))
+    for a, b in zip(cg.ikeys, ce.ikeys):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
