@@ -28,7 +28,11 @@ the script exits non-zero without a result line):
    partial runs at its three serve shapes (Attn0, Attn1, a whole prefill
    chunk) on the tensor-core route, each also timed on the general route
    (the CUDA-core kernel) on the same inputs; its split merge is held
-   against its own plain version;
+   against its own plain version.  Then both kernels at the MTP verify
+   step's shapes (session C, Q = 2): the indexer with each query causal
+   over the cache, Attn0 over each query's own 2048 rows, Attn1 over the
+   512 fetched rows shared by both queries (one set expanded over Q, each
+   query masked to its own);
 4. small  — the smoke config in fp32 on the card against the plain CPU path
    (prefill + teacher-forced decode), a reference on a small input; its
    sparse-MLA partials and indexer scores must all take the general
@@ -64,13 +68,34 @@ the script exits non-zero without a result line):
    busy share (``torch.profiler`` over three rounds) and prefill tokens/s;
 9. session B — the same with an int8 tier, the LRU warmup at admission
    (``do_warmup=True``) and 4 requests, graph then eager as in session A:
-   the gather-dequant kernel and ``lru_warmup`` on the card.
+   the gather-dequant kernel and ``lru_warmup`` on the card;
+10. session C — MTP speculative rounds at depth 1 with the published MTP
+   module (a full MoE block and its ``proj``, drawn from a generator of
+   its own beside the same 4 layers), 4 slots, bf16 tier, 4 requests of
+   32 tokens (``SESSION_C``), two of them sampled (top-k and top-p).
+   Graph, then eager, with session A's checks; every round is a Q = 2
+   verify round, and its indexer, Attn0 and Attn1 launches must take the
+   tensor-core routes at the verify shapes.  Prints ms/round (per variant:
+   greedy rounds and rounds with a sampling slot), tokens per live
+   slot-round, the accept rate, the busy share and the profiled rounds'
+   kernels by device time.  Then the same requests at Q = 1 rounds, whose
+   streams differ by design: a verify step's queries share one miss
+   envelope and one MoE capacity, so the rows and experts each query gets
+   depend on the other.  Where neither can bind (``max_miss_ratio`` 1,
+   capacity factor E / top_k) the depth-1 streams must equal the Q = 1
+   session's; with the envelope alone unbound, for information;
+11. session D — every weight zeroed in place, so every argmax is token 0
+   and every draft is accepted: 2 requests (``SESSION_D``) at depth 1 in
+   graph mode must show accept rate 1.0, 2 tokens per live slot-round
+   but at the budget clamp, no request past its budget, and the streams
+   of the same requests at Q = 1 rounds.
 
-Each of phases 5-9 sets every launch count to 0 just before it runs and
+Each of phases 5-11 sets every launch count to 0 just before it runs and
 reads them just after.  The kernels line's ``launches`` are session A's
 eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
-merge), session B's eager run's (the gather-dequant routes) and the
-grafts' (the page gathers): counted where the wrappers launch, not derived
+merge), session B's eager run's (the gather-dequant routes), session C's
+eager run's (the verify shapes) and the grafts' (the page gathers); every
+kernel of the line must have one: counted where the wrappers launch, not derived
 from a graph's replays, which the graph runs' equal counts then confirm.
 
 The last two lines are the ``kernels`` JSON object and the result object.
@@ -569,7 +594,7 @@ def check_kernels(torch, dev):
         nbytes = (q.numel() + w.numel() + keys.numel()) * 2 \
             + valid.numel() + 4 * got.numel()
         bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
-        it = 3 if causal else 20
+        it = 3 if Q > 2 else 20
         qh = q.reshape(B, Q * Hi, Di).transpose(1, 2)           # [B,Di,Q*Hi]
         rec = dict(
             name=f"indexer_scores[{tag}]", route="cuda",
@@ -624,14 +649,19 @@ def check_kernels(torch, dev):
             e = max(e, float((a - b).abs().max()))
         return e
 
-    def mla_case(tag, Q, Krows, per_query):
+    def mla_case(tag, Q, Krows, per_query, shared=False):
+        """``shared``: per-query rows that are one [B,Krows,D] set expanded
+        over Q (stride 0), each query with its own mask, as the verify
+        step's Attn1 passes the fetched rows."""
         qq = randn((B, Q, H, D))
         shape = (B, Q, Krows, D) if per_query else (B, Krows, D)
-        rr = randn(shape)
+        base = randn((B, Krows, D)) if shared else None
+        rr = base[:, None].expand(shape) if shared else randn(shape)
         vv = torch.rand(shape[:-1], generator=g, device=dev) < 0.9
         vv[..., -17:] = False
+        zq = min(3, Q - 1) if per_query else 0
         if per_query:
-            vv[1, 3] = False                # query (1, 3): no valid row
+            vv[1, zq] = False               # query (1, zq): no valid row
         else:
             vv[1] = False                   # batch 1's query: no valid row
         r4 = rr if per_query else rr[:, None]
@@ -644,19 +674,20 @@ def check_kernels(torch, dev):
         e = mla_hold(got, want)
         mla_hold(gen, want)
         del want, gen
-        require(bool((got.m[1, 3 if per_query else 0] == -2.0e38).all())
-                and bool((got.l[1, 3 if per_query else 0] == 0).all())
-                and bool((got.o[1, 3 if per_query else 0] == 0).all()),
+        require(bool((got.m[1, zq] == -2.0e38).all())
+                and bool((got.l[1, zq] == 0).all())
+                and bool((got.o[1, zq] == 0).all()),
                 f"{tag}: the all-invalid query is not the sentinel partial")
         nvalid = int(v4.expand(B, Q, Krows).sum())
-        nbytes = (qq.numel() + rr.numel()) * 2 + vv.numel() \
-            + 4 * B * Q * H * (rank + 2)
+        # the distinct rows are read once, shared or not
+        nbytes = (qq.numel() + (base if shared else rr).numel()) * 2 \
+            + vv.numel() + 4 * B * Q * H * (rank + 2)
         bms, bby = bound_ms(nbytes, nvalid * H * 2 * (D + rank), "bf16")
         # SDPA on the same MQA: the heads are the query positions
         qs = qq.reshape(B * Q, 1, H, D)
         kk = r4.expand(B, Q, Krows, D).reshape(B * Q, 1, Krows, D)
         mask = v4.expand(B, Q, Krows).reshape(B * Q, 1, 1, Krows)
-        it = 3 if per_query else 20
+        it = 3 if Q > 2 else 20
         rec = dict(
             name=f"sparse_mla_partial[{tag}]", route="cuda",
             source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla_tc.cu",
@@ -678,7 +709,9 @@ def check_kernels(torch, dev):
             nsplit=sops.plan_splits(B * Q, H, Krows, torch.cuda
                                     .get_device_properties(dev)
                                     .multi_processor_count)[0],
-            shape=f"q {list(qq.shape)}, rows {list(rr.shape)} bf16")
+            shape=f"q {list(qq.shape)}, rows {list(rr.shape)} bf16"
+                  + (f" (one [{B},{Krows},{D}] set expanded over Q)"
+                     if shared else ""))
         records[rec["name"]] = rec
         return qq, rr, vv
 
@@ -693,8 +726,8 @@ def check_kernels(torch, dev):
     for a, b in zip(got, want):   # summation order only
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
         merr = max(merr, float((a - b).abs().max()))
-    S = parts[0].shape[0]
-    nb, _ = bound_ms(4 * (S + 1) * B * H * (rank + 2), 0, "bf16")
+    nsp = parts[0].shape[0]
+    nb, _ = bound_ms(4 * (nsp + 1) * B * H * (rank + 2), 0, "bf16")
     records["sparse_mla_merge"] = dict(
         name="sparse_mla_merge", route="cuda",
         source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla_tc.cu",
@@ -704,10 +737,21 @@ def check_kernels(torch, dev):
         device_ms=graph_ms(torch, lambda: sops.merge_splits(*parts)),
         plain_ms=timed_ms(torch, lambda: sref.merge_splits_ref(*parts)),
         bound_ms=nb, bound_by="bytes", library_ms=None,
-        shape=f"{S} splits of o [4,1,128,512], m, l fp32")
+        shape=f"{nsp} splits of o [4,1,128,512], m, l fp32")
     del qq, rr, vv, parts, got, want
     # a whole prefill chunk: 4 x 256 queries, each over its own 2048 rows
     mla_case("prefill", C, K, True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- the MTP verify step (depth 1, Q = 2) at session C's shapes: the
+    #    indexer with each query causal over the cache (query j sees the
+    #    keys below its slot's length - 1 + j), Attn0 over each query's own
+    #    top-K pool rows, Attn1 over the fetched envelope of both queries
+    #    (2 x 256 rows, shared, each query masked to the rows it asked for)
+    indexer_case("verify", 2, True)
+    mla_case("attn0-verify", 2, K, True)
+    mla_case("attn1-verify", 2, 2 * M, True, shared=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return records
@@ -860,26 +904,34 @@ def require_tc_only(counts, phase):
                 f"tensor-core route: {counts}")
 
 
-def check_shapes(counts, cfg, expected, phase):
+def check_shapes(counts, cfg, expected, phase, q_verify=None):
     """Launches per kernel shape, as the wrappers counted them: the
     indexer at Q = 1 (decode) and Q > 1 (a prefill chunk, or the
     warmup's W windows); sparse-MLA's partial at Q = 1 over K rows
     (attn0), at Q = 1 over the miss envelope (attn1) and at Q > 1
-    (prefill).  Every launch must fall in one shape and each shape
-    must equal ``expected``.  Returns the counted launches per
-    shape."""
+    (prefill).  With ``q_verify`` (an MTP session's depth + 1), the
+    verify step's shapes count apart: the indexer at Q = q_verify, Attn0
+    at (q_verify, K) and Attn1 at (q_verify, q_verify x the envelope);
+    the session's prefill chunks (buckets of 256) never have that Q.
+    Every launch must fall in one shape and each shape must equal
+    ``expected``.  Returns the counted launches per shape."""
     K = cfg.dsa.index_topk
     M = max(1, int(cfg.ess.max_miss_ratio * K))
     by_q, by_s = counts["indexer_by_q"], counts["sparse_mla_by_shape"]
+    qv = q_verify or 0
     got = {"indexer_scores[decode]": by_q.get(1, 0),
            "indexer_scores[prefill]": sum(
-               v for q, v in by_q.items() if q > 1),
+               v for q, v in by_q.items() if q > 1 and q != qv),
            "sparse_mla_partial[attn0]": by_s.get((1, K), 0),
            "sparse_mla_partial[attn1]": by_s.get((1, M), 0),
            "sparse_mla_partial[prefill]": sum(
-               v for (q, _), v in by_s.items() if q > 1)}
-    n_idx = got["indexer_scores[decode]"] + \
-        got["indexer_scores[prefill]"]
+               v for (q, _), v in by_s.items() if q > 1 and q != qv)}
+    if q_verify:
+        got.update({
+            "indexer_scores[verify]": by_q.get(qv, 0),
+            "sparse_mla_partial[attn0-verify]": by_s.get((qv, K), 0),
+            "sparse_mla_partial[attn1-verify]": by_s.get((qv, qv * M), 0)})
+    n_idx = sum(v for k, v in got.items() if k.startswith("indexer"))
     n_mla = sum(v for k, v in got.items() if k.startswith("sparse"))
     require(n_idx == counts["indexer_tc"]
             and n_mla == counts["sparse_mla_tc"],
@@ -900,10 +952,18 @@ SESSION_SLOTS, SESSION_MAX_SEQ = 4, 8224
 PROFILED_ROUNDS = (20, 40, 60)
 
 
+def session_prompts(cfg, reqs):
+    """The prompts of a session's requests (rids 0, 1, ...), from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, (1, r.prompt_len)) for r in reqs]
+
+
 def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
-                n_req):
-    """One session run: the first ``n_req`` session requests through
-    ``ServeSession.run``, greedy, prompts from seed 0.  Measures and
+                reqs, mtp_depth=0, num_slots=SESSION_SLOTS,
+                max_seq=SESSION_MAX_SEQ, on_emit=None):
+    """One session run: ``reqs`` (``Request``s with rids 0, 1, ...)
+    through ``ServeSession.run``, their prompts from seed 0.  Measures and
     checks around the session's own stages (the session itself is
     untouched):
 
@@ -918,25 +978,27 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
       tokens/s), each decode round on the host clock (it ends in its
       fetch) with the prefill's work already done; the rounds in
       ``PROFILED_ROUNDS`` run under ``torch.profiler`` for the busy share
-      (summed kernel time over wall) and are left out of ms/round, as is a
-      graph session's first round (eager, then the capture).
+      (summed kernel time over wall) and are left out of ms/round, as is
+      each round that captured a graph (eager, then the capture: a graph
+      session's first round of each variant); ms/round is also kept per
+      variant (greedy, sampling), with the live slot-rounds;
+    * ``on_emit(rid, n_emit, charged)``, if given, sees each decode
+      delivery of the round's tokens.
 
     Returns ``(session, report, counts, metrics)``."""
-    import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import engine as E
-    from repro_torch.serving.scheduler import Request
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (1, n))
-               for n in SESSION_PROMPTS[:n_req]]
+    prompts = session_prompts(cfg, reqs)
     session = E.ServeSession(
-        params, cfg, num_slots=SESSION_SLOTS, max_seq=SESSION_MAX_SEQ,
+        params, cfg, num_slots=num_slots, max_seq=max_seq,
         prompt_fn=lambda r: prompts[r.rid], do_warmup=do_warmup,
-        prefill_chunk=PREFILL_CHUNK, compiled=compiled, device=dev)
-    m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0)
+        prefill_chunk=PREFILL_CHUNK, mtp_depth=mtp_depth,
+        compiled=compiled, device=dev)
+    m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0,
+             variant_ms={False: [], True: []}, slot_rounds=0, kernels={})
     fetches = [0]
     fetch = E.device_get
 
@@ -953,8 +1015,24 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 torch.cuda.set_sync_debug_mode(0)
         return wrapped
 
-    session._plan_round = sync_free(session._plan_round)
+    plan_stage = sync_free(session._plan_round)
+    plans = []
+
+    def recorded_plan():
+        plan = plan_stage()
+        plans.append(plan)
+        return plan
+
+    session._plan_round = recorded_plan
     session._compute_round = sync_free(session._compute_round)
+    if on_emit is not None:
+        emit = session._emit
+
+        def watched_emit(slot, req, tokens, now=None):
+            charged, stopped = emit(slot, req, tokens, now)
+            on_emit(req.rid, len(tokens), charged)
+            return charged, stopped
+        session._emit = watched_emit
     prefill = session.prefill_round if do_warmup \
         else sync_free(session.prefill_round)
     decode = session.decode_round
@@ -969,6 +1047,8 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
 
     def timed_decode():
         k, n0 = session.report.rounds, fetches[0]
+        caps = session.programs.captures
+        plans.clear()
         if k in PROFILED_ROUNDS:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -976,15 +1056,21 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 done = decode()
                 wall = time.perf_counter() - t0
             m["profiled_ms"] += 1e3 * wall
-            m["busy_ms"] += sum(
-                ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA) / 1e3
+            for ev in prof.key_averages():
+                if ev.device_type == DeviceType.CUDA:
+                    t = ev.self_device_time_total / 1e3
+                    m["busy_ms"] += t
+                    m["kernels"][ev.key] = m["kernels"].get(ev.key, 0.0) + t
         else:
             t0 = time.perf_counter()
             done = decode()
             wall = time.perf_counter() - t0
-            if session.report.rounds > k and not (compiled and k == 0):
+            if session.report.rounds > k \
+                    and session.programs.captures == caps:
                 m["decode_ms"].append(1e3 * wall)
+                m["variant_ms"][plans[0].sampled].append(1e3 * wall)
+        if plans and plans[0] is not None:
+            m["slot_rounds"] += len(plans[0].active)
         stepped = session.report.rounds - k
         require(fetches[0] - n0 == stepped,
                 f"decode round {k}: {fetches[0] - n0} host fetches for "
@@ -993,8 +1079,6 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
 
     session.prefill_round = timed_prefill
     session.decode_round = timed_decode
-    reqs = [Request(rid=i, prompt_len=SESSION_PROMPTS[i],
-                    max_new_tokens=SESSION_NEW[i]) for i in range(n_req)]
     E.device_get = counting_fetch
     try:
         torch.cuda.synchronize()
@@ -1008,10 +1092,28 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
     return session, rep, counts, m
 
 
+# session C: MTP speculative rounds (depth 1, the published module) with
+# two sampled requests among four (rid: prompt, knobs); session D: zero
+# weights (every draft accepted), two greedy requests (prompt, budget)
+SESSION_C = ((8192, {}), (3000, dict(temperature=0.8, top_k=64, seed=123)),
+             (6144, {}), (8192, dict(temperature=1.0, top_p=0.9, seed=7)))
+SESSION_C_NEW = 32
+SESSION_D = ((1024, 7), (512, 8))
+SESSION_D_MAX_SEQ = 1088
+
+
 def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card):
-    """Phases 8-9 (see the module docstring); sets the kernel records'
+    """Phases 8-11 (see the module docstring); sets the kernel records'
     launches from session A's eager run and session B's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.params import init_mtp_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+
     # 8. session A: bf16 tier, no warmup, 8 requests through 4 slots, the
     #    decode round replayed as a CUDA graph, then the same run eager
     scfg = serve.config_from_args(args)
@@ -1020,47 +1122,63 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
 
     def session_summary(tag, sess, rep, m):
         dm = m["decode_ms"]
+        busy = (f"device busy {100 * m['busy_ms'] / m['profiled_ms']:.1f} % "
+                f"of {len(PROFILED_ROUNDS)} profiled rounds "
+                f"({m['profiled_ms'] / len(PROFILED_ROUNDS):.2f} ms/round "
+                f"under the profiler)") if m["profiled_ms"] else \
+            "not profiled (fewer rounds)"
+        spec = (f"; {rep.spec_rounds} speculative rounds, accept rate "
+                f"{rep.accept_rate:.4f} ({rep.accepted_tokens}/"
+                f"{rep.drafted_tokens} drafts)") if rep.spec_rounds else ""
+        vm = m["variant_ms"]
+        variants = (f"; greedy rounds {sum(vm[False]) / len(vm[False]):.2f} "
+                    f"ms ({len(vm[False])}), sampling rounds "
+                    f"{sum(vm[True]) / len(vm[True]):.2f} ms "
+                    f"({len(vm[True])})") if vm[False] and vm[True] else ""
         print(f"session {tag}: {len(rep.finished_rids)} requests, "
               f"{rep.rounds} decode rounds, {rep.decode_tokens} decode "
               f"tokens, {rep.prefill_chunks} prefill chunks; wall "
               f"{m['wall_s']:.2f} s; decode {sum(dm) / len(dm):.2f} ms/round "
               f"(mean of {len(dm)} rounds; median "
-              f"{sorted(dm)[len(dm) // 2]:.2f}, min {min(dm):.2f}); device "
-              f"busy {100 * m['busy_ms'] / m['profiled_ms']:.1f} % of "
-              f"{len(PROFILED_ROUNDS)} profiled rounds "
-              f"({m['profiled_ms'] / len(PROFILED_ROUNDS):.2f} ms/round "
-              f"under the profiler); prefill "
+              f"{sorted(dm)[len(dm) // 2]:.2f}, min {min(dm):.2f}); "
+              f"{rep.decode_tokens / m['slot_rounds']:.3f} tokens per live "
+              f"slot-round{spec}{variants}; {busy}; prefill "
               f"{rep.prefill_tokens / m['prefill_s']:.1f} tok/s "
               f"({m['prefill_s']:.2f} s); pool hit rate "
               f"{rep.pool_hit_rate:.4f}, {rep.h2d_rows / rep.rounds:.1f} "
               f"miss rows/round; {m['fetches']} host fetches  [{card}]",
               flush=True)
 
-    def check_session(tag, sess, rep, n, n_req, warm):
-        """Every request ends once; the launches per route and shape, with
-        the graph's replays counted, equal what the run's rounds and
-        chunks give."""
+    def check_session(tag, sess, rep, n, reqs, warm, tier, q_verify=None):
+        """Every request ends once with its whole budget; the launches per
+        route and shape, with the graph's replays counted, equal what the
+        run's rounds and chunks give (an MTP session's rounds are all
+        verify rounds, at Q = ``q_verify``)."""
+        n_req = len(reqs)
         terminal = [e.rid for e in sess.token_events if e.is_terminal]
         require(sorted(terminal) == list(range(n_req))
                 and sorted(rep.finished_rids) == list(range(n_req)),
                 f"session {tag}: terminal events {terminal}")
-        for rid in range(n_req):
-            require(len(sess.outputs[rid]) == SESSION_NEW[rid],
-                    f"session {tag}: rid {rid} emitted "
-                    f"{len(sess.outputs[rid])} tokens")
+        for r in reqs:
+            require(len(sess.outputs[r.rid]) == r.max_new_tokens,
+                    f"session {tag}: rid {r.rid} emitted "
+                    f"{len(sess.outputs[r.rid])} tokens")
         R, ch = rep.rounds, rep.prefill_chunks
-        require(ch == sum(-(-p // PREFILL_CHUNK)
-                          for p in SESSION_PROMPTS[:n_req]),
+        require(ch == sum(-(-r.prompt_len // PREFILL_CHUNK) for r in reqs),
                 f"session {tag}: {ch} prefill chunks")
         require_tc_only(n, f"session {tag}")
-        got = check_shapes(n, scfg, {
-            "indexer_scores[decode]": L * R,
-            "indexer_scores[prefill]": L * (ch + (n_req if warm else 0)),
-            "sparse_mla_partial[attn0]": L * R,
-            "sparse_mla_partial[attn1]": L * R,
-            "sparse_mla_partial[prefill]": L * ch}, f"session {tag}")
-        gname = "gather_rows" if tag.startswith("A") \
-            else "gather_rows_dequant"
+        dec, ver = (0, L * R) if q_verify else (L * R, 0)
+        want = {"indexer_scores[decode]": dec,
+                "indexer_scores[prefill]": L * (ch + (n_req if warm else 0)),
+                "sparse_mla_partial[attn0]": dec,
+                "sparse_mla_partial[attn1]": dec,
+                "sparse_mla_partial[prefill]": L * ch}
+        if q_verify:
+            want.update({"indexer_scores[verify]": ver,
+                         "sparse_mla_partial[attn0-verify]": ver,
+                         "sparse_mla_partial[attn1-verify]": ver})
+        got = check_shapes(n, scfg, want, f"session {tag}", q_verify)
+        gname = "gather_rows" if tier == "bf16" else "gather_rows_dequant"
         other = "gather_rows_dequant" if gname == "gather_rows" \
             else "gather_rows"
         planes = 1 if gname == "gather_rows" else 2
@@ -1073,23 +1191,35 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                 f"session {tag}: launches {n}, expected {want}")
         return got
 
-    def graph_and_eager(tag, cfg, n_req, warm):
-        """The session run twice: its decode round replayed as a graph,
-        then eagerly.  The streams must be bit-identical and the launch
-        counts (the graph's with its replays added) equal.  Returns the
-        eager run's counts and shapes, counted where the wrappers launch."""
+    def graph_and_eager(tag, cfg, make_reqs, warm, tier, mtp_depth=0,
+                        top_kernels=0):
+        """The session run twice: its rounds replayed as graphs, then
+        eagerly.  The streams must be bit-identical and the launch counts
+        (the graph's with its replays added) equal.  Returns the eager
+        run's counts and shapes, counted where the wrappers launch, and the
+        graph run's streams."""
         runs = {}
+        qv = mtp_depth + 1 if mtp_depth else None
         for compiled in (True, False):
             name = f"{tag} {'graph' if compiled else 'eager'}"
+            reqs = make_reqs()
             sess, rep, n, m = run_session(torch, dev, params, cfg, counted,
                                           compiled=compiled, do_warmup=warm,
-                                          n_req=n_req)
+                                          reqs=reqs, mtp_depth=mtp_depth)
             session_summary(name, sess, rep, m)
-            got = check_session(name, sess, rep, n, n_req, warm)
+            if top_kernels and compiled:
+                k = len(PROFILED_ROUNDS)
+                top = sorted(m["kernels"].items(), key=lambda kv: -kv[1])
+                print(f"session {name}: device ms per profiled round by "
+                      f"kernel, top {top_kernels}: " + "; ".join(
+                          f"{n_[:60]} {t / k:.3f}"
+                          for n_, t in top[:top_kernels]), flush=True)
+            got = check_session(name, sess, rep, n, reqs, warm, tier, qv)
             if compiled:
-                require(sess.programs.replays == rep.rounds - 1,
-                        f"session {name}: {sess.programs.replays} graph "
-                        f"replays for {rep.rounds} rounds")
+                pr = sess.programs
+                require(pr.replays + pr.captures == rep.rounds,
+                        f"session {name}: {pr.replays} graph replays and "
+                        f"{pr.captures} captures for {rep.rounds} rounds")
             runs[compiled] = (dict(sess.outputs), rep.rounds, n, got)
             del sess
             torch.cuda.empty_cache()
@@ -1103,9 +1233,14 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
               f"{rg} rounds ({sum(len(v) for v in og.values())} tokens); "
               f"launch counts equal: "
               + ", ".join(f"{k} {v}" for k, v in ne.items()), flush=True)
-        return ne, got
+        return ne, got, og
 
-    n, got = graph_and_eager("A", scfg, len(SESSION_PROMPTS), False)
+    def greedy_reqs(prompts, budgets):
+        return lambda: [Request(rid=i, prompt_len=p, max_new_tokens=b)
+                        for i, (p, b) in enumerate(zip(prompts, budgets))]
+
+    n, got, _ = graph_and_eager(
+        "A", scfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False, "bf16")
     for name, v in got.items():
         records[name]["launches"] = v
     for name in ("scatter_rows", "sparse_mla_merge"):
@@ -1115,11 +1250,155 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
 
     # 9. session B: int8 tier, LRU warmup at admission, 4 requests
     qcfg = serve.config_from_args(qargs)
-    n, _ = graph_and_eager("B int8 warmup", qcfg, 4, True)
+    n, _, _ = graph_and_eager(
+        "B int8 warmup", qcfg,
+        greedy_reqs(SESSION_PROMPTS[:4], SESSION_NEW[:4]), True, "int8")
     records["gather_rows_dequant"]["launches"] = \
         n["gather_rows_dequant_direct"]
     records["gather_rows_dequant[prefill]"]["launches"] = \
         n["gather_rows_dequant_staged"]
+
+    # 10. session C: the published MTP module (its own generator) beside
+    #     the same 4 layers, depth-1 speculative rounds, two sampled
+    #     requests; graph, then eager
+    margs = serve.build_parser().parse_args(SERVE_ARGS + ["--mtp-depth", "1"])
+    ccfg = serve.config_from_args(margs)
+    require(ccfg.mtp_depth == 1, f"session C: mtp_depth {ccfg.mtp_depth}")
+    t0 = time.perf_counter()
+    params["mtp"] = init_mtp_params(ccfg, margs.seed, dev)
+    torch.cuda.synchronize()
+    mtp_bytes = sum(t.numel() * t.element_size()
+                    for t in leaves(params["mtp"]))
+    print(f"session C: MTP module drawn in {time.perf_counter() - t0:.1f} s, "
+          f"{mtp_bytes / 2**30:.2f} GiB; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def c_reqs(new=SESSION_C_NEW):
+        return [Request(rid=i, prompt_len=p, max_new_tokens=new, **kn)
+                for i, (p, kn) in enumerate(SESSION_C)]
+    n, got, c_out = graph_and_eager("C mtp+sampling", ccfg, c_reqs, False,
+                                    "bf16", mtp_depth=1, top_kernels=10)
+    print(f"session C: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; Q = 2 "
+          f"launches (eager run): "
+          + ", ".join(f"{k} {v}" for k, v in got.items()), flush=True)
+    for name in ("indexer_scores[verify]", "sparse_mla_partial[attn0-verify]",
+                 "sparse_mla_partial[attn1-verify]"):
+        records[name]["launches"] = got[name]
+
+    def agreement(a, b):
+        """Tokens equal per rid, and the first index where they differ."""
+        return {r: (sum(x == y for x, y in zip(a[r], b[r])),
+                    next((i for i, (x, y) in enumerate(zip(a[r], b[r]))
+                          if x != y), None)) for r in a}
+
+    # for information: the same requests at Q = 1 rounds
+    sess, rep, _, m = run_session(torch, dev, params, ccfg, counted,
+                                  compiled=True, do_warmup=False,
+                                  reqs=c_reqs(), mtp_depth=0)
+    session_summary("C at mtp_depth 0 (information)", sess, rep, m)
+    print(f"session C vs the same requests at mtp_depth 0 (information): "
+          f"(tokens equal, first differing index) per rid "
+          f"{agreement(c_out, sess.outputs)} of {SESSION_C_NEW} (rids 1 and "
+          f"3 sample)", flush=True)
+    del sess
+    torch.cuda.empty_cache()
+    # the same pair where a verify step's queries cannot change one
+    # another's result: a miss envelope that cannot overflow
+    # (max_miss_ratio 1) and a capacity that cannot bind (cf = E / top_k:
+    # each expert can hold every token of a step); then the envelope alone
+    mo = ccfg.moe
+    env = dataclasses.replace(ccfg, ess=dataclasses.replace(
+        ccfg.ess, max_miss_ratio=1.0))
+    nodrop = dataclasses.replace(env, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    iso = {}
+    for tag, icfg in (("no-drop", nodrop), ("envelope unbound", env)):
+        outs = {}
+        for depth in (1, 0):
+            sess, rep, _, m = run_session(torch, dev, params, icfg, counted,
+                                          compiled=True, do_warmup=False,
+                                          reqs=c_reqs(), mtp_depth=depth)
+            session_summary(f"C {tag} at mtp_depth {depth} (information)",
+                            sess, rep, m)
+            outs[depth] = dict(sess.outputs)
+            del sess
+            torch.cuda.empty_cache()
+        iso[tag] = agreement(outs[1], outs[0])
+        print(f"session C {tag} (capacity factor "
+              f"{icfg.moe.capacity_factor:g}, max_miss_ratio "
+              f"{icfg.ess.max_miss_ratio:g}): mtp_depth 1 vs 0 (tokens "
+              f"equal, first differing index) per rid {iso[tag]} of "
+              f"{SESSION_C_NEW}", flush=True)
+    # where a greedy stream of the last pair still differs: the logits of
+    # that position computed a third way (the prompt and the common prefix
+    # through a fixed-batch prefill), at the two tokens drawn there
+    prompts = session_prompts(icfg, c_reqs())
+    for r, (_, i) in iso[tag].items():
+        if i is None or SESSION_C[r][1]:
+            continue
+        tok = torch.as_tensor(np.concatenate(
+            [prompts[r][0], outs[0][r][:i]]), device=dev)[None]
+        pos = torch.arange(tok.shape[1], device=dev)[None]
+        lg = E.ess_prefill(params, icfg, tok, pos, SESSION_MAX_SEQ,
+                           prefill_chunk=PREFILL_CHUNK,
+                           last_logits_only=True)[0][0, -1].float()
+        a, b = outs[1][r][i], outs[0][r][i]
+        top = lg.topk(3).values
+        print(f"session C {tag}, rid {r} at index {i}: depth 1 drew {a}, "
+              f"Q = 1 drew {b}; their logits recomputed by a prefill "
+              f"{float(lg[a]):.6f} and {float(lg[b]):.6f} (gap "
+              f"{float(lg[a] - lg[b]):.6f}); top-3 {top.tolist()}, logits "
+              f"std {float(lg.std()):.4f}", flush=True)
+        del tok, lg
+
+    # 11. session D: every weight zeroed in place, so every argmax is token
+    #     0 and every draft is accepted; graph mode, against Q = 1 rounds
+    for t in leaves(params):
+        t.zero_()
+    emits = []
+    d_reqs = greedy_reqs(*zip(*SESSION_D))
+    sess, rep, n, m = run_session(
+        torch, dev, params, ccfg, counted, compiled=True, do_warmup=False,
+        reqs=d_reqs(), mtp_depth=1, num_slots=2, max_seq=SESSION_D_MAX_SEQ,
+        on_emit=lambda rid, k, c: emits.append((rid, k, c)))
+    session_summary("D zero weights", sess, rep, m)
+    base, brep, _, _ = run_session(
+        torch, dev, params, ccfg, counted, compiled=True, do_warmup=False,
+        reqs=d_reqs(), mtp_depth=0, num_slots=2, max_seq=SESSION_D_MAX_SEQ)
+    require(rep.accept_rate == 1.0 and rep.spec_rounds == rep.rounds,
+            f"session D: accept rate {rep.accept_rate}")
+    require(all(k == 2 for _, k, _ in emits),
+            f"session D: tokens per live slot-round {emits}")
+    for rid, (_, budget) in enumerate(SESSION_D):
+        charged = [c for r, _, c in emits if r == rid]
+        require(all(c == 2 for c in charged[:-1]) and 1 <= charged[-1] <= 2
+                and sum(charged) == budget - 1,
+                f"session D: rid {rid} charged {charged} of budget {budget}")
+    for req in sess.sched.finished:
+        require(len(sess.outputs[req.rid]) == req.max_new_tokens
+                == req.generated + 1,
+                f"session D: rid {req.rid} ran past its budget")
+    terminal = sorted(e.rid for e in sess.token_events if e.is_terminal)
+    require(terminal == list(range(len(SESSION_D))),
+            f"session D: terminal events {terminal}")
+    require(sess.outputs == base.outputs,
+            "session D: the spec streams differ from the Q = 1 session's")
+    print(f"session D: accept rate {rep.accept_rate}, {rep.rounds} spec "
+          f"rounds against {brep.rounds} Q = 1 rounds, 2 tokens per live "
+          f"slot-round (budget clamps: "
+          + ", ".join(f"rid {r} {[c for q, _, c in emits if q == r]}"
+                      for r in range(len(SESSION_D)))
+          + "), streams equal to the Q = 1 session's", flush=True)
+
+
+def leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from leaves(v)
+        else:
+            yield v
 
 
 def main() -> int:
@@ -1199,7 +1478,7 @@ def main() -> int:
           f"{pf['general_ms']:.4f} ms ({pf['general_ms'] / pf['ms']:.2f}x); "
           f"shares of bound {a0['bound_ms'] / a0['ms']:.4f} (attn0), "
           f"{pf['bound_ms'] / pf['ms']:.4f} (prefill)  [{card}]", flush=True)
-    for tag in ("decode", "prefill"):
+    for tag in ("decode", "prefill", "verify"):
         r = records[f"indexer_scores[{tag}]"]
         print(f"  indexer {tag}: tc {r['ms']:.4f} ms (device "
               f"{r['device_ms']:.4f}) vs general {r['general_ms']:.4f} ms "
@@ -1378,6 +1657,10 @@ def main() -> int:
     session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card)
     print(card)
+    require(all("launches" in r for r in records.values()),
+            "kernels without a main-path launch count: "
+            + ", ".join(r["name"] for r in records.values()
+                        if "launches" not in r))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "general_ms", "general_device_ms", "copy_ms",

@@ -63,10 +63,13 @@ def deepseek_v32_exp_ess_smoke() -> ArchConfig:
     )
 
 
-def cut_depth(cfg: ArchConfig, num_layers: int) -> ArchConfig:
-    """The chip configuration's cuts: fewer layers and no MTP module.
+def cut_depth(cfg: ArchConfig, num_layers: int, *,
+              keep_mtp: bool = False) -> ArchConfig:
+    """The chip configuration's cuts: fewer layers and, unless
+    ``keep_mtp``, no MTP module (``keep_mtp`` keeps the published ones).
 
     Widths are untouched; ``num_layers`` keeps the model's own leading
     dense layers first, so a cut to ``first_dense_layers + 1`` still runs
     both FFN kinds."""
-    return dataclasses.replace(cfg, num_layers=num_layers, mtp_depth=0)
+    return dataclasses.replace(cfg, num_layers=num_layers,
+                               mtp_depth=cfg.mtp_depth if keep_mtp else 0)

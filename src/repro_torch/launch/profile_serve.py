@@ -7,7 +7,11 @@ second) and for ``--rounds`` decode rounds after the first, the wall time,
 the device's busy share (summed kernel time over wall time), the kernels
 with the most device time, the tier gathers' share (every kernel of
 ``kernels/gather_cache`` that reads rows: both routes' passes) and the
-indexer's (both routes' kernels), each also per decode round.
+indexer's (both routes' kernels), each also per decode round.  With
+``--mtp-depth 1`` it also times the pieces a speculative round adds, each
+alone and replayed from a CUDA graph at the serve's batch: the sampler
+(``sample_batch`` over the vocabulary, two slots greedy, one top-k, one
+top-p) and the MTP draft (``mtp_draft``).
 
   python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
       --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
@@ -69,6 +73,52 @@ def _summary(prof, wall_s: float, top: int, windows: int = 1) -> list[str]:
     return out
 
 
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one replay of ``fn`` captured as a CUDA graph
+    (warmed on a side stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _pieces(params: dict, cfg, B: int, dev: torch.device) -> str:
+    """The sampler and the MTP draft alone at batch ``B``, from graphs."""
+    from repro_torch.serving.mtp import mtp_draft
+    from repro_torch.serving.sampling import sample_batch
+    g = torch.Generator(device=dev).manual_seed(5)
+    V = cfg.vocab_size
+    i32 = dict(dtype=torch.int32, device=dev)
+    knobs = (torch.tensor([0, 123, 0, 7][:B] + [0] * (B - 4), **i32),
+             torch.arange(B, **i32) * 7 + 3,
+             torch.randn((B, V), generator=g, device=dev) * 3,
+             torch.tensor(([0.0, 0.8, 0.0, 1.0] * B)[:B], device=dev),
+             torch.tensor(([0, 64, 0, 0] * B)[:B], **i32),
+             torch.tensor(([1.0, 1.0, 1.0, 0.9] * B)[:B], device=dev))
+    hid = torch.randn((B, cfg.d_model), generator=g,
+                      device=dev).to(cfg.param_dtype)
+    tok = torch.randint(0, V, (B,), generator=g, device=dev)
+    return (f"spec-round pieces alone (graph replays): sample_batch "
+            f"[{B}, {V}] {_graph_ms(lambda: sample_batch(*knobs)):.4f} ms; "
+            f"mtp_draft at B = {B} "
+            f"{_graph_ms(lambda: mtp_draft(params, cfg, hid, tok)):.4f} ms")
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     ap.add_argument("--rounds", type=int, default=5)
@@ -126,6 +176,8 @@ def main(argv=None) -> int:
     print(f"decode: {args.rounds} rounds after the first "
           f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler):")
     print("\n".join(_summary(prof, wall, args.top, args.rounds)))
+    if cfg.mtp_depth:
+        print(_pieces(params, cfg, B, dev))
     return 0
 
 

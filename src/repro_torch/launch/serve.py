@@ -9,8 +9,13 @@ one fixed batch through :func:`repro_torch.serving.engine.generate_batch`
 (with its LRU-warmup replay).  Prints
 tokens/s, ms per decode round, the pool hit rate, the miss rows and bytes
 per round and the host tier's bytes.  ``--layers`` cuts the depth (widths
-stay) and turns MTP off; ``--host-cache-dtype`` stores the tier as bf16
-(the param dtype), int8 or fp8 with one f16 scale per row.
+stay) and drops the MTP modules unless ``--mtp-depth`` asks for them;
+``--host-cache-dtype`` stores the tier as bf16 (the param dtype), int8 or
+fp8 with one f16 scale per row.  The session takes the reference
+launcher's knobs: ``--mtp-depth`` (MTP speculative rounds),
+``--temperature`` / ``--top-k`` / ``--top-p`` (sampled requests, seeded
+per request), ``--stop-token``, ``--slots``, ``--max-seq`` and ``--eager``
+(the rounds run eagerly instead of as CUDA graphs).
 
   python -m repro_torch.launch.serve --device cuda \\
       --arch deepseek-v32-exp-ess --layers 4 --requests 4 \\
@@ -18,6 +23,8 @@ stay) and turns MTP off; ``--host-cache-dtype`` stores the tier as bf16
   python -m repro_torch.launch.serve --device cpu   # smoke config
   python -m repro_torch.launch.serve --device cpu --host-cache-dtype int8
   python -m repro_torch.launch.serve --device cpu --fixed-batch
+  python -m repro_torch.launch.serve --device cpu --mtp-depth 1 \\
+      --temperature 0.8 --top-k 16
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="deepseek-v32-exp-ess-smoke")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut num_layers (and MTP) to this depth")
+                    help="cut num_layers to this depth (MTP kept only "
+                         "with --mtp-depth)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=48)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -55,7 +63,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu")
     ap.add_argument("--fixed-batch", action="store_true",
                     help="serve the prompts as one fixed batch "
-                         "(generate_batch) instead of the session")
+                         "(generate_batch, greedy, Q = 1) instead of the "
+                         "session")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="decode slots of the session (default: one per "
+                         "request)")
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="per-slot cache length (default: prompt + new)")
+    ap.add_argument("--mtp-depth", type=int, default=0,
+                    help="MTP draft depth of the session's speculative "
+                         "rounds (0: Q = 1 rounds)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="> 0 samples every request (0: greedy)")
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
+    ap.add_argument("--stop-token", type=int, default=None,
+                    help="end a stream early at this token id")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the session's rounds eagerly, not as CUDA "
+                         "graphs")
     return ap
 
 
@@ -63,7 +89,9 @@ def config_from_args(args):
     """The architecture config that ``args`` select (depth cut, tier)."""
     cfg = get_config(args.arch)
     if args.layers is not None:
-        cfg = cut_depth(cfg, args.layers)
+        cfg = cut_depth(cfg, args.layers, keep_mtp=args.mtp_depth > 0)
+    if args.mtp_depth > cfg.mtp_depth:
+        cfg = dataclasses.replace(cfg, mtp_depth=args.mtp_depth)
     return dataclasses.replace(cfg, ess=dataclasses.replace(
         cfg.ess, host_cache_dtype=args.host_cache_dtype))
 
@@ -74,7 +102,10 @@ def run(args, params=None) -> dict:
     seed); without them the weights are drawn from ``--seed``."""
     dev = resolve_device(args.device)
     cfg = config_from_args(args)
-    max_seq = args.prompt_len + args.new_tokens
+    if args.fixed_batch and (args.mtp_depth or args.temperature > 0):
+        raise ValueError("--fixed-batch serves greedy Q = 1 rounds: "
+                         "--mtp-depth and --temperature need the session")
+    max_seq = args.max_seq or args.prompt_len + args.new_tokens
     t0 = time.perf_counter()
     if params is None:
         params = init_params(cfg, args.seed, dev)
@@ -110,12 +141,16 @@ def run(args, params=None) -> dict:
 
 def _run_session(args, cfg, params, prompts, max_seq, dev, init_s) -> dict:
     session = ServeSession(
-        params, cfg, num_slots=args.requests, max_seq=max_seq,
+        params, cfg, num_slots=args.slots or args.requests, max_seq=max_seq,
         prompt_fn=lambda req: prompts[req.rid][None],
-        prefill_chunk=args.prefill_chunk, compiled=dev.type == "cuda",
-        device=dev)
+        prefill_chunk=args.prefill_chunk, mtp_depth=args.mtp_depth,
+        compiled=dev.type == "cuda" and not args.eager, device=dev)
+    stop = () if args.stop_token is None else (args.stop_token,)
     rep = session.run([Request(rid=i, prompt_len=args.prompt_len,
-                               max_new_tokens=args.new_tokens)
+                               max_new_tokens=args.new_tokens,
+                               temperature=args.temperature,
+                               top_k=args.top_k, top_p=args.top_p,
+                               stop_token_ids=stop)
                        for i in range(args.requests)],
                       max_rounds=1 << 30)
     steady = rep.rounds - rep.fill_rounds
@@ -140,7 +175,8 @@ def report(out: dict) -> str:
                 f"tokens in {rep.rounds} rounds ({rep.fill_rounds} fill); "
                 f"{out['decode_tok_s']:.1f} tok/s over {rep.wall_s:.2f} s, "
                 f"decode {out['decode_ms_per_round']:.2f} ms/round "
-                f"(steady rounds); pool hit rate "
+                f"(steady rounds); {rep.spec_rounds} speculative rounds, "
+                f"accept rate {rep.accept_rate:.2f}; pool hit rate "
                 f"{out['pool_hit_rate']:.4f}, "
                 f"{out['miss_rows_per_round']:.1f} miss rows/round; "
                 f"{out['cfg'].ess.host_cache_dtype} host tier "

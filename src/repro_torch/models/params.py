@@ -10,7 +10,9 @@ and ``layers`` (each leaf stacked on a leading layer axis) and ``mtp``.
   (handed over as nested dicts of numpy arrays), bit for bit.
 * :func:`init_params` builds the same tree on the card with the same
   init families (its random numbers differ from JAX's: a
-  ``torch.Generator`` is not a JAX key).
+  ``torch.Generator`` is not a JAX key).  The MTP modules draw from a
+  generator of their own (:func:`init_mtp_params`), so the backbone's
+  weights from a seed are the same with and without them.
 """
 
 from __future__ import annotations
@@ -162,19 +164,47 @@ def _map_defs(fn, defs):
     return fn(defs)
 
 
+# the MTP modules' generator is seeded with the model's seed plus this
+MTP_SEED_OFFSET = 1 << 20
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0,
                 device=None) -> dict:
     """Random parameters for ``cfg`` on ``device`` (the card by default).
 
     ``generator`` is a ``torch.Generator`` on that device, or an int seed.
-    Leaves are drawn in the reference's flatten order (sorted keys)."""
+    Leaves are drawn in the reference's flatten order (sorted keys); the
+    ``mtp`` subtree comes from :func:`init_mtp_params` with the seed
+    (a generator's initial seed), so the rest does not depend on it."""
     dev = resolve_device(device)
-    if isinstance(generator, int):
-        g = torch.Generator(device=dev)
-        g.manual_seed(generator)
-    else:
-        g = generator
-    return _map_defs(lambda d: _materialize(d, g, dev), model_def(cfg))
+    g = _generator(generator, dev) if isinstance(generator, int) \
+        else generator
+    defs = model_def(cfg)
+    mtp = defs.pop("mtp", None)
+    params = _map_defs(lambda d: _materialize(d, g, dev), defs)
+    if mtp is not None:
+        seed = generator if isinstance(generator, int) \
+            else generator.initial_seed()
+        params["mtp"] = init_mtp_params(cfg, seed, dev)
+    return params
+
+
+def init_mtp_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """The ``mtp`` subtree alone (``cfg.mtp_depth`` stacked modules), from
+    a generator seeded with ``seed + MTP_SEED_OFFSET``: added to a
+    backbone drawn from ``seed`` it gives :func:`init_params`' tree."""
+    dev = resolve_device(device)
+    if not cfg.mtp_depth:
+        raise ValueError(f"{cfg.name} has no MTP module (mtp_depth 0)")
+    g = _generator(seed + MTP_SEED_OFFSET, dev)
+    return _map_defs(lambda d: _materialize(d, g, dev),
+                     model_def(cfg)["mtp"])
 
 
 # ---------------------------------------------------------------------------

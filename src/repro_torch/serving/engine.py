@@ -12,9 +12,10 @@ host tier).
 * :func:`generate_batch` — a fixed batch of equal-length prompts: prefill,
   then greedy Q=1 decode rounds.
 * :class:`ServeSession` — the continuous-batching serve loop: chunked
-  per-slot prefill interleaved with decode rounds, slots recycled,
-  admission gated in host bytes, the decode round replayed as a CUDA
-  graph (:mod:`repro_torch.serving.step`) with one host fetch per round.
+  per-slot prefill interleaved with decode rounds (Q = 1, or MTP
+  speculative rounds), greedy or sampled requests, slots recycled,
+  admission gated in host bytes, each round replayed as a CUDA graph
+  (:mod:`repro_torch.serving.step`) with one host fetch per round.
 
 Caches are updated in place (host tier, indexer cache, pools); each step
 still returns an ``ESSCaches`` with the new ``lens``.  The steps are free
@@ -45,7 +46,7 @@ from repro_torch.models import moe as MoE
 from repro_torch.serving import state as ES
 from repro_torch.serving import step as SP
 from repro_torch.serving.api import TokenEvent
-from repro_torch.serving.sampling import greedy
+from repro_torch.serving.sampling import greedy, request_key, sample
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
@@ -425,6 +426,12 @@ class ServeReport:
     rejected: int = 0
     aborted: int = 0
     finish_reasons: dict = dataclasses.field(default_factory=dict)
+    # MTP speculative accounting: with mtp_depth > 0 a round emits 1 to
+    # depth + 1 tokens per live slot, so decode_tokens counts accepted
+    # tokens and tokens_per_s is accepted tokens per second
+    spec_rounds: int = 0                # rounds run as draft + verify
+    drafted_tokens: int = 0             # greedy slots' drafts scored
+    accepted_tokens: int = 0            # drafts accepted (bonus excluded)
 
     @property
     def tokens_per_s(self) -> float:
@@ -444,10 +451,18 @@ class ServeReport:
     def h2d_bytes(self) -> int:
         return self.h2d_rows * self.host_bytes_per_row
 
+    @property
+    def accept_rate(self) -> float:
+        """Accepted drafts / drafted tokens (greedy speculative slots)."""
+        return self.accepted_tokens / self.drafted_tokens \
+            if self.drafted_tokens else 0.0
+
 
 class _RoundPlan(NamedTuple):
     active: list            # slots stepping this round
-    pending: list           # (slot, req, t0 device scalar) first tokens
+    pending: list           # (slot, req, t0 device tensor) first tokens
+    spec: bool              # an MTP draft + verify round
+    sampled: bool           # some active slot samples: the sampling variant
     t0: float               # plan-stage entry time
 
 
@@ -464,7 +479,7 @@ class _PrefillTask:
 class ServeSession:
     """One long-lived ESS decode batch driven by the continuous-batching
     scheduler (counterpart of ``repro.serving.engine.ServeSession`` in its
-    greedy, Q = 1, synchronous form: no MTP, TBO or pipelined slab).
+    synchronous form: no TBO or pipelined slab).
 
     * ``num_slots`` decode slots share one batch; more requests than slots
       stream through as slots free up.
@@ -477,11 +492,27 @@ class ServeSession:
       (``num_host_pages``), and in pool entries.  A finished, preempted or
       aborted slot returns its pages and gets a full reset (``lens`` and
       pool maps) in place; decode masks frozen slots inside the step.
-    * ``compiled=True`` replays the decode round as a CUDA graph over the
+    * ``mtp_depth > 0`` runs every decode round as an **MTP speculative
+      round**: draft ``mtp_depth`` tokens per slot from the carried hidden
+      (``mtp_draft``), verify them in one Q = depth + 1 ``ess_decode``,
+      emit the accepted prefix and the bonus token, and roll ``lens`` and
+      the pools back for the rejected drafts.  Sampling requests emit one
+      token per round, drawn from the verify step's first position.  The
+      streams equal the Q = 1 session's where the verify step's first
+      position gives the Q = 1 step's logits (a MoE whose capacity binds
+      lets the drafts take experts from the real tokens, as in the
+      reference).
+    * Sampled requests (``temperature > 0``, with ``top_k`` / ``top_p``)
+      draw with the reference's per-request keys, ``fold_in(key(seed),
+      emission index)`` over JAX's threefry
+      (:mod:`repro_torch.serving.sampling`), so their streams equal the
+      reference's.
+    * ``compiled=True`` replays each round kind as a CUDA graph over the
       persistent :class:`~repro_torch.serving.state.EngineState`
-      (:mod:`repro_torch.serving.step`); ``compiled=False`` runs the same
-      round function eagerly, and emits the same streams.  The CPU has
-      only the eager form.
+      (:mod:`repro_torch.serving.step`), a greedy and a sampling variant
+      picked on the host; ``compiled=False`` runs the same round
+      functions eagerly, and emits the same streams.  The CPU has only
+      the eager form.
     * Exactly one host fetch per decode round, in :meth:`_commit_round`:
       the packed round result and the just-promoted slots' first tokens,
       one non-blocking copy into a pinned buffer and one event wait
@@ -490,8 +521,6 @@ class ServeSession:
     * ``do_warmup=True`` runs the LRU-warmup replay after a slot's last
       chunk (ragged chunks, the first token resolved on the host, as the
       reference's legacy path does).
-    * Greedy requests only: a request with ``temperature > 0`` is refused
-      at :meth:`submit` until the reference's sampler is ported.
     """
 
     def __init__(self, params: dict, cfg: ArchConfig, *, num_slots: int,
@@ -499,7 +528,7 @@ class ServeSession:
                  host_byte_budget: Optional[int] = None,
                  prompt_fn: Optional[Callable[[Request], Any]] = None,
                  do_warmup: bool = False, prefill_chunk: int = 64,
-                 compiled: bool = True, device=None):
+                 mtp_depth: int = 0, compiled: bool = True, device=None):
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -508,6 +537,10 @@ class ServeSession:
         self.do_warmup = do_warmup
         self.compiled = compiled
         self.prefill_chunk = max(1, prefill_chunk)
+        if mtp_depth > cfg.mtp_depth:
+            raise ValueError(f"mtp_depth {mtp_depth} > cfg.mtp_depth "
+                             f"{cfg.mtp_depth} stacked draft modules")
+        self.mtp_depth = max(0, mtp_depth)
         self.paged = LC.uses_paged_host(cfg)
         blocks_per_slot = LC.num_blocks(cfg, max_seq)
         self.num_pages = 0
@@ -529,7 +562,8 @@ class ServeSession:
             num_pages=self.num_pages if self.paged else None,
             map_slots=not self.paged)
         self.state = ES.init_engine_state(cfg, caches, num_slots)
-        self._out = ES.init_round_out(num_slots, 1, self.device)
+        self._out = ES.init_round_out(num_slots, self.mtp_depth + 1,
+                                      self.device)
         # the fetch's host side: the round result plus a first token per
         # slot at most
         self._pinned = None
@@ -537,7 +571,7 @@ class ServeSession:
             self._pinned = torch.empty(
                 (self._out.packed.numel() + num_slots,),
                 dtype=torch.int64).pin_memory()
-        self._programs = SP.StepPrograms(cfg)
+        self._programs = SP.StepPrograms(cfg, self.mtp_depth)
         self.pool_entries_per_slot = LC.pool_entries(cfg, max_seq)
         self.free_pool_entries = num_slots * self.pool_entries_per_slot
         self.sched = Scheduler(num_slots, max_seq,
@@ -657,11 +691,6 @@ class ServeSession:
     # -- request flow --------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        if req.sampling:
-            raise NotImplementedError(
-                f"rid={req.rid}: temperature {req.temperature} > 0; sampled "
-                f"streams need the reference's per-request keys (threefry "
-                f"fold_in and categorical), which are not ported yet")
         self._submit_round[req.rid] = self._round
         self._submit_time[req.rid] = time.perf_counter()
         if self.allocator is not None \
@@ -745,7 +774,7 @@ class ServeSession:
             toks = task.tokens[:, c0:c0 + ck]
             if C > ck:
                 toks = torch.nn.functional.pad(toks, (0, C - ck))
-            t0_dev = self._programs.prefill(C, last)(
+            t0_dev = self._programs.prefill(C, last, task.req.sampling)(
                 self.params, self.state, toks, slot, ck)
         task.cursor += ck
         self.report.prefill_chunks += 1
@@ -782,10 +811,12 @@ class ServeSession:
             return None
         if W > 0:
             self._warmup_slot(slot, tuple(task.tails), n)
-        t0 = greedy(lg[:, -1])
-        ES.promote_slot(self.state, slot, t0[0], hid_last[0])
+        req = task.req
+        t0 = self._draw(req, lg[0, -1], 0) if req.sampling \
+            else greedy(lg[0, -1])
+        ES.promote_slot(self.state, slot, t0, hid_last[0])
         # the legacy path resolves the first token here, on the host
-        return int(t0[0])
+        return int(t0)
 
     def _deliver_first_token(self, slot: int, req: Request, t0: int,
                              now: Optional[float] = None) -> Optional[str]:
@@ -849,6 +880,15 @@ class ServeSession:
     def _slot_req(self, slot: int) -> Request:
         return self.sched.running[self.sched.slots[slot].rid]
 
+    def _draw(self, req: Request, logits: torch.Tensor,
+              index: int) -> torch.Tensor:
+        """One token of a sampling request from ``logits [V]`` with Python
+        knobs.  ``index`` is the chain position (0 = the prefill's first
+        token): the one place the key is derived, so sampled streams are
+        the same at Q = 1 and in speculative rounds."""
+        return sample(request_key(req.sample_seed, index, logits.device),
+                      logits, req.temperature, req.top_k, req.top_p)
+
     def _emit(self, slot: int, req: Request, tokens: list[int],
               now: Optional[float] = None) -> tuple[int, bool]:
         """Deliver one slot's tokens of the round; returns
@@ -872,6 +912,20 @@ class ServeSession:
             req.finish_reason = "stop"
         return len(delivered), stopped
 
+    def _truncate_slot_tail(self, slot: int, n_drop: int) -> None:
+        """Roll back the last ``n_drop`` appended positions of one slot (a
+        stop token inside a speculative round), in place and outside the
+        round's graph: ``lens`` shrinks and every pool drops its entries
+        beyond, the MTP rejection's rollback, so the slot matches a run
+        that never drafted past the stop.  (Indexer keys and host rows
+        beyond ``lens`` are dead and reset with the slot.)"""
+        if n_drop <= 0:
+            return
+        lens = self.caches.lens
+        lens[slot].sub_(n_drop)                 # a Python int: no host copy
+        for p in self.caches.pools:
+            LP.invalidate_beyond(p, lens)
+
     def _plan_round(self) -> Optional[_RoundPlan]:
         """Plan stage: sample page pressure, collect the just-promoted
         slots' first tokens, pick the active slots (None: nothing to
@@ -887,14 +941,20 @@ class ServeSession:
             if pending:
                 raise RuntimeError("a promoted slot must be active")
             return None
+        # the sampler runs only when a live slot samples (the reference's
+        # device-side cond, decided here from the scheduler's requests)
+        sampled = any(self._slot_req(i).sampling for i in active)
         return _RoundPlan(active=active, pending=pending,
+                          spec=self.mtp_depth > 0, sampled=sampled,
                           t0=time.perf_counter())
 
     def _compute_round(self, plan: _RoundPlan) -> ES.RoundOut:
-        """Compute stage: the decode round (a graph replay, or eager) over
-        the persistent state; nothing here waits for the card."""
-        self._programs.decode(self.compiled)(self.params, self.state,
-                                             self._out)
+        """Compute stage: the round of the plan's kind and variant (a graph
+        replay, or eager) over the persistent state; nothing here waits
+        for the card."""
+        progs = self._programs
+        fn = progs.spec if plan.spec else progs.decode
+        fn(self.compiled, plan.sampled)(self.params, self.state, self._out)
         return self._out
 
     def _commit_round(self, plan: _RoundPlan,
@@ -902,7 +962,7 @@ class ServeSession:
         """Commit stage: the round's single fetch (the packed result and
         the pending first tokens), then scheduler bookkeeping and the
         stream, stamped with the delivery instant."""
-        active, pending = plan.active, plan.pending
+        active, pending, spec = plan.active, plan.pending, plan.spec
         host = device_get([out.packed] + [t for _, _, t in pending],
                           self._pinned)
         t_deliver = time.perf_counter()
@@ -912,7 +972,9 @@ class ServeSession:
         self.report.h2d_rows += int(host[n - 2])
         self.report.hit_rows += int(host[n - 1])
         t0s = host[n:]
-        self.report.d2h_rows += len(active) * self.cfg.num_layers
+        # every live slot appends Q latent rows per layer
+        q_round = self.mtp_depth + 1 if spec else 1
+        self.report.d2h_rows += len(active) * q_round * self.cfg.num_layers
         slot_tokens = {}
         stop_slots = []
         first_done = {}
@@ -935,10 +997,13 @@ class ServeSession:
                                           now=t_deliver)
             slot_tokens[i] = charged
             if stopped:
-                # a Q = 1 round stops at its only token: nothing past it to
-                # roll back (a speculative round's rollback is
-                # lru_pool.invalidate_beyond)
+                # a verify round may have appended past the stop: drop the
+                # over-accepted suffix from the slot's lens and pools
+                self._truncate_slot_tail(i, k - charged)
                 stop_slots.append(i)
+            if spec and not req.sampling:
+                self.report.drafted_tokens += self.mtp_depth
+                self.report.accepted_tokens += k - 1
         done = self.sched.record_tokens(slot_tokens)
         for i in stop_slots:
             if self.sched.slots[i].active:
@@ -949,6 +1014,8 @@ class ServeSession:
             if self._rounds_since_promote.get(i, 99) < PIPELINE_FILL_ROUNDS:
                 self._rounds_since_promote[i] += 1
         self.report.rounds += 1
+        if spec:
+            self.report.spec_rounds += 1
         self.report.decode_tokens += sum(slot_tokens.values())
         if fill:
             self.report.fill_rounds += 1

@@ -1,34 +1,49 @@
 """The serve round's programs (counterpart of ``repro.serving.step``): the
-decode round replayed as a CUDA graph over persistent buffers.
+decode and speculative rounds replayed as CUDA graphs over persistent
+buffers.
 
 The reference compiles each round kind into one donated jitted XLA
-program.  The port's counterpart of that program is a **CUDA graph**: the
-decode round is captured once over the session's persistent
+program.  The port's counterpart of that program is a **CUDA graph**: a
+round is captured once over the session's persistent
 :class:`~repro_torch.serving.state.EngineState` (caches, ``tok``,
-``hidden``, masks) and its :class:`~repro_torch.serving.state.RoundOut`
-buffers, and every later round replays it.  A graph replays the kernels
-with the addresses of its capture, so every tensor the round reads or
-writes is updated in place and never replaced (block tables, ``lens``,
-pools, the pinned host tier through its cached UVA pointer).  Capture
-needs a round free of host syncs, which the decode step is.
+``hidden``, knobs, masks) and its :class:`~repro_torch.serving.state
+.RoundOut` buffers, and every later round of that kind replays it.  A
+graph replays the kernels with the addresses of its capture, so every
+tensor a round reads or writes is updated in place and never replaced
+(block tables, ``lens``, pools, the pinned host tier through its cached
+UVA pointer).  Capture needs a round free of host syncs, which every
+round is.
 
 * **decode** — one Q = 1 ESS step over every slot, masked slots writing
-  nothing, then greedy token selection; the round writes ``tok``,
-  ``hidden``, ``emit_index``, ``lens`` and the packed ``RoundOut`` in
-  place.  ``compiled=True`` runs the first round eagerly (building the
-  kernels, setting their attributes and caching the UVA pointers and
-  plans outside any capture), then captures the round and replays it from
-  the second round on; ``compiled=False`` runs the same function eagerly
-  every round.  On the CPU only the eager form exists.
+  nothing, then token selection; writes ``tok``, ``hidden``,
+  ``emit_index``, ``lens`` and the packed ``RoundOut`` in place.
+* **spec** — the MTP round: ``mtp_draft``, the Q = depth + 1 verify step,
+  acceptance and the in-place rollback (``mtp.speculative_step``), then
+  emission packing: greedy slots emit the accepted prefix and the bonus
+  token, sampling slots (drafts force-rejected) one token drawn from the
+  verify step's first-position logits with the key the Q = 1 round would
+  fold.
 * **prefill** — one shape-bucketed chunk for one slot (ragged last chunks
   zero-padded to the bucket and masked by ``n_valid``), which on the last
-  chunk selects the first token on the device and promotes the slot.  It
-  runs eagerly in both modes and is free of host syncs too: ``slot`` and
-  ``n_valid`` are host ints.
+  chunk selects the first token on the device (emission index 0) and
+  promotes the slot.  It runs eagerly in both modes and is free of host
+  syncs too: ``slot`` and ``n_valid`` are host ints.
+
+Each round kind has a **greedy and a sampling variant**.  The reference
+skips its sampler with a device-side ``lax.cond`` when no live slot
+samples; a graph cannot branch on a device value without a sync, and the
+host knows from the scheduler which live requests sample, so the session
+picks the variant and each variant is its own graph.  The variants share
+one graph memory pool (they never run at once, and nothing a capture
+allocates outlives its round).  ``compiled=True`` runs a variant's first
+round eagerly (building the kernels, setting their attributes and caching
+the UVA pointers and plans outside any capture), then captures it and
+replays it from its second round on; ``compiled=False`` runs the same
+functions eagerly every round.  On the CPU only the eager form exists.
 
 Graph replays launch kernels without their wrappers, so the wrappers'
-launch counters would stand still: the capture's counts are recorded
-(:mod:`repro_torch.kernels.counters`) and added on every replay.
+launch counters would stand still: each capture's counts are recorded
+(:mod:`repro_torch.kernels.counters`) and added on each of its replays.
 
 A graph belongs to the state it was captured over, so each session owns
 its ``StepPrograms`` (the reference shares its programs process-wide).
@@ -36,13 +51,14 @@ its ``StepPrograms`` (the reference shares its programs process-wide).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import counters
-from repro_torch.serving.sampling import greedy
+from repro_torch.serving import mtp as MTP
+from repro_torch.serving.sampling import greedy, sample_batch, sample_one
 from repro_torch.serving.state import EngineState, RoundOut, promote_slot
 
 
@@ -55,7 +71,19 @@ def chunk_bucket(ck: int, prefill_chunk: int) -> int:
     return min(b, prefill_chunk)
 
 
-def _decode_round_fn(cfg: ArchConfig) -> Callable:
+def _select(state: EngineState, logits: torch.Tensor, g: torch.Tensor,
+            sampled: bool) -> torch.Tensor:
+    """Each slot's token from ``logits [B,V]``: the greedy ``g``, or, in the
+    sampling variant, a draw keyed by ``(seed, emit_index)`` for the slots
+    that sample (the reference's ``_maybe_sample``)."""
+    if not sampled:
+        return g
+    smp = sample_batch(state.seed, state.emit_index, logits,
+                       state.temperature, state.top_k, state.top_p)
+    return torch.where(state.sample_mask, smp, g)
+
+
+def _decode_round_fn(cfg: ArchConfig, sampled: bool) -> Callable:
     """Plain Q = 1 round over the whole slot batch, in place."""
     from repro_torch.serving import engine as E   # engine imports this
 
@@ -64,7 +92,8 @@ def _decode_round_fn(cfg: ArchConfig) -> Callable:
         live = state.slot_mask
         o = E.ess_decode(params, cfg, state.tok[:, None],
                          caches.lens[:, None], caches, slot_mask=live)
-        t = greedy(o.logits[:, -1])                               # [B]
+        logits = o.logits[:, -1]                                  # [B,V]
+        t = _select(state, logits, greedy(logits), sampled)
         caches.lens.copy_(o.caches.lens)
         state.tok.copy_(torch.where(live, t, state.tok))
         state.hidden.copy_(torch.where(live[:, None],
@@ -79,10 +108,38 @@ def _decode_round_fn(cfg: ArchConfig) -> Callable:
     return fn
 
 
-def _prefill_round_fn(cfg: ArchConfig, last: bool) -> Callable:
+def _spec_round_fn(cfg: ArchConfig, depth: int, sampled: bool) -> Callable:
+    """The MTP round: draft, Q = depth + 1 verify, accept and roll back,
+    then emission packing (``n_emit`` 1 for sampling slots, the accepted
+    count for greedy ones, 0 for frozen ones), in place."""
+    def fn(params: dict, state: EngineState, out: RoundOut) -> None:
+        live = state.slot_mask
+        spec = MTP.speculative_step(
+            params, cfg, state.caches, state.tok, state.hidden,
+            slot_mask=live, sample_mask=state.sample_mask, depth=depth)
+        t0 = _select(state, spec.logits[:, 0], spec.tokens[:, 0], sampled)
+        tokens = torch.cat([t0[:, None], spec.tokens[:, 1:]], dim=1)
+        n_emit = torch.where(live, torch.where(state.sample_mask, 1,
+                                               spec.n_accepted), 0)
+        last = tokens.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0]
+        state.tok.copy_(torch.where(live, last, state.tok))
+        state.hidden.copy_(torch.where(live[:, None], spec.hidden,
+                                       state.hidden))
+        state.emit_index.add_(live.int())
+        out.tokens.copy_(torch.where(live[:, None], tokens, 0))
+        out.n_emit.copy_(n_emit)
+        out.h2d_rows.copy_(spec.stats["misses"].sum().view(1))
+        out.hit_rows.copy_(spec.stats["hits"].sum().view(1))
+
+    return fn
+
+
+def _prefill_round_fn(cfg: ArchConfig, last: bool, sampled: bool
+                      ) -> Callable:
     """One bucketed prefill chunk for host-int ``slot``; on the last chunk
-    the first token is selected on the device and the slot promoted.
-    Returns that token (a device scalar) or None."""
+    the first token is selected on the device (greedy, or drawn at
+    emission index 0 in the sampling variant) and the slot promoted.
+    Returns that token (a ``[1]`` device tensor) or None."""
     from repro_torch.serving import engine as E
 
     def fn(params: dict, state: EngineState, tokens: torch.Tensor,
@@ -97,75 +154,121 @@ def _prefill_round_fn(cfg: ArchConfig, last: bool) -> Callable:
         caches.lens.copy_(new.lens)
         if not last:
             return None
-        t0 = greedy(lg[0, max(n_valid - 1, 0)])
-        promote_slot(state, slot, t0, hid_last[0])
+        lg_last = lg[0, max(n_valid - 1, 0)]                      # [V]
+        t0 = greedy(lg_last).view(1)
+        if sampled:
+            s = slice(slot, slot + 1)
+            t0 = sample_one(state.seed[s], state.emit_index[s], lg_last,
+                            state.temperature[s], state.top_k[s],
+                            state.top_p[s])
+        promote_slot(state, slot, t0[0], hid_last[0])
         return t0
 
     return fn
 
 
-class StepPrograms:
-    """The round functions of one session.  ``decode(compiled)`` returns
-    the graph-replaying round or the eager one; both take
-    ``(params, state, out)`` and update them in place."""
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    bound: tuple              # ids of (params, state, out) it reads
+    delta: dict               # launch counts one replay stands for
 
-    def __init__(self, cfg: ArchConfig):
+
+class StepPrograms:
+    """The round functions of one session.  ``decode`` / ``spec`` take
+    ``(compiled, sampled)`` and return the graph-replaying round or the
+    eager one; every round takes ``(params, state, out)`` and updates them
+    in place.  ``depth`` is the session's MTP draft depth (0: no spec
+    round)."""
+
+    def __init__(self, cfg: ArchConfig, depth: int = 0):
         self._cfg = cfg
-        self._decode = _decode_round_fn(cfg)
-        self._prefill: dict[tuple[int, bool], Callable] = {}
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._bound: Optional[tuple] = None
-        self._delta: Optional[dict] = None
+        self.depth = depth
+        self._rounds: dict[tuple[bool, bool], Callable] = {}
+        self._prefill: dict[tuple[int, bool, bool], Callable] = {}
+        self._graphs: dict[tuple[bool, bool], _Captured] = {}
+        self._pool = None
         self.replays = 0
 
-    def decode(self, compiled: bool) -> Callable:
-        return self._graph_round if compiled else self._decode
+    @property
+    def captures(self) -> int:
+        """Round variants captured so far (each ran one eager round)."""
+        return len(self._graphs)
 
-    def prefill(self, C: int, last: bool) -> Callable:
-        fn = self._prefill.get((C, last))
+    def _round(self, spec: bool, sampled: bool) -> Callable:
+        key = (spec, sampled)
+        fn = self._rounds.get(key)
         if fn is None:
-            fn = self._prefill[(C, last)] = _prefill_round_fn(self._cfg,
-                                                              last)
+            fn = self._rounds[key] = (
+                _spec_round_fn(self._cfg, self.depth, sampled) if spec
+                else _decode_round_fn(self._cfg, sampled))
         return fn
 
-    def _graph_round(self, params: dict, state: EngineState,
-                     out: RoundOut) -> None:
-        if self._graph is None:
+    def decode(self, compiled: bool, sampled: bool = False) -> Callable:
+        return self._program(False, sampled, compiled)
+
+    def spec(self, compiled: bool, sampled: bool = False) -> Callable:
+        return self._program(True, sampled, compiled)
+
+    def _program(self, spec: bool, sampled: bool, compiled: bool
+                 ) -> Callable:
+        fn = self._round(spec, sampled)
+        if not compiled:
+            return fn
+
+        def replay(params: dict, state: EngineState, out: RoundOut) -> None:
+            self._replay((spec, sampled), fn, params, state, out)
+        return replay
+
+    def prefill(self, C: int, last: bool, sampled: bool = False
+                ) -> Callable:
+        fn = self._prefill.get((C, last, sampled))
+        if fn is None:
+            fn = self._prefill[(C, last, sampled)] = _prefill_round_fn(
+                self._cfg, last, sampled)
+        return fn
+
+    def _replay(self, key: tuple, fn: Callable, params: dict,
+                state: EngineState, out: RoundOut) -> None:
+        cap = self._graphs.get(key)
+        if cap is None:
             if not state.caches.lens.is_cuda:
                 raise ValueError("compiled=True replays a CUDA graph and "
                                  "needs the session on a CUDA device; "
                                  "pass compiled=False on the CPU")
-            self._decode(params, state, out)         # warm-up: a real round
-            self._capture(params, state, out)
+            fn(params, state, out)                   # warm-up: a real round
+            self._graphs[key] = self._capture(fn, params, state, out)
             return
-        if self._bound != (id(params), id(state), id(out)):
-            raise ValueError("the decode graph replays the buffers it was "
+        if cap.bound != (id(params), id(state), id(out)):
+            raise ValueError("a round graph replays the buffers it was "
                              "captured over; a new state needs new "
                              "StepPrograms")
-        self._graph.replay()
-        counters.add(self._delta)
+        cap.graph.replay()
+        counters.add(cap.delta)
         self.replays += 1
 
-    def _capture(self, params: dict, state: EngineState,
-                 out: RoundOut) -> None:
-        """Capture one round on a side stream.  Nothing runs: the round's
-        work is recorded, to replay from the next round on.  The
-        launches the wrappers counted while recording are taken back and
-        kept as the per-replay delta.  Relaxed capture mode: the wrappers
-        query their pinned tier's attributes on the host, which the
-        global mode refuses; a sync inside the round still fails the
-        capture."""
+    def _capture(self, fn: Callable, params: dict, state: EngineState,
+                 out: RoundOut) -> _Captured:
+        """Capture one round on a side stream, into the graph memory pool
+        the variants share.  Nothing runs: the round's work is recorded, to
+        replay from the next round of this variant on.  The launches the
+        wrappers counted while recording are taken back and kept as the
+        per-replay delta.  Relaxed capture mode: the wrappers query their
+        pinned tier's attributes on the host, which the global mode
+        refuses; a sync inside the round still fails the capture."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         before = counters.snapshot()
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="relaxed")
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="relaxed")
             try:
-                self._decode(params, state, out)
+                fn(params, state, out)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream().wait_stream(side)
-        self._delta = counters.diff(counters.snapshot(), before)
+        delta = counters.diff(counters.snapshot(), before)
         counters.restore(before)
-        self._graph, self._bound = graph, (id(params), id(state), id(out))
+        return _Captured(graph, (id(params), id(state), id(out)), delta)

@@ -670,3 +670,179 @@ def test_cuda_session_graph_replay_matches_eager(cuda):
         assert torch.equal(a.data.view(torch.int16), b.data.view(torch.int16))
     for a, b in zip(cg.ikeys, ce.ikeys):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# Sampling and the MTP speculative round on the card
+# ---------------------------------------------------------------------------
+
+def _sampler_inputs(dev):
+    """Four slots' knobs at the model's vocabulary (V = 129280): greedy,
+    top-k 64, top-p 0.9, both, as the serve state holds them."""
+    g = torch.Generator().manual_seed(11)
+    logits = torch.randn((4, 129280), generator=g) * 3
+    knobs = (torch.tensor([0, 123, 7, 2**31 - 1], dtype=torch.int32),
+             torch.tensor([1, 4, 2**20, 0], dtype=torch.int32), logits,
+             torch.tensor([0.0, 0.8, 1.0, 0.6]),
+             torch.tensor([0, 64, 0, 1000], dtype=torch.int32),
+             torch.tensor([1.0, 1.0, 0.9, 0.95]))
+    return tuple(k.to(dev) for k in knobs)
+
+
+def test_cuda_sampler_matches_cpu(cuda):
+    """The threefry bits and uniforms on the card equal the CPU's bit for
+    bit, the Gumbel noise is within 2 ulp (of max(|g|, 1): ``log`` rounds
+    differently), and the draws are the same tokens: a differing draw
+    would pass only with its top two perturbed scores within 4 ulp."""
+    import numpy as np
+
+    from repro_torch.serving import prng
+    from repro_torch.serving import sampling as S
+    cpu = _sampler_inputs("cpu")
+    card = _sampler_inputs(cuda)
+    for idx in range(3):
+        kc = S.request_key(cpu[0], cpu[1] + idx)
+        kg = S.request_key(card[0], card[1] + idx)
+        assert torch.equal(kg.cpu(), kc)
+        assert torch.equal(prng.random_bits(kg, 129280).cpu(),
+                           prng.random_bits(kc, 129280))
+        assert torch.equal(prng.uniform(kg, 129280).cpu().view(torch.int32),
+                           prng.uniform(kc, 129280).view(torch.int32))
+        gc, gg = prng.gumbel(kc, 129280), prng.gumbel(kg, 129280).cpu()
+        ulp = (gg.double() - gc.double()).abs() / torch.from_numpy(
+            np.spacing(np.maximum(gc.abs().numpy(), 1.0).astype(np.float32)))
+        assert float(ulp.max()) <= 2.0
+    with _SyncFree():
+        got = S.sample_batch(*card)
+    want = S.sample_batch(*cpu)
+    for r in range(4):
+        if int(got[r]) != int(want[r]):
+            lg = cpu[2][r:r + 1] / max(float(cpu[3][r]), 1.0)
+            m = S._truncate(lg, cpu[4][r:r + 1], cpu[5][r:r + 1])
+            sc = (prng.gumbel(S.request_key(cpu[0][r], cpu[1][r]), 129280)
+                  + m)[0].topk(2).values
+            print(f"row {r}: card {int(got[r])}, cpu {int(want[r])}, top "
+                  f"two {sc.tolist()}")
+            assert float(sc[0] - sc[1]) <= 4 * float(
+                np.spacing(np.float32(max(abs(float(sc[0])), 1.0))))
+
+
+def _mtp_cfg(tier="bf16"):
+    """``_mini_cfg`` with one MTP module (a MoE block of its 16 experts)."""
+    import dataclasses
+    return dataclasses.replace(_mini_cfg(tier), mtp_depth=1)
+
+
+def _spec_requests(sampled):
+    from repro_torch.serving.scheduler import Request
+    knobs = dict(temperature=0.8, top_k=64, seed=5) if sampled else {}
+    return [Request(rid=0, prompt_len=150, max_new_tokens=12),
+            Request(rid=1, prompt_len=90, max_new_tokens=6, **knobs),
+            Request(rid=2, prompt_len=200, max_new_tokens=9)]
+
+
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+def test_cuda_spec_session_graph_replay_matches_eager(cuda, sampled):
+    """The MTP session (depth 1) with its rounds replayed from CUDA graphs
+    (a greedy and, with a sampled request, a sampling variant) against the
+    same session run eagerly: streams, speculative counters and the caches
+    bit for bit; launch counts (replays added) equal; every round a Q = 2
+    verify round; plan, compute and prefill stages free of host syncs."""
+    from repro_torch.kernels import counters
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _mtp_cfg()
+    params = init_params(cfg, 1, device=cuda)
+
+    def sync_free(fn):
+        def wrapped(*a, **k):
+            with _SyncFree():
+                return fn(*a, **k)
+        return wrapped
+
+    def run(compiled):
+        s = E.ServeSession(params, cfg, num_slots=2, max_seq=300,
+                           prefill_chunk=64, mtp_depth=1, compiled=compiled,
+                           device=cuda)
+        for name in ("_plan_round", "_compute_round", "prefill_round"):
+            setattr(s, name, sync_free(getattr(s, name)))
+        before = counters.snapshot()
+        rep = s.run(_spec_requests(sampled))
+        torch.cuda.synchronize()
+        return s, rep, counters.diff(counters.snapshot(), before)
+
+    g, rg, ng = run(True)
+    e, re_, ne = run(False)
+    assert g.outputs == e.outputs and rg.rounds == re_.rounds >= 8
+    for f in ("spec_rounds", "drafted_tokens", "accepted_tokens",
+              "decode_tokens", "h2d_rows"):
+        assert getattr(rg, f) == getattr(re_, f), f
+    assert rg.spec_rounds == rg.rounds
+    assert g.programs.captures == (2 if sampled else 1)
+    assert g.programs.replays + g.programs.captures == rg.rounds
+    assert ng == ne
+    by_q = ng[("indexer_scores", "launches_by_q")]
+    assert by_q[2] == cfg.num_layers * rg.rounds and 1 not in by_q
+    cg, ce = g.caches, e.caches
+    assert torch.equal(cg.lens, ce.lens)
+    for a, b in zip(cg.pools, ce.pools):
+        for f in ("ids", "last_use", "slot_of", "step"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+def test_cuda_spec_round_and_truncate_free_of_host_syncs(cuda, tier):
+    """The spec round (both variants) and ``_truncate_slot_tail`` under
+    sync-debug "error", after a few rounds of a session with a sampled
+    request; the truncation shrinks the slot's ``lens`` in place and drops
+    its pool entries beyond."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _mtp_cfg(tier)
+    params = init_params(cfg, 2, device=cuda)
+    s = E.ServeSession(params, cfg, num_slots=2, max_seq=300,
+                       prefill_chunk=64, mtp_depth=1, compiled=False,
+                       device=cuda)
+    for r in _spec_requests(True)[:2]:
+        s.submit(r)
+    for _ in range(5):
+        s.step()
+    assert len(s.sched.active_slots()) == 2
+    lens0 = s.caches.lens.clone()
+    with _SyncFree():
+        for sampled in (False, True):
+            s.programs.spec(False, sampled)(s.params, s.state, s._out)
+        lens1 = s.caches.lens.clone()
+        s._truncate_slot_tail(0, 1)
+    torch.cuda.synchronize()
+    lens = s.caches.lens
+    assert (lens1 - lens0 >= 2).all() and (lens1 - lens0 <= 4).all()
+    assert int(lens[0]) == int(lens1[0]) - 1 and int(lens[1]) == int(lens1[1])
+    for p in s.caches.pools:
+        assert ((p.ids[0] < lens[0]) | (p.ids[0] < 0)).all()
+
+
+def test_cuda_sparse_mla_general_route_watch_case_repeats(cuda):
+    """ROADMAP Queue 3's watch case (a single past failure of
+    ``test_cuda_sparse_mla_partial_vs_plain[128-576-300-512-True-f32]``):
+    the same inputs on the general route 40 times, each against the plain
+    version at rtol = atol = 1e-4."""
+    g = torch.Generator().manual_seed(3)
+    B, Q, H, D, K, R = 2, 2, 128, 576, 300, 512
+    q = torch.randn((B, Q, H, D), generator=g)
+    rows = torch.randn((B, K, D), generator=g)
+    valid = torch.rand((B, K), generator=g) < 0.7
+    valid[..., -5:] = False
+    want = sops.partial_attend(q, rows, valid, 0.07, R)
+    qc, rc, vc = q.to(cuda), rows.to(cuda), valid.to(cuda)
+    bad = []
+    for i in range(40):
+        got = sops.partial_attend(qc, rc, vc, 0.07, R)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in
+                  zip(got, want))
+        if not all(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4)
+                   for a, b in zip(got, want)):
+            bad.append((i, err))
+    print(f"watch case: {40 - len(bad)}/40 within 1e-4, failures {bad}")
+    assert not bad

@@ -176,3 +176,37 @@ def test_serve_cli_runs_on_cpu(capsys):
                     "24", "--new-tokens", "3", "--prefill-chunk", "8"]) == 0
     out = capsys.readouterr().out
     assert "tok/s" in out and "pool hit rate" in out
+    # MTP speculative rounds with sampled requests
+    assert SV.main(["--device", "cpu", "--requests", "2", "--prompt-len",
+                    "24", "--new-tokens", "3", "--prefill-chunk", "8",
+                    "--mtp-depth", "1", "--temperature", "0.8",
+                    "--top-k", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "speculative rounds" in out and "pool hit rate" in out
+    assert " 0 speculative" not in out
+
+
+def test_serve_cli_session_flags_on_cpu():
+    """The launcher's other session flags: ``--slots`` and ``--max-seq``
+    size the session, ``--stop-token`` ends a stream at that token,
+    ``--top-p`` samples, ``--eager`` keeps the rounds eager (on the CPU
+    they always are)."""
+    base = ["--device", "cpu", "--requests", "2", "--prompt-len", "24",
+            "--new-tokens", "4", "--prefill-chunk", "8", "--slots", "1",
+            "--max-seq", "40", "--eager"]
+    out = SV.run(SV.build_parser().parse_args(base))
+    s, rep = out["session"], out["report"]
+    assert (s.num_slots, s.max_seq, s.compiled) == (1, 40, False)
+    assert sorted(rep.finished_rids) == [0, 1]
+    stream = s.outputs[0]
+    assert all(len(s.outputs[r]) == 4 for r in (0, 1))
+    stop = stream[1]
+    cut = SV.run(SV.build_parser().parse_args(
+        base + ["--stop-token", str(stop)]), params=out["params"])
+    first = stream.index(stop)
+    assert cut["session"].outputs[0] == stream[:first + 1]
+    assert cut["report"].finish_reasons[0] == "stop"
+    sampled = SV.run(SV.build_parser().parse_args(
+        base + ["--temperature", "0.9", "--top-p", "0.5"]),
+        params=out["params"])
+    assert all(len(sampled["session"].outputs[r]) == 4 for r in (0, 1))

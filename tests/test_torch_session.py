@@ -6,8 +6,8 @@ chunks of 8, the same ``prompt_fn`` given to both packages).
   int8 tiers: the emitted streams, finished rids, rounds, decode tokens,
   miss rows, page counts and pool stamps **equal** to the reference's —
   the counterparts of ``test_compiled_serve`` / ``test_paged_cache``'s
-  serve-loop tests (the ``_requests()`` mix with its sampled request made
-  greedy: sampling is not ported, and the port refuses a sampled request);
+  serve-loop tests (the ``_requests()`` mix, its sampled request
+  included);
 * the decode and prefill round functions from one state against the
   reference's ``_decode_round_fn`` / ``_prefill_round_fn``: tokens equal,
   state leaves equal (floats at rtol/atol 1e-5);
@@ -60,11 +60,12 @@ def prompt_fn(req):
 
 
 def requests(R):
-    """``test_compiled_serve._requests()``, rid 3 greedy."""
+    """``test_compiled_serve._requests()``: rid 3 samples."""
     return [R(rid=0, prompt_len=10, max_new_tokens=5),
             R(rid=1, prompt_len=8, max_new_tokens=3),
             R(rid=2, prompt_len=13, max_new_tokens=6),
-            R(rid=3, prompt_len=9, max_new_tokens=4)]
+            R(rid=3, prompt_len=9, max_new_tokens=4, temperature=0.8,
+              top_k=64, top_p=0.95, seed=123)]
 
 
 def with_tier(cfg, tier):
@@ -265,11 +266,16 @@ def test_stop_token_abort_and_reject_lifecycle(model):
     assert sorted(r for r, _ in out[1][2]) == [0, 1, 2, 3]
 
 
-def test_sampled_request_refused(model):
-    _, ts = sessions(model)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ts.submit(TReq(rid=9, prompt_len=8, max_new_tokens=2,
-                       temperature=0.8, seed=1))
+def test_sampled_request_served(model):
+    """A sampled request is served (the port once refused it): its stream
+    is the reference's, first token included (the prefill's device draw
+    at emission index 0); ``compiled=True`` still needs the card."""
+    js, ts = sessions(model)
+    for s, R in ((js, JReq), (ts, TReq)):
+        s.run([R(rid=9, prompt_len=8, max_new_tokens=4, temperature=0.8,
+                 seed=1)], max_rounds=20)
+    assert ts.outputs == js.outputs and len(ts.outputs[9]) == 4
+    assert ts.report.finish_reasons == {9: "length"}
     with pytest.raises(ValueError, match="CUDA"):
         TE.ServeSession(model[3], model[1], num_slots=1, max_seq=MAX_SEQ,
                         device="cpu").run([TReq(0, 8, 2)])
@@ -396,7 +402,9 @@ STEP_MODULES = sorted(
     [*PKG.glob("core/*.py"), *PKG.glob("models/*.py"),
      *PKG.glob("kernels/*/ops.py"), PKG / "cache" / "latent_cache.py",
      PKG / "distributed" / "compression.py", PKG / "serving" / "step.py",
-     PKG / "serving" / "state.py", PKG / "serving" / "engine.py"])
+     PKG / "serving" / "state.py", PKG / "serving" / "engine.py",
+     PKG / "serving" / "mtp.py", PKG / "serving" / "prng.py",
+     PKG / "serving" / "sampling.py"])
 # host-side helpers: the pool's invariant check (tests, debugging) and the
 # fixed-batch entry point's report; the session's methods are host code
 # around the steps (its one fetch is ``device_get``)
