@@ -65,10 +65,24 @@ the script exits non-zero without a result line):
    ("error")``, and each decode round makes exactly one host fetch
    (:func:`run_session`); the launches per route and shape must equal what
    the run's rounds and chunks give.  Prints decode ms/round, the device's
-   busy share (``torch.profiler`` over three rounds) and prefill tokens/s;
+   busy share (``torch.profiler`` over three rounds), the time in those
+   rounds in which a row gather ran beside other device work (the DA
+   fetch on its side stream; above 0 in every graph session) and prefill
+   tokens/s;
 9. session B — the same with an int8 tier, the LRU warmup at admission
    (``do_warmup=True``) and 4 requests, graph then eager as in session A:
    the gather-dequant kernel and ``lru_warmup`` on the card;
+9b. overlap — the serve's prompts prefilled once, then 8 teacher-forced
+   decode rounds from identical copies of the caches under DA, DBA, the
+   layer-wise plan DA / DBA / DA / DBA and TBO over DA, each round
+   replayed as a CUDA graph whose fetch and TBO streams are branches
+   (:func:`overlap_phase`): logits within 2e-2 of DA's, hits / misses /
+   overflow compared with DA's, and in 3 profiled replays a row gather
+   running beside other device work;
+9c. session E — session A's requests with DBA layers and TBO
+   (``overlap="dba"``, ``tbo=True``: halves of 2 slots, DBA halves of 1
+   within them), graph then eager, with session A's checks, the launches
+   per route and shape 4 per layer and round;
 10. session C — MTP speculative rounds at depth 1 with the published MTP
    module (a full MoE block and its ``proj``, drawn from a generator of
    its own beside the same 4 layers), 4 slots, bf16 tier, 4 requests of
@@ -91,7 +105,11 @@ the script exits non-zero without a result line):
    of the same requests at Q = 1 rounds.
 
 Each of phases 5-11 sets every launch count to 0 just before it runs and
-reads them just after.  The kernels line's ``launches`` are session A's
+reads them just after (9b's replays count nothing: it prints the eager
+rounds' and the captures' launches); the kernels line's
+``launches_session_e`` are session E's eager run's.  The sparse-MLA cases
+at Q <= 2 also time SDPA replayed from a graph (``library_device_ms``).
+The kernels line's ``launches`` are session A's
 eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
 merge), session B's eager run's (the gather-dequant routes), session C's
 eager run's (the verify shapes) and the grafts' (the page gathers); every
@@ -688,6 +706,10 @@ def check_kernels(torch, dev):
         kk = r4.expand(B, Q, Krows, D).reshape(B * Q, 1, Krows, D)
         mask = v4.expand(B, Q, Krows).reshape(B * Q, 1, 1, Krows)
         it = 3 if Q > 2 else 20
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, kk, kk[..., :rank], attn_mask=mask, scale=scale)
         rec = dict(
             name=f"sparse_mla_partial[{tag}]", route="cuda",
             source="src/repro_torch/kernels/sparse_mla/csrc/sparse_mla_tc.cu",
@@ -702,16 +724,15 @@ def check_kernels(torch, dev):
             plain_ms=timed_ms(torch, lambda: sref.sparse_mla_partial_ref(
                 qq, r4, v4, scale, rank), iters=it, warmup=1),
             bound_ms=bms, bound_by=bby,
-            library_ms=timed_ms(torch, lambda: torch.nn.functional
-                                .scaled_dot_product_attention(
-                                    qs, kk, kk[..., :rank], attn_mask=mask,
-                                    scale=scale), iters=it, warmup=1),
+            library_ms=timed_ms(torch, sdpa, iters=it, warmup=1),
             nsplit=sops.plan_splits(B * Q, H, Krows, torch.cuda
                                     .get_device_properties(dev)
                                     .multi_processor_count)[0],
             shape=f"q {list(qq.shape)}, rows {list(rr.shape)} bf16"
                   + (f" (one [{B},{Krows},{D}] set expanded over Q)"
                      if shared else ""))
+        if Q <= 2:      # SDPA's device time, as the kernel's (a graph)
+            rec["library_device_ms"] = graph_ms(torch, sdpa)
         records[rec["name"]] = rec
         return qq, rr, vv
 
@@ -961,7 +982,7 @@ def session_prompts(cfg, reqs):
 
 def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 reqs, mtp_depth=0, num_slots=SESSION_SLOTS,
-                max_seq=SESSION_MAX_SEQ, on_emit=None):
+                max_seq=SESSION_MAX_SEQ, on_emit=None, tbo=False):
     """One session run: ``reqs`` (``Request``s with rids 0, 1, ...)
     through ``ServeSession.run``, their prompts from seed 0.  Measures and
     checks around the session's own stages (the session itself is
@@ -981,7 +1002,10 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
       (summed kernel time over wall) and are left out of ms/round, as is
       each round that captured a graph (eager, then the capture: a graph
       session's first round of each variant); ms/round is also kept per
-      variant (greedy, sampling), with the live slot-rounds;
+      variant (greedy, sampling), with the live slot-rounds; the profiled
+      rounds' device timeline also gives the time in which a row gather
+      ran beside other device work, and the time with any device work
+      (``profile_serve.overlap_profile``);
     * ``on_emit(rid, n_emit, charged)``, if given, sees each decode
       delivery of the round's tokens.
 
@@ -989,16 +1013,18 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.profile_serve import overlap_profile
     from repro_torch.serving import engine as E
 
     prompts = session_prompts(cfg, reqs)
     session = E.ServeSession(
         params, cfg, num_slots=num_slots, max_seq=max_seq,
         prompt_fn=lambda r: prompts[r.rid], do_warmup=do_warmup,
-        prefill_chunk=PREFILL_CHUNK, mtp_depth=mtp_depth,
+        prefill_chunk=PREFILL_CHUNK, mtp_depth=mtp_depth, tbo=tbo,
         compiled=compiled, device=dev)
     m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0,
-             variant_ms={False: [], True: []}, slot_rounds=0, kernels={})
+             variant_ms={False: [], True: []}, slot_rounds=0, kernels={},
+             overlap_us=0.0, gather_us=0.0, union_busy_us=0.0)
     fetches = [0]
     fetch = E.device_get
 
@@ -1056,6 +1082,10 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 done = decode()
                 wall = time.perf_counter() - t0
             m["profiled_ms"] += 1e3 * wall
+            ov = overlap_profile(prof)
+            m["overlap_us"] += ov["overlap_us"]
+            m["gather_us"] += ov["gather_us"]
+            m["union_busy_us"] += ov["busy_us"]
             for ev in prof.key_averages():
                 if ev.device_type == DeviceType.CUDA:
                     t = ev.self_device_time_total / 1e3
@@ -1092,6 +1122,194 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
     return session, rep, counts, m
 
 
+# the overlap phase: teacher-forced decode rounds from one prefilled state
+# under each overlap strategy (mode: layers' overlap, layer-wise plan, TBO)
+OVERLAP_ROUNDS = 8
+OVERLAP_MODES = {"da": ("da", None, False), "dba": ("dba", None, False),
+                 "layerwise": ("layerwise", ("da", "dba", "da", "dba"),
+                               False),
+                 "tbo": ("da", None, True)}
+
+
+def capture_graph(torch, fn):
+    """``fn`` captured as a CUDA graph on a side stream (relaxed mode, as
+    ``StepPrograms`` captures a round); nothing runs until a replay."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="relaxed")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph
+
+
+def overlap_phase(torch, dev, serve, params, args, card):
+    """The serve's 4 prompts prefilled once at the serve's config (with
+    the LRU warmup), then ``OVERLAP_ROUNDS`` teacher-forced decode rounds
+    from identical copies of those caches under each of
+    ``OVERLAP_MODES``: DA, DBA, the layer-wise plan DA / DBA / DA / DBA,
+    and TBO over DA.  DA's greedy tokens are fed to the others.  Rounds
+    0-1 run eagerly, then the round is captured as a CUDA graph (its fetch
+    and TBO streams as branches) and replayed; the last 3 replays run
+    under ``torch.profiler``.
+
+    The decode rounds' MoE capacity is set so that it cannot bind
+    (capacity factor E / top_k): TBO's halves dispatch their own tokens,
+    and with a capacity that binds they would drop other tokens than the
+    whole batch does (as in the reference), which is a different result,
+    not an overlap's.
+    Every mode's logits must stay within rtol = atol = 2e-2 of DA's in
+    every round, and a row gather must run beside other device work in
+    its profiled replays.  Hits, misses and overflow are compared with
+    DA's; where they differ (a near tie of the indexer's top-k flipped by
+    another rounding), the first round and layer whose pool differs are
+    printed."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import overlap_profile
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import tbo as TBO
+
+    scfg = serve.config_from_args(args)
+    mo = scfg.moe
+    cfg = dataclasses.replace(scfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    B, S = args.requests, args.prompt_len
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int64)
+    tokens = torch.as_tensor(prompts, device=dev)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    t0 = time.perf_counter()
+    logits, snap = E.ess_prefill(params, scfg, tokens, positions,
+                                 S + args.new_tokens,
+                                 prefill_chunk=PREFILL_CHUNK,
+                                 last_logits_only=True)
+    first = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    print(f"overlap: the serve's {B} x {S} prompts prefilled (with the "
+          f"warmup) in {time.perf_counter() - t0:.2f} s; decode rounds at "
+          f"capacity factor {cfg.moe.capacity_factor:g} (no MoE drops)",
+          flush=True)
+    del logits, tokens, positions
+    streams = TBO.make_streams(dev)
+
+    def pinned(t):
+        return None if t is None else torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+    def copy(c):
+        return c._replace(
+            lens=c.lens.clone(), host_latent=pinned(c.host_latent),
+            ikeys=[k.clone() for k in c.ikeys],
+            pools=[p._replace(**{f: getattr(p, f).clone()
+                                 for f in p._fields}) for p in c.pools],
+            block_tables=c.block_tables.clone(),
+            host_scales=pinned(c.host_scales))
+
+    def run(mode, teacher):
+        ov, plan, tbo = OVERLAP_MODES[mode]
+        mcfg = dataclasses.replace(cfg, ess=dataclasses.replace(
+            cfg.ess, overlap=ov))
+        c = copy(snap)
+        tok = first.clone()
+        lg = torch.empty((B, 1, cfg.vocab_size), device=dev)
+        st = torch.empty((3, B), dtype=torch.int64, device=dev)
+
+        def step():
+            pos = c.lens[:, None].clone()
+            if tbo:
+                out, _, stats = TBO.tbo_step(E.ess_decode, params, mcfg,
+                                             tok[:, None], pos, c,
+                                             streams=streams)
+            else:
+                o = E.ess_decode(params, mcfg, tok[:, None], pos, c,
+                                 layerwise_policy=plan,
+                                 fetch_stream=streams.fetch_a)
+                c.lens.copy_(o.caches.lens)
+                out, stats = o.logits, o.stats
+            lg.copy_(out)
+            st.copy_(torch.stack([stats["hits"], stats["misses"],
+                                  stats["overflow"]]))
+
+        recs, toks, graph = [], [], None
+        m = dict(replay_ms=[], wall_ms=0.0, overlap_us=0.0, gather_us=0.0,
+                 busy_us=0.0)
+        for r in range(OVERLAP_ROUNDS):
+            if r:
+                tok.copy_(teacher[r] if teacher else lg[:, 0].argmax(-1))
+            toks.append(tok.clone())
+            if r < 2:
+                step()
+            elif r < OVERLAP_ROUNDS - 3:
+                if graph is None:
+                    graph = capture_graph(torch, step)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                graph.replay()
+                torch.cuda.synchronize()
+                m["replay_ms"].append(1e3 * (time.perf_counter() - t1))
+            else:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    m["wall_ms"] += 1e3 * (time.perf_counter() - t1)
+                for k, v in overlap_profile(prof).items():
+                    m[k] += v
+            recs.append((lg.clone(), st.clone(),
+                         [p.ids.clone() for p in c.pools]))
+        torch.cuda.synchronize()
+        del graph, c
+        return recs, toks, m
+
+    results = {}
+    for mode in OVERLAP_MODES:
+        teacher = None if mode == "da" else results["da"][1]
+        results[mode] = run(mode, teacher)
+        torch.cuda.empty_cache()
+    da_recs = results["da"][0]
+    for mode, (recs, _, m) in results.items():
+        worst, counts = 0.0, "equal to DA's in every round"
+        for r, ((lg, st, ids), (lg0, st0, ids0)) in enumerate(
+                zip(recs, da_recs)):
+            d = (lg - lg0).abs()
+            worst = max(worst, float(d.max()))
+            require(bool((d <= 2e-2 + 2e-2 * lg0.abs()).all()),
+                    f"overlap {mode}: round {r} logits off DA's by "
+                    f"{float(d.max()):.4g}")
+            if counts.startswith("equal") and not torch.equal(st, st0):
+                layer = next((i for i, (a, b) in enumerate(zip(ids, ids0))
+                              if not torch.equal(a, b)), None)
+                counts = (f"differ from DA's first in round {r} (hits, "
+                          f"misses, overflow {st.tolist()} vs "
+                          f"{st0.tolist()}); first pool that differs: "
+                          f"layer {layer}")
+        k = OVERLAP_ROUNDS - 3
+        print(f"overlap {mode}: {OVERLAP_ROUNDS} teacher-forced rounds, "
+              f"logits max |diff| vs DA {worst:.4g}; hits/misses/overflow "
+              f"{counts}; graph round "
+              f"{sum(m['replay_ms']) / len(m['replay_ms']):.3f} ms "
+              f"(host clock, {len(m['replay_ms'])} replays), profiled "
+              f"{m['wall_ms'] / 3:.3f} ms/round: a row gather beside other "
+              f"device work {m['overlap_us'] / 3:.1f} us/round of "
+              f"{m['gather_us'] / 3:.1f} us/round gathering, some device "
+              f"work running {100 * m['busy_us'] / 1e3 / m['wall_ms']:.1f} "
+              f"% of wall  [{card}]", flush=True)
+        require(m["overlap_us"] > 0,
+                f"overlap {mode}: no row gather ran beside other device "
+                f"work in {k} profiled replays")
+    del snap, results
+    torch.cuda.empty_cache()
+
+
 # session C: MTP speculative rounds (depth 1, the published module) with
 # two sampled requests among four (rid: prompt, knobs); session D: zero
 # weights (every draft accepted), two greedy requests (prompt, budget)
@@ -1122,11 +1340,16 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
 
     def session_summary(tag, sess, rep, m):
         dm = m["decode_ms"]
+        k = len(PROFILED_ROUNDS)
         busy = (f"device busy {100 * m['busy_ms'] / m['profiled_ms']:.1f} % "
-                f"of {len(PROFILED_ROUNDS)} profiled rounds "
-                f"({m['profiled_ms'] / len(PROFILED_ROUNDS):.2f} ms/round "
-                f"under the profiler)") if m["profiled_ms"] else \
-            "not profiled (fewer rounds)"
+                f"of {k} profiled rounds "
+                f"({m['profiled_ms'] / k:.2f} ms/round under the profiler; "
+                f"some device work running "
+                f"{100 * m['union_busy_us'] / 1e3 / m['profiled_ms']:.1f} % "
+                f"of wall; a row gather beside other device work "
+                f"{m['overlap_us'] / k:.1f} us/round of "
+                f"{m['gather_us'] / k:.1f} us/round gathering)") \
+            if m["profiled_ms"] else "not profiled (fewer rounds)"
         spec = (f"; {rep.spec_rounds} speculative rounds, accept rate "
                 f"{rep.accept_rate:.4f} ({rep.accepted_tokens}/"
                 f"{rep.drafted_tokens} drafts)") if rep.spec_rounds else ""
@@ -1149,11 +1372,15 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
               f"miss rows/round; {m['fetches']} host fetches  [{card}]",
               flush=True)
 
-    def check_session(tag, sess, rep, n, reqs, warm, tier, q_verify=None):
+    def check_session(tag, sess, rep, n, reqs, warm, tier, q_verify=None,
+                      parts=1, halves=1):
         """Every request ends once with its whole budget; the launches per
         route and shape, with the graph's replays counted, equal what the
         run's rounds and chunks give (an MTP session's rounds are all
-        verify rounds, at Q = ``q_verify``)."""
+        verify rounds, at Q = ``q_verify``).  A round's layer runs its
+        indexer, Attn0, Attn1 and miss fetch once per batch part (TBO
+        halves, DBA halves within them: ``parts``) and its tier write once
+        per TBO half (``halves``)."""
         n_req = len(reqs)
         terminal = [e.rid for e in sess.token_events if e.is_terminal]
         require(sorted(terminal) == list(range(n_req))
@@ -1167,7 +1394,7 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         require(ch == sum(-(-r.prompt_len // PREFILL_CHUNK) for r in reqs),
                 f"session {tag}: {ch} prefill chunks")
         require_tc_only(n, f"session {tag}")
-        dec, ver = (0, L * R) if q_verify else (L * R, 0)
+        dec, ver = (0, parts * L * R) if q_verify else (parts * L * R, 0)
         want = {"indexer_scores[decode]": dec,
                 "indexer_scores[prefill]": L * (ch + (n_req if warm else 0)),
                 "sparse_mla_partial[attn0]": dec,
@@ -1183,8 +1410,9 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
             else "gather_rows"
         planes = 1 if gname == "gather_rows" else 2
         want = {f"{gname}_staged": L * ch,
-                f"{gname}_direct": L * (R + (n_req * W if warm else 0)),
-                other: 0, "scatter_rows": planes * (ch + L * R)}
+                f"{gname}_direct": L * (parts * R + (n_req * W if warm
+                                                     else 0)),
+                other: 0, "scatter_rows": planes * (ch + halves * L * R)}
         require(all(n[k] == v for k, v in want.items())
                 and n[gname] == n[f"{gname}_staged"] + n[f"{gname}_direct"]
                 and n["sparse_mla_merge"] > 0,
@@ -1192,12 +1420,13 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         return got
 
     def graph_and_eager(tag, cfg, make_reqs, warm, tier, mtp_depth=0,
-                        top_kernels=0):
+                        top_kernels=0, tbo=False, parts=1):
         """The session run twice: its rounds replayed as graphs, then
         eagerly.  The streams must be bit-identical and the launch counts
-        (the graph's with its replays added) equal.  Returns the eager
-        run's counts and shapes, counted where the wrappers launch, and the
-        graph run's streams."""
+        (the graph's with its replays added) equal; in the graph run's
+        profiled rounds a row gather must run beside other device work.
+        Returns the eager run's counts and shapes, counted where the
+        wrappers launch, and the graph run's streams."""
         runs = {}
         qv = mtp_depth + 1 if mtp_depth else None
         for compiled in (True, False):
@@ -1205,8 +1434,14 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
             reqs = make_reqs()
             sess, rep, n, m = run_session(torch, dev, params, cfg, counted,
                                           compiled=compiled, do_warmup=warm,
-                                          reqs=reqs, mtp_depth=mtp_depth)
+                                          reqs=reqs, mtp_depth=mtp_depth,
+                                          tbo=tbo)
             session_summary(name, sess, rep, m)
+            require(sess.tbo == tbo, f"session {name}: tbo {sess.tbo}")
+            if compiled and m["profiled_ms"]:
+                require(m["overlap_us"] > 0,
+                        f"session {name}: no row gather ran beside other "
+                        f"device work in the profiled graph rounds")
             if top_kernels and compiled:
                 k = len(PROFILED_ROUNDS)
                 top = sorted(m["kernels"].items(), key=lambda kv: -kv[1])
@@ -1214,7 +1449,8 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                       f"kernel, top {top_kernels}: " + "; ".join(
                           f"{n_[:60]} {t / k:.3f}"
                           for n_, t in top[:top_kernels]), flush=True)
-            got = check_session(name, sess, rep, n, reqs, warm, tier, qv)
+            got = check_session(name, sess, rep, n, reqs, warm, tier, qv,
+                                parts, 2 if tbo else 1)
             if compiled:
                 pr = sess.programs
                 require(pr.replays + pr.captures == rep.rounds,
@@ -1257,6 +1493,32 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         n["gather_rows_dequant_direct"]
     records["gather_rows_dequant[prefill]"]["launches"] = \
         n["gather_rows_dequant_staged"]
+
+    # 9b. the overlap strategies from one prefilled state (DA, DBA, the
+    #     layer-wise plan, TBO), each round a graph with its side streams
+    t0 = time.perf_counter()
+    _, n = counted(lambda: overlap_phase(torch, dev, serve, params, args,
+                                         card))
+    print(f"overlap: {time.perf_counter() - t0:.1f} s; launches (eager "
+          f"rounds and captures; replays not counted) "
+          + ", ".join(f"{k} {v}" for k, v in n.items()), flush=True)
+    for name in ("gather_rows", "scatter_rows", "indexer_scores",
+                 "sparse_mla_partial", "sparse_mla_merge"):
+        require(n[name] > 0, f"{name} was not launched by the overlap "
+                f"phase")
+
+    # 9c. session E: session A's requests with DBA layers and TBO (halves
+    #     of 2 slots, DBA halves of 1 within them: 4 parts per layer)
+    ecfg = dataclasses.replace(scfg, ess=dataclasses.replace(
+        scfg.ess, overlap="dba"))
+    n, got, _ = graph_and_eager(
+        "E dba+tbo", ecfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False,
+        "bf16", tbo=True, parts=4)
+    for name, v in got.items():
+        records[name]["launches_session_e"] = v
+    for name in ("scatter_rows", "sparse_mla_merge"):
+        records[name]["launches_session_e"] = n[name]
+    records["gather_rows"]["launches_session_e"] = n["gather_rows_direct"]
 
     # 10. session C: the published MTP module (its own generator) beside
     #     the same 4 layers, depth-1 speculative rounds, two sampled
@@ -1402,6 +1664,7 @@ def leaves(tree):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         return fail("run from a checkout: src/repro_torch is missing")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1449,6 +1712,8 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}"
               + (f", device (graph) {r['device_ms']:.4f} ms"
                  if "device_ms" in r else "")
+              + (f", library device (graph) {r['library_device_ms']:.4f} ms"
+                 if "library_device_ms" in r else "")
               + (f", general route {r['general_ms']:.4f} ms"
                  if "general_ms" in r else "")
               + (f" (device {r['general_device_ms']:.4f} ms)"
@@ -1656,6 +1921,8 @@ def main() -> int:
     # 8-9. the serve sessions
     session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+          f"the result", flush=True)
     print(card)
     require(all("launches" in r for r in records.values()),
             "kernels without a main-path launch count: "
@@ -1663,8 +1930,9 @@ def main() -> int:
                         if "launches" not in r))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "general_ms", "general_device_ms", "copy_ms",
-            "direct_ms", "distinct_rows", "top2048_overlap")
+            "device_ms", "library_device_ms", "general_ms",
+            "general_device_ms", "copy_ms", "direct_ms", "distinct_rows",
+            "top2048_overlap", "launches_session_e")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

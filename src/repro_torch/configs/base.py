@@ -53,7 +53,7 @@ class ESSOptions:
     sparse_memory_ratio: float = 0.3   # pool entries / context entries
     max_miss_ratio: float = 0.25       # miss buffer size / top-k
     warmup_windows: int = 32
-    overlap: str = "da"                # none | da | layerwise
+    overlap: str = "da"                # none | da | dba | layerwise
     offload_kv: bool = True            # host tier for the full cache
     pool_min_entries: int = 6400       # paper: ">= 6.4K" recommendation
     paged_host: bool = True            # global page pool + block tables

@@ -178,6 +178,13 @@ def admit(pool: PoolState, miss_ids: torch.Tensor, rows: torch.Tensor, *,
     return pool
 
 
+def batch_rows(pool: PoolState, rows: slice) -> PoolState:
+    """Views of the pool's batch ``rows`` (a split batch's half), sharing
+    the pool's clock; in-place updates through them update the pool."""
+    return pool._replace(**{f: getattr(pool, f)[rows]
+                            for f in pool._fields if f != "step"})
+
+
 def tick(pool: PoolState) -> PoolState:
     pool.step.add_(1)
     return pool

@@ -82,15 +82,17 @@ def _gather_flat_ids(host_cache: torch.Tensor, ids: torch.Tensor,
 
 def host_gather_rows(host_cache: torch.Tensor, ids: torch.Tensor, *,
                      layer: int = 0, batch_offset: int = 0,
-                     block_table: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     block_table: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """FlashTrans fetch: ids [B,M] (-1 padding) -> rows [B,M,D] on
-    ``ids.device``; unmapped or padding rows are zero.
+    ``ids.device`` (into ``out`` if given); unmapped or padding rows are
+    zero.
 
     dense: host_cache [B,S,D] / [L,B,S,D]; paged: [NP,R,D] / [L,NP,R,D]
     with ``block_table``."""
     flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
-    return gops.gather_rows(_layer_flat(host_cache, layer), flat_ids)
+    return gops.gather_rows(_layer_flat(host_cache, layer), flat_ids,
+                            out=out)
 
 
 def _scatter_targets(host_cache, ids, block_table, batch_offset, drop_oob):
@@ -145,27 +147,39 @@ def host_scatter_rows_stacked(host_cache: torch.Tensor, ids: torch.Tensor,
     return host_cache
 
 
+def tier_rows_dtype(host_cache: torch.Tensor,
+                    host_scales: torch.Tensor | None) -> torch.dtype:
+    """The dtype of the rows :func:`gather_tier_rows` returns without an
+    ``out_dtype``: the raw tier's own, bf16 from a quantized tier."""
+    return host_cache.dtype if host_scales is None else torch.bfloat16
+
+
 def gather_tier_rows(host_cache: torch.Tensor,
                      host_scales: torch.Tensor | None, ids: torch.Tensor, *,
                      layer: int = 0, batch_offset: int = 0,
                      block_table: torch.Tensor | None = None,
-                     out_dtype=None) -> torch.Tensor:
+                     out_dtype=None, out: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """Tier fetch, ids [B,M] -> rows [B,M,D] on ``ids.device``.
 
     ``host_scales is None`` is the raw tier (:func:`host_gather_rows`).  A
     quantized tier takes one fused gather-dequant launch over payload and
     scales and returns ``out_dtype`` rows, **bf16** when ``out_dtype`` is
     None (the reference's decode miss fetch passes none, whatever the
-    param dtype).  Padding and unmapped rows are exact zeros either way."""
+    param dtype).  Padding and unmapped rows are exact zeros either way.
+    ``out`` (``[B,M,D]`` of :func:`tier_rows_dtype`, without
+    ``out_dtype``) receives the rows: the caller's memory, e.g. allocated
+    on the stream that consumes them while the fetch runs on another."""
     if host_scales is None:
         rows = host_gather_rows(host_cache, ids, layer=layer,
                                 batch_offset=batch_offset,
-                                block_table=block_table)
+                                block_table=block_table, out=out)
         return rows if out_dtype is None else rows.to(out_dtype)
     flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
     return gops.gather_rows_dequant(
         _layer_flat(host_cache, layer), _layer_flat(host_scales, layer),
-        flat_ids, torch.bfloat16 if out_dtype is None else out_dtype)
+        flat_ids, torch.bfloat16 if out_dtype is None else out_dtype,
+        out=out)
 
 
 def scatter_tier_rows(host_cache: torch.Tensor,

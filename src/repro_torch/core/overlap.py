@@ -1,10 +1,27 @@
-"""ESS decode attention, modes ``none`` and ``da`` (paper section 3.3;
-counterpart of ``repro.core.overlap``; ``dba`` is not ported yet).
+"""ESS decode attention with the DA / DBA overlap strategies (paper
+section 3.3; counterpart of ``repro.core.overlap``).
 
-* ``none``: one attention over the union of pool hits and fetched misses.
-* ``da`` (Dual-Attention): the miss fetch is issued first; **Attn0** runs
-  over pool-resident rows and **Attn1** over the fetched rows; the two
-  unnormalized partials merge exactly.
+* ``none``: one attention over the union of pool hits and fetched misses;
+  everything waits for the fetch, on one stream.
+* ``da`` (Dual-Attention): the miss fetch is forked onto a side stream;
+  **Attn0** runs over pool-resident rows on the current stream meanwhile,
+  and **Attn1** over the fetched rows after the join; the two unnormalized
+  partials merge exactly.
+* ``dba`` (DualBatch-Attention): the batch splits in two; half-1's fetch
+  runs on the side stream while half-2's indexer, top-k and pool lookup
+  run on the current stream, then half-2's fetch, then both halves finish
+  as DA does.  ``B // 2 == 0`` is DA.
+
+The reference states these as program structures whose independence lets
+XLA's latency-hiding scheduler hide the host-to-device fetch.  On the card
+the counterpart is a second CUDA stream with a fork and a join
+(:class:`Fork`); a fork and a join recorded inside a graph capture become
+parallel branches of the CUDA graph, so the overlap survives replay.  The
+fetch stream is the caller's (``fetch_stream``; the serve round's
+``StepPrograms`` makes it once, at high priority, so that the gather's
+CTAs get SMs beside Attn0's); without one, or on CPU tensors, everything
+runs on the current stream in the same order and computes the same
+numbers.
 
 Both attends run the sparse-MLA partial kernel, the fetch runs the UVA
 row-gather kernel (its fused dequant variant for a quantized tier, which
@@ -25,6 +42,57 @@ from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
 from repro_torch.kernels.sparse_mla import ops as sk
 from repro_torch.models import mla as M
+
+
+def side_stream(device) -> torch.cuda.Stream | None:
+    """A new high-priority CUDA stream on ``device`` for forked work (the
+    miss fetch, a TBO half); None on the CPU.  Make it outside any graph
+    capture."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.Stream(device, priority=-1)
+
+
+class Fork:
+    """Work forked onto ``stream`` and joined back later.
+
+    ``with Fork(stream, *crossing) as f:`` enqueues the block on
+    ``stream`` after everything the current (home) stream has enqueued so
+    far; ``f.join()`` makes the home stream wait for the block's work,
+    and nothing later on ``stream``.  ``crossing`` are the tensors made on
+    the home stream that the block reads or writes (its output included,
+    allocated on the home stream before the fork): they are kept alive
+    until the join, so the caching allocator cannot hand their memory to
+    the home stream while the side stream still uses it.  With ``stream``
+    None or CPU tensors the block runs on the home stream and ``join`` does
+    nothing.  Every fork must be joined before a graph capture ends."""
+
+    def __init__(self, stream: torch.cuda.Stream | None,
+                 *crossing: torch.Tensor):
+        self.active = stream is not None and crossing[0].is_cuda
+        self._stream = stream
+        self._keep = crossing
+        self._done = None
+
+    def __enter__(self) -> "Fork":
+        if self.active:
+            self._home = torch.cuda.current_stream(self._stream.device)
+            self._stream.wait_stream(self._home)
+            self._ctx = torch.cuda.stream(self._stream)
+            self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.active:
+            self._done = self._stream.record_event()
+            self._ctx.__exit__(*exc)
+
+    def join(self) -> None:
+        if self._done is not None:
+            self._home.wait_event(self._done)
+            self._done = None
+        self._keep = ()
 
 
 class ESSLayerState(NamedTuple):
@@ -59,25 +127,56 @@ def ess_sparse_attention(mla_p: dict, idx_p: dict, cfg: ArchConfig,
                          x_norm: torch.Tensor, positions: torch.Tensor,
                          state: ESSLayerState, idx_keys: torch.Tensor,
                          lens: torch.Tensor, *, overlap: str = "da",
-                         slot_mask: torch.Tensor | None = None
+                         slot_mask: torch.Tensor | None = None,
+                         fetch_stream: torch.cuda.Stream | None = None
                          ) -> tuple[torch.Tensor, ESSLayerState, ESSStats]:
     """One layer of ESS decode attention.
 
     x_norm [B,Q,d], positions [B,Q], idx_keys [B,S,Di] already holding the
     new tokens' keys, lens [B] (or per-query [B,Q]) = cache length after
-    the append; ``state.host_latent`` already holds the new latent rows.
-    ``slot_mask`` [B] gates frozen rows' pool mutations."""
+    the append; ``state.host_latent`` already holds the new latent rows
+    (written on the current stream, so a fetch forked after it sees them).
+    ``slot_mask`` [B] gates frozen rows' pool mutations.  ``fetch_stream``
+    carries the miss fetch of ``da`` and ``dba`` (see the module
+    docstring)."""
+    if overlap == "dba":
+        return _dba(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys,
+                    lens, slot_mask, fetch_stream)
     if overlap not in ("none", "da"):
-        raise NotImplementedError(f"overlap={overlap!r} is not ported yet")
+        raise ValueError(f"overlap={overlap!r}: none | da | dba")
+    return _da_or_none(mla_p, idx_p, cfg, x_norm, positions, state,
+                       idx_keys, lens, overlap, slot_mask, fetch_stream)
+
+
+def _fork_fetch(state: ESSLayerState, miss_ids: torch.Tensor,
+                stream: torch.cuda.Stream | None
+                ) -> tuple[torch.Tensor, Fork]:
+    """Issue the miss fetch of ``miss_ids [B,M]`` on ``stream`` into rows
+    allocated on the current stream; returns ``(rows, fork)``: join the
+    fork before reading the rows."""
+    rows = torch.empty((*miss_ids.shape, state.host_latent.shape[-1]),
+                       dtype=offload.tier_rows_dtype(state.host_latent,
+                                                     state.host_scales),
+                       device=miss_ids.device)
+    with Fork(stream, miss_ids, rows) as fork:
+        offload.gather_tier_rows(
+            state.host_latent, state.host_scales, miss_ids,
+            layer=state.layer, batch_offset=state.batch_offset,
+            block_table=state.block_table, out=rows)
+    return rows, fork
+
+
+def _da_or_none(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys, lens,
+                overlap, slot_mask, fetch_stream):
     pool, lk, stats, ids, req_valid, K, M_env = _topk_and_lookup(
         idx_p, cfg, x_norm, state, idx_keys, lens, slot_mask)
-    # issue the fetch first (DA: Attn0 does not depend on it)
-    fetched = offload.gather_tier_rows(
-        state.host_latent, state.host_scales, lk.miss_ids, layer=state.layer,
-        batch_offset=state.batch_offset, block_table=state.block_table)
+    # issue the fetch first; DA forks it (Attn0 does not depend on it),
+    # the union attention of ``none`` waits for it
+    fetched, fork = _fork_fetch(state, lk.miss_ids,
+                                fetch_stream if overlap == "da" else None)
     out, pool = _finish_attention(mla_p, cfg, x_norm, positions, pool, lk,
-                                  ids, req_valid, fetched, K, M_env, overlap,
-                                  slot_mask)
+                                  ids, req_valid, fetched, fork, K, M_env,
+                                  overlap, slot_mask)
     pool = LP.tick(pool)
     return out, state._replace(pool=pool), ESSStats(*stats)
 
@@ -115,14 +214,17 @@ def _topk_and_lookup(idx_p, cfg, x_norm, state, idx_keys, lens, slot_mask):
 
 
 def _finish_attention(mla_p, cfg, x_norm, positions, pool, lk, ids,
-                      req_valid, fetched, K, M_env, overlap, slot_mask):
+                      req_valid, fetched, fork, K, M_env, overlap, slot_mask):
     """Attn0 on pool-resident rows, Attn1 on ``fetched``, exact merge (or
-    one union attention for ``none``); then LRU admission.  Returns
+    one union attention for ``none``); then LRU admission.  ``fork`` is
+    the fetch's: joined before anything reads ``fetched`` (Attn1, the
+    merge, the admission that writes the rows into the pool).  Returns
     ``(out, pool)``; the caller ticks the clock."""
     B, Q, _ = x_norm.shape
     q_comb = M.absorbed_query(mla_p, cfg, x_norm, positions)     # [B,Q,H,D]
     D = fetched.shape[-1]
     if overlap == "none":
+        fork.join()
         rows_hit, _ = LP.gather_resident(pool, lk.slot, lk.hit)
         fr = fetched.gather(1, lk.miss_rank.clamp(0, M_env - 1)[..., None]
                             .expand(B, Q * K, D))
@@ -138,15 +240,60 @@ def _finish_attention(mla_p, cfg, x_norm, positions, pool, lk, ids,
         p0 = _attend_rows(q_comb, rows0.view(B, Q, K, D),
                           lk.hit.view(B, Q, K) & req_valid, cfg)
         mvalid = lk.miss_ids >= 0
-        if Q > 1:
-            fvalid = _fetch_valid(lk, B, Q, K, M_env) & mvalid[:, None]
-            p1 = _attend_rows(q_comb, fetched[:, None].expand(B, Q, -1, D),
-                              fvalid, cfg)
-        else:
-            p1 = _attend_rows(q_comb, fetched[:, None], mvalid[:, None], cfg)
+        fvalid = _fetch_valid(lk, B, Q, K, M_env) & mvalid[:, None] \
+            if Q > 1 else mvalid[:, None]
+        fork.join()
+        p1 = _attend_rows(q_comb, fetched[:, None].expand(B, Q, -1, D)
+                          if Q > 1 else fetched[:, None], fvalid, cfg)
         part = M.merge_partials(p0, p1)
 
     out_lat = M.finalize_partial(part, x_norm.dtype)
     out = M.output_proj(mla_p, cfg, out_lat)
     pool = LP.admit(pool, lk.miss_ids, fetched, slot_mask=slot_mask)
     return out, pool
+
+
+def _dba(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys, lens,
+         slot_mask, fetch_stream):
+    """DualBatch-Attention: the batch split at ``h = B // 2``; half-1's
+    fetch runs on the fetch stream while half-2's indexer, top-k and
+    lookup run on the current stream; then half-2's fetch; then each half
+    finishes as DA (Attn0 before its join).  The halves' pools are views
+    of the pool's rows, updated in place, sharing its clock, which ticks
+    once after both halves, as in the reference."""
+    B = x_norm.shape[0]
+    h = B // 2
+    if h == 0:
+        return _da_or_none(mla_p, idx_p, cfg, x_norm, positions, state,
+                           idx_keys, lens, "da", slot_mask, fetch_stream)
+    halves = []
+    for sl, off in ((slice(0, h), 0), (slice(h, B), h)):
+        # the tier (and its block table) stays whole; the half indexes it
+        # by batch_offset
+        halves.append((sl, state._replace(
+            pool=LP.batch_rows(state.pool, sl),
+            batch_offset=state.batch_offset + off),
+            None if slot_mask is None else slot_mask[sl]))
+
+    looked, fetches = [], []
+    for sl, st, sm in halves:
+        # half-2's indexer and lookup go on the current stream while
+        # half-1's fetch runs on the fetch stream
+        pool, lk, stats, ids, rv, K, M_env = _topk_and_lookup(
+            idx_p, cfg, x_norm[sl], st, idx_keys[sl], lens[sl], sm)
+        looked.append((pool, lk, stats, ids, rv))
+        fetches.append(_fork_fetch(st, lk.miss_ids, fetch_stream))
+
+    outs, hit, miss, ovf = [], [], [], []
+    for (sl, st, sm), (pool, lk, stats, ids, rv), (rows, fork) in zip(
+            halves, looked, fetches):
+        out, _ = _finish_attention(mla_p, cfg, x_norm[sl], positions[sl],
+                                   pool, lk, ids, rv, rows, fork, K, M_env,
+                                   "da", sm)
+        outs.append(out)
+        hit.append(stats.hits)
+        miss.append(stats.misses)
+        ovf.append(stats.overflow)
+    pool = LP.tick(state.pool)
+    return torch.cat(outs, 0), state._replace(pool=pool), ESSStats(
+        torch.cat(hit), torch.cat(miss), torch.cat(ovf))

@@ -119,6 +119,28 @@ def _is_float(dt: torch.dtype) -> bool:
     return dt.is_floating_point and dt.itemsize >= 2
 
 
+def _out_rows(out: torch.Tensor | None, ids: torch.Tensor, D: int, dtype
+              ) -> torch.Tensor:
+    """The ``[m, D]`` rows a gather writes: a new tensor, or the caller's
+    ``out`` (``[..., D]`` of ``ids``' shape, contiguous, on ``ids``'
+    device, of the result's dtype), viewed flat."""
+    if out is None:
+        return torch.empty((ids.numel(), D), dtype=dtype, device=ids.device)
+    if (out.shape != (*ids.shape, D) or out.dtype != dtype
+            or out.device != ids.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
+                         f"{(*ids.shape, D)} on {ids.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    return out.view(-1, D)
+
+
+def _into(out: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor
+          ) -> torch.Tensor:
+    """The plain versions' ``out=``: the rows copied into ``out``."""
+    return _out_rows(out, ids, rows.shape[-1], rows.dtype).copy_(
+        rows.reshape(-1, rows.shape[-1])).view(rows.shape)
+
+
 def _flat_ids(cache: torch.Tensor, ids: torch.Tensor):
     """Batched [B,S,D] cache + [B,M] ids -> flat [B*S,D] view + flat ids."""
     if cache.dim() == 2:
@@ -130,46 +152,49 @@ def _flat_ids(cache: torch.Tensor, ids: torch.Tensor):
 
 
 def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
-                fetched: torch.Tensor | None = None) -> torch.Tensor:
+                fetched: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """cache [S,D] (or [B,S,D]), ids [...] (or [B,M]) -> rows [..., D] on
     ``ids.device``: ``cache[clip(ids)]``, zero rows where ``ids < 0``.
 
     ``fetched`` (an int32 tensor beside ``ids``, optional) gains the number
     of cache rows the call read: each live id's on the direct route, each
-    distinct row once on the staged route (:func:`staged_route`)."""
+    distinct row once on the staged route (:func:`staged_route`).  ``out``
+    (optional, ``[..., D]`` of ``ids``' shape) receives the rows: memory
+    the caller allocated, on the stream that consumes them."""
     cache, ids = _flat_ids(cache, ids)
     m, s = ids.numel(), cache.shape[0]
     if ids.device.type == "cpu":
         if fetched is not None:
             fetched += ref.rows_read(ids, s, staged_route(m, s))
-        return ref.gather_rows_ref(cache, ids)
+        rows = ref.gather_rows_ref(cache, ids)
+        return rows if out is None else _into(out, rows, ids)
     if ids.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {ids.device}")
     row_bytes = _check_rows(cache, "gather_rows cache")
     idf = ids.reshape(-1).to(torch.int64).contiguous()
-    out = torch.empty((m, cache.shape[1]), dtype=cache.dtype,
-                      device=ids.device)
+    rows = _out_rows(out, ids, cache.shape[1], cache.dtype)
     src = device_pointer(cache)
     cnt = _count_ptr(fetched, ids.device)
     lib = _lib()
-    stream = _build.stream_ptr(out)
+    stream = _build.stream_ptr(rows)
     if staged_route(m, s):
         staging = torch.empty((s, cache.shape[1]), dtype=cache.dtype,
                               device=ids.device)
         flags = torch.empty(s, dtype=torch.int32, device=ids.device)
         rc = lib.ess_gather_rows_staged(
-            _P(src), _P(idf.data_ptr()), _P(out.data_ptr()),
+            _P(src), _P(idf.data_ptr()), _P(rows.data_ptr()),
             _P(staging.data_ptr()), _P(flags.data_ptr()), m, s, row_bytes,
             cnt, stream)
         gather_rows.launches_staged += 1
     else:
         rc = lib.ess_gather_rows(_P(src), _P(idf.data_ptr()),
-                                 _P(out.data_ptr()), m, s, row_bytes, cnt,
+                                 _P(rows.data_ptr()), m, s, row_bytes, cnt,
                                  stream)
         gather_rows.launches_direct += 1
     _build.check(lib, rc, "gather_rows")
     gather_rows.launches += 1
-    return out.reshape(*ids.shape, cache.shape[1])
+    return rows.view(*ids.shape, cache.shape[1])
 
 
 gather_rows.launches = 0
@@ -226,46 +251,48 @@ def _check_quant(cache: torch.Tensor, scales: torch.Tensor, out_dtype,
 
 def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
                         ids: torch.Tensor, out_dtype=torch.bfloat16, *,
-                        fetched: torch.Tensor | None = None) -> torch.Tensor:
+                        fetched: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Fused quantized-tier gather: cache [S,D] int8/fp8, scales [S,1] f16,
     ids [...] -> rows [..., D] ``out_dtype`` on ``ids.device``:
     ``float(q) * float(s)`` of row ``clip(ids)``, zero rows where
-    ``ids < 0``.  Routes and ``fetched`` as :func:`gather_rows`; the
-    staged route widens each distinct row once."""
+    ``ids < 0``.  Routes, ``fetched`` and ``out`` as :func:`gather_rows`;
+    the staged route widens each distinct row once."""
     _check_quant(cache, scales, out_dtype, "gather_rows_dequant")
     m, s = ids.numel(), cache.shape[0]
     if ids.device.type == "cpu":
         if fetched is not None:
             fetched += ref.rows_read(ids, s, staged_route(m, s))
-        return ref.gather_rows_dequant_ref(cache, scales, ids, out_dtype)
+        rows = ref.gather_rows_dequant_ref(cache, scales, ids, out_dtype)
+        return rows if out is None else _into(out, rows, ids)
     if ids.device.type != "cuda":
         raise ValueError(f"gather_rows_dequant: unsupported device "
                          f"{ids.device}")
     _check_rows(cache, "gather_rows_dequant cache")
     idf = ids.reshape(-1).to(torch.int64).contiguous()
     D = cache.shape[1]
-    out = torch.empty((m, D), dtype=out_dtype, device=ids.device)
+    rows = _out_rows(out, ids, D, out_dtype)
     src, sc = device_pointer(cache), device_pointer(scales)
     cnt = _count_ptr(fetched, ids.device)
     lib = _lib()
-    stream = _build.stream_ptr(out)
+    stream = _build.stream_ptr(rows)
     kinds = (_QKIND[cache.dtype], _OKIND[out_dtype])
     if staged_route(m, s):
         staging = torch.empty((s, D), dtype=out_dtype, device=ids.device)
         flags = torch.empty(s, dtype=torch.int32, device=ids.device)
         rc = lib.ess_gather_rows_dequant_staged(
-            _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()),
+            _P(src), _P(sc), _P(idf.data_ptr()), _P(rows.data_ptr()),
             _P(staging.data_ptr()), _P(flags.data_ptr()), m, s, D, *kinds,
             cnt, stream)
         gather_rows_dequant.launches_staged += 1
     else:
         rc = lib.ess_gather_rows_dequant(
-            _P(src), _P(sc), _P(idf.data_ptr()), _P(out.data_ptr()), m, s,
+            _P(src), _P(sc), _P(idf.data_ptr()), _P(rows.data_ptr()), m, s,
             D, *kinds, cnt, stream)
         gather_rows_dequant.launches_direct += 1
     _build.check(lib, rc, "gather_rows_dequant")
     gather_rows_dequant.launches += 1
-    return out.reshape(*ids.shape, D)
+    return rows.view(*ids.shape, D)
 
 
 gather_rows_dequant.launches = 0

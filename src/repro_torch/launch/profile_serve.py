@@ -73,6 +73,39 @@ def _summary(prof, wall_s: float, top: int, windows: int = 1) -> list[str]:
     return out
 
 
+def overlap_profile(prof) -> dict:
+    """The device timeline of a profiled window, swept over every device
+    activity's interval (kernels and copies): ``busy_us``, the time in
+    which at least one ran; ``gather_us``, the time in which a tier row
+    gather ran (either route's passes); and ``overlap_us``, the
+    time in which a gather ran while another device activity ran too.  One
+    stream runs one kernel at a time, so that time is a gather running
+    beside work of another stream (the DA / DBA fetch stream, a TBO
+    half)."""
+    edges = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        if b > a:
+            g = any(k in ev.name for k in _GATHER_KERNELS)
+            edges += [(a, 1, g), (b, -1, g)]
+    edges.sort(key=lambda e: (e[0], e[1]))      # ends before starts
+    n = ng = 0
+    last = None
+    busy = gather = overlap = 0.0
+    for t, d, g in edges:
+        if last is not None and t > last:
+            span = t - last
+            busy += span if n else 0.0
+            gather += span if ng else 0.0
+            overlap += span if ng and n >= 2 else 0.0
+        n += d
+        ng += d if g else 0
+        last = t
+    return {"busy_us": busy, "gather_us": gather, "overlap_us": overlap}
+
+
 def _graph_ms(fn, iters: int = 20) -> float:
     """Mean device time of one replay of ``fn`` captured as a CUDA graph
     (warmed on a side stream first)."""
@@ -173,8 +206,12 @@ def main(argv=None) -> int:
             tok, caches = o.logits[:, 0].argmax(-1), o.caches
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ov = overlap_profile(prof)
     print(f"decode: {args.rounds} rounds after the first "
-          f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler):")
+          f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler; "
+          f"gathers beside other device work "
+          f"{ov['overlap_us'] / args.rounds:.1f} us/round of "
+          f"{ov['gather_us'] / args.rounds:.1f}):")
     print("\n".join(_summary(prof, wall, args.top, args.rounds)))
     if cfg.mtp_depth:
         print(_pieces(params, cfg, B, dev))

@@ -12,10 +12,13 @@ per round and the host tier's bytes.  ``--layers`` cuts the depth (widths
 stay) and drops the MTP modules unless ``--mtp-depth`` asks for them;
 ``--host-cache-dtype`` stores the tier as bf16 (the param dtype), int8 or
 fp8 with one f16 scale per row.  The session takes the reference
-launcher's knobs: ``--mtp-depth`` (MTP speculative rounds),
+launcher's knobs: ``--mtp-depth`` (MTP speculative rounds), ``--tbo``
+(Two-Batch Overlap: each step's slots in two halves on two streams),
 ``--temperature`` / ``--top-k`` / ``--top-p`` (sampled requests, seeded
 per request), ``--stop-token``, ``--slots``, ``--max-seq`` and ``--eager``
-(the rounds run eagerly instead of as CUDA graphs).
+(the rounds run eagerly instead of as CUDA graphs).  The layers' overlap
+mode is the config's ``ess.overlap``: pass ``run(args, cfg=...)`` a config
+with ``overlap="dba"`` (the reference's launcher has no flag for it).
 
   python -m repro_torch.launch.serve --device cuda \\
       --arch deepseek-v32-exp-ess --layers 4 --requests 4 \\
@@ -25,6 +28,7 @@ per request), ``--stop-token``, ``--slots``, ``--max-seq`` and ``--eager``
   python -m repro_torch.launch.serve --device cpu --fixed-batch
   python -m repro_torch.launch.serve --device cpu --mtp-depth 1 \\
       --temperature 0.8 --top-k 16
+  python -m repro_torch.launch.serve --device cpu --tbo
 """
 
 from __future__ import annotations
@@ -73,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mtp-depth", type=int, default=0,
                     help="MTP draft depth of the session's speculative "
                          "rounds (0: Q = 1 rounds)")
+    ap.add_argument("--tbo", action="store_true",
+                    help="Two-Batch Overlap: each decode / verify step "
+                         "steps its slots in two halves")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="> 0 samples every request (0: greedy)")
     ap.add_argument("--top-k", type=int, default=None)
@@ -96,15 +103,19 @@ def config_from_args(args):
         cfg.ess, host_cache_dtype=args.host_cache_dtype))
 
 
-def run(args, params=None) -> dict:
+def run(args, params=None, cfg=None) -> dict:
     """Serve once; returns the result and its metrics.  ``params`` reuses
     weights already on the device (they must match ``args``' config and
-    seed); without them the weights are drawn from ``--seed``."""
+    seed); without them the weights are drawn from ``--seed``.  ``cfg``
+    replaces :func:`config_from_args`' config (e.g. another overlap
+    mode)."""
     dev = resolve_device(args.device)
-    cfg = config_from_args(args)
-    if args.fixed_batch and (args.mtp_depth or args.temperature > 0):
+    cfg = config_from_args(args) if cfg is None else cfg
+    if args.fixed_batch and (args.mtp_depth or args.temperature > 0
+                             or args.tbo):
         raise ValueError("--fixed-batch serves greedy Q = 1 rounds: "
-                         "--mtp-depth and --temperature need the session")
+                         "--mtp-depth, --temperature and --tbo need the "
+                         "session")
     max_seq = args.max_seq or args.prompt_len + args.new_tokens
     t0 = time.perf_counter()
     if params is None:
@@ -144,7 +155,8 @@ def _run_session(args, cfg, params, prompts, max_seq, dev, init_s) -> dict:
         params, cfg, num_slots=args.slots or args.requests, max_seq=max_seq,
         prompt_fn=lambda req: prompts[req.rid][None],
         prefill_chunk=args.prefill_chunk, mtp_depth=args.mtp_depth,
-        compiled=dev.type == "cuda" and not args.eager, device=dev)
+        tbo=args.tbo, compiled=dev.type == "cuda" and not args.eager,
+        device=dev)
     stop = () if args.stop_token is None else (args.stop_token,)
     rep = session.run([Request(rid=i, prompt_len=args.prompt_len,
                                max_new_tokens=args.new_tokens,

@@ -38,7 +38,7 @@ from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
 from repro_torch.core import warmup as WU
 from repro_torch.core.overlap import (ESSLayerState, _attend_rows,
-                                      ess_sparse_attention)
+                                      ess_sparse_attention, side_stream)
 from repro_torch.distributed import compression as cmp
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
@@ -93,13 +93,18 @@ def _append_ikeys(ik: torch.Tensor, widx: torch.Tensor, new_ik: torch.Tensor
 def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                positions: torch.Tensor, caches: LC.ESSCaches, *,
                layerwise_policy: tuple[str, ...] | None = None,
-               slot_mask: torch.Tensor | None = None) -> DecodeOut:
+               slot_mask: torch.Tensor | None = None,
+               fetch_stream: torch.cuda.Stream | None = None) -> DecodeOut:
     """tokens [B,Q] -> logits [B,Q,V] fp32.  Q>1 = draft verification.
 
     ``slot_mask`` [B] marks live slots; masked slots write nothing, take no
-    pool lookups or admissions and keep their ``lens``.  Updates the caches
-    in place; ``stats`` holds per-slot ``hits`` / ``misses`` /
-    ``overflow`` summed over layers, and ``hidden``."""
+    pool lookups or admissions and keep their ``lens``.  Each layer's
+    overlap mode is ``cfg.ess.overlap``, or, under ``"layerwise"``, its
+    entry of ``layerwise_policy`` (DA without one, as the reference's
+    sessions run it); ``fetch_stream`` carries the DA / DBA miss fetches
+    (:mod:`repro_torch.core.overlap`).  Updates the caches in place;
+    ``stats`` holds per-slot ``hits`` / ``misses`` / ``overflow`` summed
+    over layers, and ``hidden``."""
     B, Q = tokens.shape
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
     lens = caches.lens
@@ -132,7 +137,7 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             lp["mla"], lp["indexer"], cfg, h, positions, st,
             caches.ikeys[layer], attn_lens,
             overlap=_overlap_for_layer(cfg, layer, layerwise_policy),
-            slot_mask=live)
+            slot_mask=live, fetch_stream=fetch_stream)
         caches.pools[layer] = st2.pool
         x = x + attn
         x = x + _ffn(lp, cfg, x, is_moe)
@@ -347,9 +352,11 @@ def generate_batch(params: dict, cfg: ArchConfig, prompts,
     prefill_s = time.perf_counter() - t0
 
     out, hits, misses, ovf, round_s = [tok], [], [], [], []
+    fetch = side_stream(dev)
     for _ in range(max_new_tokens - 1):
         t0 = time.perf_counter()
-        o = ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches)
+        o = ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches,
+                       fetch_stream=fetch)
         caches = o.caches
         finite = finite & torch.isfinite(o.logits).all()
         tok = o.logits[:, 0].argmax(-1)
@@ -479,7 +486,7 @@ class _PrefillTask:
 class ServeSession:
     """One long-lived ESS decode batch driven by the continuous-batching
     scheduler (counterpart of ``repro.serving.engine.ServeSession`` in its
-    synchronous form: no TBO or pipelined slab).
+    synchronous form: no pipelined slab).
 
     * ``num_slots`` decode slots share one batch; more requests than slots
       stream through as slots free up.
@@ -502,6 +509,11 @@ class ServeSession:
       position gives the Q = 1 step's logits (a MoE whose capacity binds
       lets the drafts take experts from the real tokens, as in the
       reference).
+    * ``tbo=True`` (with two slots or more) composes Two-Batch Overlap:
+      every decode and verify step splits the slots into two halves that
+      step on two streams (:mod:`repro_torch.serving.tbo`).  The layers'
+      overlap modes are ``cfg.ess.overlap``'s (``layerwise`` without a
+      policy is DA, as in the reference's sessions).
     * Sampled requests (``temperature > 0``, with ``top_k`` / ``top_p``)
       draw with the reference's per-request keys, ``fold_in(key(seed),
       emission index)`` over JAX's threefry
@@ -528,7 +540,8 @@ class ServeSession:
                  host_byte_budget: Optional[int] = None,
                  prompt_fn: Optional[Callable[[Request], Any]] = None,
                  do_warmup: bool = False, prefill_chunk: int = 64,
-                 mtp_depth: int = 0, compiled: bool = True, device=None):
+                 mtp_depth: int = 0, tbo: bool = False,
+                 compiled: bool = True, device=None):
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -541,6 +554,7 @@ class ServeSession:
             raise ValueError(f"mtp_depth {mtp_depth} > cfg.mtp_depth "
                              f"{cfg.mtp_depth} stacked draft modules")
         self.mtp_depth = max(0, mtp_depth)
+        self.tbo = tbo and num_slots >= 2
         self.paged = LC.uses_paged_host(cfg)
         blocks_per_slot = LC.num_blocks(cfg, max_seq)
         self.num_pages = 0
@@ -571,7 +585,8 @@ class ServeSession:
             self._pinned = torch.empty(
                 (self._out.packed.numel() + num_slots,),
                 dtype=torch.int64).pin_memory()
-        self._programs = SP.StepPrograms(cfg, self.mtp_depth)
+        self._programs = SP.StepPrograms(cfg, self.mtp_depth, tbo=self.tbo,
+                                         device=self.device)
         self.pool_entries_per_slot = LC.pool_entries(cfg, max_seq)
         self.free_pool_entries = num_slots * self.pool_entries_per_slot
         self.sched = Scheduler(num_slots, max_seq,

@@ -19,7 +19,7 @@ Everything is sync-free, so the round runs inside a CUDA graph.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -82,9 +82,13 @@ def speculative_step(params: dict, cfg: ArchConfig, caches,
                      prev_tok: torch.Tensor, prev_hidden: torch.Tensor, *,
                      slot_mask: Optional[torch.Tensor] = None,
                      sample_mask: Optional[torch.Tensor] = None,
-                     depth: Optional[int] = None) -> SpecOut:
+                     depth: Optional[int] = None,
+                     decode_fn: Optional[Callable] = None) -> SpecOut:
     """One MTP speculative round over the slot batch: the drafts, then the
-    verify step, ``ess_decode`` at Q = depth + 1.
+    verify step at Q = depth + 1, ``decode_fn(params, cfg, tokens,
+    positions, caches) -> DecodeOut`` (the reference's seam; by default
+    ``ess_decode`` gated on ``slot_mask``, and the serve round passes its
+    TBO-composed step).
 
     * ``slot_mask [B]`` gates the verify step and the rollback: a frozen
       slot appends nothing, and the unconditional correction would shrink
@@ -104,8 +108,10 @@ def speculative_step(params: dict, cfg: ArchConfig, caches,
     positions = caches.lens[:, None] + torch.arange(
         depth + 1, device=prev_tok.device)[None]
 
-    out = E.ess_decode(params, cfg, q_tokens, positions, caches,
-                       slot_mask=slot_mask)
+    if decode_fn is None:
+        def decode_fn(p_, c_, t_, po_, ca_):
+            return E.ess_decode(p_, c_, t_, po_, ca_, slot_mask=slot_mask)
+    out = decode_fn(params, cfg, q_tokens, positions, caches)
     model_next = greedy(out.logits)                                # [B,Q]
     match = drafts == model_next[:, :depth]
     n_acc = match.long().cumprod(dim=1).sum(dim=1)                 # [B]

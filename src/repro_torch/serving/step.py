@@ -41,6 +41,14 @@ the UVA pointers and plans outside any capture), then captures it and
 replays it from its second round on; ``compiled=False`` runs the same
 functions eagerly every round.  On the CPU only the eager form exists.
 
+Both round kinds step the model through one raw step (the reference's
+``_make_raw_step``): ``ess_decode``, or with ``tbo`` the Two-Batch
+Overlap composition (:mod:`repro_torch.serving.tbo`), whose half B runs
+on a stream of its own.  The DA / DBA miss fetches fork onto fetch
+streams.  These side streams are made once, by :class:`StepPrograms`,
+outside any capture; each fork inside a round is joined inside it, so a
+captured round's side streams are parallel branches of its graph.
+
 Graph replays launch kernels without their wrappers, so the wrappers'
 launch counters would stand still: each capture's counts are recorded
 (:mod:`repro_torch.kernels.counters`) and added on each of its replays.
@@ -58,6 +66,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import counters
 from repro_torch.serving import mtp as MTP
+from repro_torch.serving import tbo as TBO
 from repro_torch.serving.sampling import greedy, sample_batch, sample_one
 from repro_torch.serving.state import EngineState, RoundOut, promote_slot
 
@@ -83,15 +92,33 @@ def _select(state: EngineState, logits: torch.Tensor, g: torch.Tensor,
     return torch.where(state.sample_mask, smp, g)
 
 
-def _decode_round_fn(cfg: ArchConfig, sampled: bool) -> Callable:
-    """Plain Q = 1 round over the whole slot batch, in place."""
+def _make_raw_step(tbo: bool, streams: TBO.Streams) -> Callable:
+    """``(params, cfg, tokens [B,Q], positions [B,Q], caches, slot_mask)
+    -> DecodeOut``: the model step both round kinds share, TBO-composed
+    when ``tbo`` and the batch has two slots or more."""
     from repro_torch.serving import engine as E   # engine imports this
 
+    def raw(params, cfg, tokens, positions, caches, slot_mask=None):
+        if tbo and tokens.shape[0] >= 2:
+            logits, merged, stats = TBO.tbo_step(
+                E.ess_decode, params, cfg, tokens, positions, caches,
+                slot_mask=slot_mask, streams=streams)
+            return E.DecodeOut(logits, merged, stats)
+        return E.ess_decode(params, cfg, tokens, positions, caches,
+                            slot_mask=slot_mask,
+                            fetch_stream=streams.fetch_a)
+
+    return raw
+
+
+def _decode_round_fn(cfg: ArchConfig, raw: Callable, sampled: bool
+                     ) -> Callable:
+    """Plain Q = 1 round over the whole slot batch, in place."""
     def fn(params: dict, state: EngineState, out: RoundOut) -> None:
         caches = state.caches
         live = state.slot_mask
-        o = E.ess_decode(params, cfg, state.tok[:, None],
-                         caches.lens[:, None], caches, slot_mask=live)
+        o = raw(params, cfg, state.tok[:, None], caches.lens[:, None],
+                caches, slot_mask=live)
         logits = o.logits[:, -1]                                  # [B,V]
         t = _select(state, logits, greedy(logits), sampled)
         caches.lens.copy_(o.caches.lens)
@@ -108,15 +135,21 @@ def _decode_round_fn(cfg: ArchConfig, sampled: bool) -> Callable:
     return fn
 
 
-def _spec_round_fn(cfg: ArchConfig, depth: int, sampled: bool) -> Callable:
-    """The MTP round: draft, Q = depth + 1 verify, accept and roll back,
-    then emission packing (``n_emit`` 1 for sampling slots, the accepted
-    count for greedy ones, 0 for frozen ones), in place."""
+def _spec_round_fn(cfg: ArchConfig, raw: Callable, depth: int,
+                   sampled: bool) -> Callable:
+    """The MTP round: draft, Q = depth + 1 verify (through ``raw``),
+    accept and roll back, then emission packing (``n_emit`` 1 for
+    sampling slots, the accepted count for greedy ones, 0 for frozen
+    ones), in place."""
     def fn(params: dict, state: EngineState, out: RoundOut) -> None:
         live = state.slot_mask
+
+        def verify(p_, c_, t_, po_, ca_):
+            return raw(p_, c_, t_, po_, ca_, slot_mask=live)
         spec = MTP.speculative_step(
             params, cfg, state.caches, state.tok, state.hidden,
-            slot_mask=live, sample_mask=state.sample_mask, depth=depth)
+            slot_mask=live, sample_mask=state.sample_mask, depth=depth,
+            decode_fn=verify)
         t0 = _select(state, spec.logits[:, 0], spec.tokens[:, 0], sampled)
         tokens = torch.cat([t0[:, None], spec.tokens[:, 1:]], dim=1)
         n_emit = torch.where(live, torch.where(state.sample_mask, 1,
@@ -178,11 +211,17 @@ class StepPrograms:
     ``(compiled, sampled)`` and return the graph-replaying round or the
     eager one; every round takes ``(params, state, out)`` and updates them
     in place.  ``depth`` is the session's MTP draft depth (0: no spec
-    round)."""
+    round); ``tbo`` composes Two-Batch Overlap into both round kinds.
+    The side streams (:class:`repro_torch.serving.tbo.Streams`) are made
+    here, for ``device``, before any capture."""
 
-    def __init__(self, cfg: ArchConfig, depth: int = 0):
+    def __init__(self, cfg: ArchConfig, depth: int = 0, *,
+                 tbo: bool = False, device="cpu"):
         self._cfg = cfg
         self.depth = depth
+        self.tbo = tbo
+        self.streams = TBO.make_streams(device)
+        self._raw = _make_raw_step(tbo, self.streams)
         self._rounds: dict[tuple[bool, bool], Callable] = {}
         self._prefill: dict[tuple[int, bool, bool], Callable] = {}
         self._graphs: dict[tuple[bool, bool], _Captured] = {}
@@ -199,8 +238,8 @@ class StepPrograms:
         fn = self._rounds.get(key)
         if fn is None:
             fn = self._rounds[key] = (
-                _spec_round_fn(self._cfg, self.depth, sampled) if spec
-                else _decode_round_fn(self._cfg, sampled))
+                _spec_round_fn(self._cfg, self._raw, self.depth, sampled)
+                if spec else _decode_round_fn(self._cfg, self._raw, sampled))
         return fn
 
     def decode(self, compiled: bool, sampled: bool = False) -> Callable:
@@ -254,7 +293,9 @@ class StepPrograms:
         wrappers counted while recording are taken back and kept as the
         per-replay delta.  Relaxed capture mode: the wrappers query their
         pinned tier's attributes on the host, which the global mode
-        refuses; a sync inside the round still fails the capture."""
+        refuses; a sync inside the round still fails the capture.  The
+        round's side streams (made before) join the capture at their
+        forks and are joined back before it ends."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = counters.snapshot()

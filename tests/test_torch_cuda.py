@@ -846,3 +846,169 @@ def test_cuda_sparse_mla_general_route_watch_case_repeats(cuda):
             bad.append((i, err))
     print(f"watch case: {40 - len(bad)}/40 within 1e-4, failures {bad}")
     assert not bad
+
+
+# ---------------------------------------------------------------------------
+# The overlap strategies on the card: side streams inside the round's graph
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+@pytest.mark.parametrize("m", [300, 2000], ids=["direct", "staged"])
+def test_cuda_gather_rows_out_bitwise(cuda, name, m):
+    """``out=`` receives exactly the rows each route returns, from a
+    pinned tier, raw or quantized."""
+    g = torch.Generator().manual_seed(8)
+    S = 500
+    ids = torch.randint(-3, S + 5, (4, m // 4), generator=g).to(cuda)
+    if name == "bf16":
+        host = torch.randn((S, 576), generator=g).bfloat16().pin_memory()
+        want = gops.gather_rows(host, ids)
+        out = torch.full_like(want, 3.0)
+        got = gops.gather_rows(host, ids, out=out)
+    else:
+        host, scales = _quantized_tier(g, (S, 576), name)
+        want = gops.gather_rows_dequant(host, scales, ids)
+        out = torch.full_like(want, 3.0)
+        got = gops.gather_rows_dequant(host, scales, ids, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+def test_cuda_fork_join_inside_graph_capture(cuda):
+    """A fork onto a side stream and its join, recorded inside a capture,
+    replay as a branch of the graph: the side branch's result is there
+    after the join, each replay."""
+    from repro_torch.core.overlap import Fork, side_stream
+    side = side_stream(cuda)
+    x = torch.arange(1 << 20, device=cuda, dtype=torch.float32)
+    y = torch.empty_like(x)
+    z = torch.empty_like(x)
+
+    def body():
+        with Fork(side, x, y) as f:
+            y.copy_(x * 2)
+        z.copy_(x + 1)
+        f.join()
+        z.add_(y)
+
+    body()
+    graph = torch.cuda.CUDAGraph()
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):
+        graph.capture_begin()
+        body()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(cap)
+    for k in range(3):
+        x.add_(k)
+        z.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(z, 3 * x + 1)
+
+
+def _overlap_cfg(overlap, mtp_depth=0):
+    import dataclasses
+    cfg = _mini_cfg()
+    return dataclasses.replace(cfg, mtp_depth=mtp_depth,
+                               ess=dataclasses.replace(cfg.ess,
+                                                       overlap=overlap))
+
+
+def _overlap_requests():
+    from repro_torch.serving.scheduler import Request
+    return [Request(rid=0, prompt_len=150, max_new_tokens=12),
+            Request(rid=1, prompt_len=90, max_new_tokens=6),
+            Request(rid=2, prompt_len=200, max_new_tokens=9,
+                    temperature=0.8, top_k=64, seed=5),
+            Request(rid=3, prompt_len=120, max_new_tokens=10)]
+
+
+# (overlap mode, tbo, MTP depth); 4 slots: TBO halves of 2, DBA within
+# them 1 and 1, so every layer of a round runs `parts` indexer launches
+OVERLAP_SESSIONS = {"dba": ("dba", False, 0, 2), "tbo": ("da", True, 0, 2),
+                    "dba-tbo": ("dba", True, 0, 4),
+                    "tbo-mtp": ("da", True, 1, 2)}
+
+
+@pytest.mark.parametrize("case", list(OVERLAP_SESSIONS))
+def test_cuda_overlap_session_graph_replay_matches_eager(cuda, case):
+    """DBA and TBO sessions (4 slots, a sampled request among four) with
+    their rounds replayed from CUDA graphs against the same session run
+    eagerly: streams and the caches bit for bit, launch counts (replays
+    added) equal, ``parts`` indexer launches per layer and round; plan,
+    compute and prefill stages free of host syncs."""
+    from repro_torch.kernels import counters
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    overlap, tbo, depth, parts = OVERLAP_SESSIONS[case]
+    cfg = _overlap_cfg(overlap, depth)
+    params = init_params(cfg, 1, device=cuda)
+
+    def sync_free(fn):
+        def wrapped(*a, **k):
+            with _SyncFree():
+                return fn(*a, **k)
+        return wrapped
+
+    def run(compiled):
+        s = E.ServeSession(params, cfg, num_slots=4, max_seq=300,
+                           prefill_chunk=64, mtp_depth=depth, tbo=tbo,
+                           compiled=compiled, device=cuda)
+        for name in ("_plan_round", "_compute_round", "prefill_round"):
+            setattr(s, name, sync_free(getattr(s, name)))
+        before = counters.snapshot()
+        rep = s.run(_overlap_requests())
+        torch.cuda.synchronize()
+        return s, rep, counters.diff(counters.snapshot(), before)
+
+    g, rg, ng = run(True)
+    e, re_, ne = run(False)
+    assert g.tbo == tbo and g.outputs == e.outputs
+    assert rg.rounds == re_.rounds >= 8
+    assert g.programs.replays + g.programs.captures == rg.rounds
+    assert g.programs.captures == 2            # greedy and sampling
+    assert ng == ne
+    by_q = ng[("indexer_scores", "launches_by_q")]
+    assert by_q[depth + 1] == parts * cfg.num_layers * rg.rounds
+    cg, ce = g.caches, e.caches
+    assert torch.equal(cg.lens, ce.lens)
+    assert torch.equal(cg.host_latent.view(torch.int16),
+                       ce.host_latent.view(torch.int16))
+    for a, b in zip(cg.pools, ce.pools):
+        for f in ("ids", "last_use", "slot_of", "step"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(a.data.view(torch.int16), b.data.view(torch.int16))
+
+
+@pytest.mark.parametrize("case", ["da", "dba", "tbo"])
+def test_cuda_overlap_profiled_graph_rounds(cuda, case):
+    """In graph rounds under ``torch.profiler``, a row-gather kernel runs
+    beside other device work (the fetch on its side stream, a TBO half):
+    overlapped time above 0, for DA, DBA and TBO."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import overlap_profile
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+    cfg = _overlap_cfg("dba" if case == "dba" else "da")
+    params = init_params(cfg, 3, device=cuda)
+    s = E.ServeSession(params, cfg, num_slots=4, max_seq=600,
+                       prefill_chunk=128, tbo=case == "tbo", compiled=True,
+                       device=cuda)
+    for i in range(4):
+        s.submit(Request(rid=i, prompt_len=400 + 30 * i, max_new_tokens=40))
+    while len(s.sched.active_slots()) < 4 or s.programs.replays < 2:
+        s.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            s.step()
+        torch.cuda.synchronize()
+    ov = overlap_profile(prof)
+    print(f"{case}: {ov}")
+    assert ov["gather_us"] > 0 and ov["overlap_us"] > 0

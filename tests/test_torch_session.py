@@ -404,7 +404,7 @@ STEP_MODULES = sorted(
      PKG / "distributed" / "compression.py", PKG / "serving" / "step.py",
      PKG / "serving" / "state.py", PKG / "serving" / "engine.py",
      PKG / "serving" / "mtp.py", PKG / "serving" / "prng.py",
-     PKG / "serving" / "sampling.py"])
+     PKG / "serving" / "sampling.py", PKG / "serving" / "tbo.py"])
 # host-side helpers: the pool's invariant check (tests, debugging) and the
 # fixed-batch entry point's report; the session's methods are host code
 # around the steps (its one fetch is ``device_get``)
