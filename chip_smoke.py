@@ -19,7 +19,10 @@ the script exits non-zero without a result line):
    its peak, PCIe Gen5 x16, and the device bytes over HBM; a contiguous
    copy of the same bytes is timed beside them).  The row gathers run on both routes: the decode miss fetch (direct) and
    a prefill chunk's per-query rows (staged; each distinct row must be
-   read once, by the kernel's own count).  The indexer runs at its two
+   read once, by the kernel's own count), and the pipelined round's slab
+   gather (``gather_rows_raw``: ids [4, 4, 256] over every layer of the
+   stacked tier in one launch, bf16 rows, and an int8 / fp8 payload with
+   its f16 scale, raw) bit for bit.  The indexer runs at its two
    serve shapes (decode, Q = 1 over the cache; a causal prefill chunk,
    Q = 256) on the tensor-core route, each also timed on the general route
    (the CUDA-core kernel) on the same inputs, back to back and from a CUDA
@@ -98,16 +101,32 @@ the script exits non-zero without a result line):
    depend on the other.  Where neither can bind (``max_miss_ratio`` 1,
    capacity factor E / top_k) the depth-1 streams must equal the Q = 1
    session's; with the envelope alone unbound, for information;
+12. session F — the pipelined round (``overlap=True``: each layer's
+   misses from the round's own rows, a staging slab filled during the
+   previous round on the fetch stream, and a fallback gather; one stacked
+   tier write per round) on session A's requests (graph, then eager),
+   session B's (int8 tier + warmup, graph then eager) and session C's
+   (MTP depth 1 + the 2 sampled requests, graph), run after session C's
+   information runs: each run's streams must equal the synchronous graph
+   session's bit for bit, the pipeline must engage (prefetch hits + misses
+   above 0), session A's checks hold (one fetch and no sync a round, the
+   launches per route and shape, one slab gather and one stacked write
+   per plane a round); prints ms/round, the prefetch hit rate, misses and
+   wasted rows, and the time in the profiled rounds in which the slab
+   gather (``gather_rows_raw``) ran beside other device work;
 11. session D — every weight zeroed in place, so every argmax is token 0
    and every draft is accepted: 2 requests (``SESSION_D``) at depth 1 in
    graph mode must show accept rate 1.0, 2 tokens per live slot-round
    but at the budget clamp, no request past its budget, and the streams
-   of the same requests at Q = 1 rounds.
+   of the same requests at Q = 1 rounds (the last phase).
 
-Each of phases 5-11 sets every launch count to 0 just before it runs and
+Each of phases 5-12 sets every launch count to 0 just before it runs and
 reads them just after (9b's replays count nothing: it prints the eager
 rounds' and the captures' launches); the kernels line's
-``launches_session_e`` are session E's eager run's.  The sparse-MLA cases
+``launches_session_e`` are session E's eager run's, its
+``launches_session_f`` session F's per run (F-A's and F-B's eager runs,
+F-C's graph run with its replays counted by the capture), and the slab
+gather's ``launches`` F-A's (bf16) and F-B's (int8) eager runs'.  The sparse-MLA cases
 at Q <= 2 also time SDPA replayed from a graph (``library_device_ms``).
 The kernels line's ``launches`` are session A's
 eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
@@ -571,6 +590,68 @@ def check_kernels(torch, dev):
         copy_ms=timed_ms(torch, copy_pages_q8))
     del q, sc
 
+    # -- gather_rows_raw: the pipelined round's slab gather, one launch over
+    #    every layer of the serve cell's stacked tier (ids [L, B, P], P the
+    #    miss envelope, 256 a slot), bf16 rows, and an int8 / fp8 tier's
+    #    payload with its scale, raw ------------------------------------
+    P = M
+    sids = (torch.randint(0, NP * R, (Lh, B, P), generator=g, device=dev)
+            + torch.arange(Lh, device=dev)[:, None, None] * (NP * R))
+    sids.view(-1)[::7] = -1
+    ns, nread = sids.numel(), int((sids >= 0).sum())
+    for tname in ("bf16", "fp8", "int8"):
+        flat = randn((Lh * NP * R, D))
+        scl = None
+        if tname != "bf16":
+            flat, scl = cmp.quantize_rows(flat,
+                                          cmp.CACHE_QUANT_DTYPES[tname])
+            scl = scl.cpu().pin_memory()
+        flat = flat.cpu().pin_memory()
+        fetched = torch.zeros(1, dtype=torch.int32, device=dev)
+        got, got_s = gops.gather_rows_raw(flat, scl, sids, fetched=fetched)
+        want, want_s = gref.gather_rows_raw_ref(flat, scl, sids.cpu())
+        torch.cuda.synchronize()
+        require(torch.equal(got.cpu().view(torch.uint8),
+                            want.view(torch.uint8))
+                and (scl is None or torch.equal(
+                    got_s.cpu().view(torch.int16), want_s.view(torch.int16)))
+                and int(fetched) == nread,
+                f"gather_rows_raw differs ({tname})")
+        if tname == "fp8":
+            continue
+        row_b = D * flat.element_size() + (0 if scl is None else 2)
+        sdst = torch.empty((ns, D), dtype=flat.dtype, device=dev)
+        ssd = torch.empty((ns, 1), dtype=torch.float16, device=dev)
+
+        def copy_slab():
+            sdst.copy_(flat[:ns], non_blocking=True)
+            if scl is not None:
+                ssd.copy_(scl[:ns], non_blocking=True)
+        # rows (and scales) read over the link; written + the ids in HBM
+        nb, _ = bound_ms(ns * row_b + 8 * ns, 0, "bf16",
+                         host_bytes=nread * row_b)
+        name = "gather_rows_raw[slab]" if scl is None \
+            else "gather_rows_raw[slab-int8]"
+        records[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+            replaces="src/repro/kernels/gather_cache/gather_cache.py:46",
+            max_abs_err=0.0,
+            ms=timed_ms(torch, lambda: gops.gather_rows_raw(flat, scl, sids)),
+            device_ms=graph_ms(torch, lambda: gops.gather_rows_raw(
+                flat, scl, sids)),
+            plain_ms=wall_ms(torch, lambda: [
+                t.to(dev) for t in gref.gather_rows_raw_ref(
+                    flat, scl, sids.cpu()) if t is not None]),
+            bound_ms=nb, bound_by="bytes", library_ms=None,
+            # the same bytes as contiguous pinned -> device copies
+            copy_ms=timed_ms(torch, copy_slab),
+            shape=f"direct route, ids [{Lh}, {B}, {P}] ({ns} ids, {nread} "
+                  f"live) x " + (f"{row_b} B" if scl is None
+                                 else f"({D} + 2) B {tname}, raw"))
+        del flat, scl, sdst, ssd, got, want
+    torch.cuda.empty_cache()
+
     # -- indexer_scores: the decode case (Q = 1 over the whole cache) and a
     #    causal prefill chunk (Q = 256 ending at each slot's length), each
     #    on the tensor-core route against the plain version, timed beside
@@ -982,7 +1063,8 @@ def session_prompts(cfg, reqs):
 
 def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 reqs, mtp_depth=0, num_slots=SESSION_SLOTS,
-                max_seq=SESSION_MAX_SEQ, on_emit=None, tbo=False):
+                max_seq=SESSION_MAX_SEQ, on_emit=None, tbo=False,
+                overlap=False):
     """One session run: ``reqs`` (``Request``s with rids 0, 1, ...)
     through ``ServeSession.run``, their prompts from seed 0.  Measures and
     checks around the session's own stages (the session itself is
@@ -1005,7 +1087,8 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
       variant (greedy, sampling), with the live slot-rounds; the profiled
       rounds' device timeline also gives the time in which a row gather
       ran beside other device work, and the time with any device work
-      (``profile_serve.overlap_profile``);
+      (``profile_serve.overlap_profile``), and for a pipelined session
+      (``overlap``) the same for the slab gather alone;
     * ``on_emit(rid, n_emit, charged)``, if given, sees each decode
       delivery of the round's tokens.
 
@@ -1013,7 +1096,7 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.profile_serve import overlap_profile
+    from repro_torch.launch.profile_serve import SLAB_KERNELS, overlap_profile
     from repro_torch.serving import engine as E
 
     prompts = session_prompts(cfg, reqs)
@@ -1021,10 +1104,11 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
         params, cfg, num_slots=num_slots, max_seq=max_seq,
         prompt_fn=lambda r: prompts[r.rid], do_warmup=do_warmup,
         prefill_chunk=PREFILL_CHUNK, mtp_depth=mtp_depth, tbo=tbo,
-        compiled=compiled, device=dev)
+        compiled=compiled, overlap=overlap, device=dev)
     m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0,
              variant_ms={False: [], True: []}, slot_rounds=0, kernels={},
-             overlap_us=0.0, gather_us=0.0, union_busy_us=0.0)
+             overlap_us=0.0, gather_us=0.0, union_busy_us=0.0,
+             slab_overlap_us=0.0, slab_gather_us=0.0)
     fetches = [0]
     fetch = E.device_get
 
@@ -1086,6 +1170,9 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
             m["overlap_us"] += ov["overlap_us"]
             m["gather_us"] += ov["gather_us"]
             m["union_busy_us"] += ov["busy_us"]
+            ov = overlap_profile(prof, SLAB_KERNELS)
+            m["slab_overlap_us"] += ov["overlap_us"]
+            m["slab_gather_us"] += ov["gather_us"]
             for ev in prof.key_averages():
                 if ev.device_type == DeviceType.CUDA:
                     t = ev.self_device_time_total / 1e3
@@ -1373,14 +1460,16 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
               flush=True)
 
     def check_session(tag, sess, rep, n, reqs, warm, tier, q_verify=None,
-                      parts=1, halves=1):
+                      parts=1, halves=1, pipelined=False):
         """Every request ends once with its whole budget; the launches per
         route and shape, with the graph's replays counted, equal what the
         run's rounds and chunks give (an MTP session's rounds are all
         verify rounds, at Q = ``q_verify``).  A round's layer runs its
         indexer, Attn0, Attn1 and miss fetch once per batch part (TBO
         halves, DBA halves within them: ``parts``) and its tier write once
-        per TBO half (``halves``)."""
+        per TBO half (``halves``); a pipelined round writes the tier once
+        per half after its layers (one stacked write per plane) and
+        gathers its slab once per half (``gather_rows_raw``)."""
         n_req = len(reqs)
         terminal = [e.rid for e in sess.token_events if e.is_terminal]
         require(sorted(terminal) == list(range(n_req))
@@ -1409,10 +1498,12 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         other = "gather_rows_dequant" if gname == "gather_rows" \
             else "gather_rows"
         planes = 1 if gname == "gather_rows" else 2
+        writes = halves * (1 if pipelined else L) * R
         want = {f"{gname}_staged": L * ch,
                 f"{gname}_direct": L * (parts * R + (n_req * W if warm
                                                      else 0)),
-                other: 0, "scatter_rows": planes * (ch + halves * L * R)}
+                other: 0, "scatter_rows": planes * (ch + writes),
+                "gather_rows_raw": halves * R if pipelined else 0}
         require(all(n[k] == v for k, v in want.items())
                 and n[gname] == n[f"{gname}_staged"] + n[f"{gname}_direct"]
                 and n["sparse_mla_merge"] > 0,
@@ -1420,23 +1511,43 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         return got
 
     def graph_and_eager(tag, cfg, make_reqs, warm, tier, mtp_depth=0,
-                        top_kernels=0, tbo=False, parts=1):
+                        top_kernels=0, tbo=False, parts=1, overlap=False,
+                        modes=(True, False)):
         """The session run twice: its rounds replayed as graphs, then
         eagerly.  The streams must be bit-identical and the launch counts
         (the graph's with its replays added) equal; in the graph run's
         profiled rounds a row gather must run beside other device work.
         Returns the eager run's counts and shapes, counted where the
-        wrappers launch, and the graph run's streams."""
+        wrappers launch, and the graph run's streams.  ``overlap`` runs
+        the session pipelined (its prefetch counters printed, the pipeline
+        engaged); ``modes=(True,)`` the graph run alone (its counts
+        returned)."""
         runs = {}
         qv = mtp_depth + 1 if mtp_depth else None
-        for compiled in (True, False):
+        for compiled in modes:
             name = f"{tag} {'graph' if compiled else 'eager'}"
             reqs = make_reqs()
             sess, rep, n, m = run_session(torch, dev, params, cfg, counted,
                                           compiled=compiled, do_warmup=warm,
                                           reqs=reqs, mtp_depth=mtp_depth,
-                                          tbo=tbo)
+                                          tbo=tbo, overlap=overlap)
             session_summary(name, sess, rep, m)
+            if overlap:
+                k = len(PROFILED_ROUNDS)
+                slab = (f"the slab gather beside other device work "
+                        f"{m['slab_overlap_us'] / k:.1f} us/round of "
+                        f"{m['slab_gather_us'] / k:.1f} us/round gathering "
+                        f"the slab") if m["profiled_ms"] else "not profiled"
+                print(f"session {name}: prefetch hit rate "
+                      f"{rep.prefetch_hit_rate:.4f} ({rep.prefetch_hits} "
+                      f"slab hits, {rep.prefetch_misses} fallback misses, "
+                      f"{rep.prefetch_wasted_rows} wasted rows; "
+                      f"{rep.prefetch_misses / rep.rounds:.1f} misses and "
+                      f"{rep.prefetch_wasted_rows / rep.rounds:.1f} wasted "
+                      f"rows a round; slab of {sess.prefetch_rows} rows a "
+                      f"layer and slot); {slab}  [{card}]", flush=True)
+                require(rep.prefetch_hits + rep.prefetch_misses > 0,
+                        f"session {name}: the pipeline never engaged")
             require(sess.tbo == tbo, f"session {name}: tbo {sess.tbo}")
             if compiled and m["profiled_ms"]:
                 require(m["overlap_us"] > 0,
@@ -1450,7 +1561,7 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                           f"{n_[:60]} {t / k:.3f}"
                           for n_, t in top[:top_kernels]), flush=True)
             got = check_session(name, sess, rep, n, reqs, warm, tier, qv,
-                                parts, 2 if tbo else 1)
+                                parts, 2 if tbo else 1, overlap)
             if compiled:
                 pr = sess.programs
                 require(pr.replays + pr.captures == rep.rounds,
@@ -1459,6 +1570,9 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
             runs[compiled] = (dict(sess.outputs), rep.rounds, n, got)
             del sess
             torch.cuda.empty_cache()
+        if False not in runs:
+            og, _, ng, got = runs[True]
+            return ng, got, og
         (og, rg, ng, _), (oe, re_, ne, got) = runs[True], runs[False]
         require(og == oe and rg == re_,
                 f"session {tag}: the graph and the eager session's streams "
@@ -1475,7 +1589,7 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         return lambda: [Request(rid=i, prompt_len=p, max_new_tokens=b)
                         for i, (p, b) in enumerate(zip(prompts, budgets))]
 
-    n, got, _ = graph_and_eager(
+    n, got, a_out = graph_and_eager(
         "A", scfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False, "bf16")
     for name, v in got.items():
         records[name]["launches"] = v
@@ -1486,7 +1600,7 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
 
     # 9. session B: int8 tier, LRU warmup at admission, 4 requests
     qcfg = serve.config_from_args(qargs)
-    n, _, _ = graph_and_eager(
+    n, _, b_out = graph_and_eager(
         "B int8 warmup", qcfg,
         greedy_reqs(SESSION_PROMPTS[:4], SESSION_NEW[:4]), True, "int8")
     records["gather_rows_dequant"]["launches"] = \
@@ -1614,6 +1728,43 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
               f"{float(lg[a] - lg[b]):.6f}); top-3 {top.tolist()}, logits "
               f"std {float(lg.std()):.4f}", flush=True)
         del tok, lg
+
+    # 12. session F: the pipelined round (overlap=True) on the requests of
+    #     sessions A and B (int8 + warmup), each graph then eager, and C
+    #     (MTP depth 1 + sampling, graph), each stream bit for bit the
+    #     synchronous graph session's; the launches are the eager runs'
+    #     (F-C's the graph run's, its replays counted by the capture)
+    t0 = time.perf_counter()
+    f_runs = (("F-A", scfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False,
+               "bf16", 0, (True, False), a_out),
+              ("F-B", qcfg, greedy_reqs(SESSION_PROMPTS[:4], SESSION_NEW[:4]),
+               True, "int8", 0, (True, False), b_out),
+              ("F-C", ccfg, c_reqs, False, "bf16", 1, (True,), c_out))
+    for tag, fcfg, make, warm, tier, depth, modes, base in f_runs:
+        n, got, out = graph_and_eager(f"{tag} pipelined", fcfg, make, warm,
+                                      tier, mtp_depth=depth, overlap=True,
+                                      modes=modes)
+        require(out == base, f"session {tag}: the pipelined streams differ "
+                f"from the synchronous graph session's")
+        print(f"session {tag}: pipelined streams bit-identical to the "
+              f"synchronous graph session's ({sum(map(len, out.values()))} "
+              f"tokens)", flush=True)
+        counts = dict(got, gather_rows=n["gather_rows_direct"],
+                      scatter_rows=n["scatter_rows"],
+                      sparse_mla_merge=n["sparse_mla_merge"])
+        counts["gather_rows[prefill]"] = n["gather_rows_staged"]
+        counts["gather_rows_dequant"] = n["gather_rows_dequant_direct"]
+        counts["gather_rows_dequant[prefill]"] = \
+            n["gather_rows_dequant_staged"]
+        counts["gather_rows_raw[slab-int8]" if tier == "int8"
+               else "gather_rows_raw[slab]"] = n["gather_rows_raw"]
+        for name, r in records.items():
+            r.setdefault("launches_session_f", {})[tag] = counts.get(name, 0)
+        if tag != "F-C":            # eager runs: counted where launched
+            records["gather_rows_raw[slab-int8]" if tier == "int8"
+                    else "gather_rows_raw[slab]"]["launches"] = \
+                n["gather_rows_raw"]
+    print(f"session F: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 11. session D: every weight zeroed in place, so every argmax is token
     #     0 and every draft is accepted; graph mode, against Q = 1 rounds
@@ -1787,6 +1938,7 @@ def main() -> int:
     #    after; a kernel's "launches" is the count of the path it carries
     kernels = {"gather_rows": gops.gather_rows,
                "gather_rows_dequant": gops.gather_rows_dequant,
+               "gather_rows_raw": gops.gather_rows_raw,
                "gather_pages": gops.gather_pages,
                "gather_pages_dequant": gops.gather_pages_dequant,
                "scatter_rows": gops.scatter_rows,
@@ -1932,7 +2084,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms", "general_ms",
             "general_device_ms", "copy_ms", "direct_ms", "distinct_rows",
-            "top2048_overlap", "launches_session_e")
+            "top2048_overlap", "launches_session_e", "launches_session_f")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -127,6 +127,29 @@ def host_scatter_rows(host_cache: torch.Tensor, ids: torch.Tensor,
     return host_cache
 
 
+def _stacked_flat(host_cache: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """A stacked tier ``[L, ...rows..., D]`` as one flat ``[N, D]`` view of
+    its storage, and the rows between two layers' starts.  Each layer's
+    rows are contiguous; the layers need not be (a TBO half's slice of a
+    dense tier): the view spans from layer 0's first row to the last
+    layer's last, and a layer's flat id ``i`` is row ``l * stride + i``."""
+    D = host_cache.shape[-1]
+    per_layer = host_cache[0].numel() // D
+    stride = host_cache.stride(0) // D
+    if host_cache.stride(0) % D or not host_cache[0].is_contiguous():
+        raise ValueError("a stacked tier's layers must be contiguous rows")
+    span = (host_cache.shape[0] - 1) * stride + per_layer
+    return host_cache.as_strided((span, D), (D, 1)), stride
+
+
+def _stacked_ids(flat: torch.Tensor, stride: int) -> torch.Tensor:
+    """Per-layer flat ids ``[L, ...]`` (-1 dropped) -> ids into the
+    :func:`_stacked_flat` view."""
+    off = torch.arange(flat.shape[0], device=flat.device) * stride
+    off = off.view(-1, *([1] * (flat.dim() - 1)))
+    return torch.where(flat >= 0, flat + off, -1)
+
+
 def host_scatter_rows_stacked(host_cache: torch.Tensor, ids: torch.Tensor,
                               rows: torch.Tensor, *,
                               slot_mask: torch.Tensor | None,
@@ -138,13 +161,59 @@ def host_scatter_rows_stacked(host_cache: torch.Tensor, ids: torch.Tensor,
     if slot_mask is not None:
         ids = torch.where(slot_mask[:, None], ids, -1)
     Lh, D = host_cache.shape[0], host_cache.shape[-1]
-    tgt, per_layer = _scatter_targets(host_cache, ids, block_table,
-                                      batch_offset, drop_oob=True)
-    off = torch.arange(Lh, device=tgt.device)[:, None, None] * per_layer
-    tgt_all = torch.where(tgt[None] >= 0, tgt[None] + off, -1)
-    gops.scatter_rows(host_cache.view(-1, D), tgt_all.reshape(-1),
-                      rows.reshape(-1, D))
+    tgt, _ = _scatter_targets(host_cache, ids, block_table, batch_offset,
+                              drop_oob=True)
+    flat, stride = _stacked_flat(host_cache)
+    tgt_all = _stacked_ids(tgt[None].expand(Lh, *tgt.shape), stride)
+    gops.scatter_rows(flat, tgt_all.reshape(-1), rows.reshape(-1, D))
     return host_cache
+
+
+def gather_into_slab(host_cache: torch.Tensor,
+                     host_scales: torch.Tensor | None, ids: torch.Tensor, *,
+                     slot_mask: torch.Tensor | None, batch_offset: int = 0,
+                     block_table: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None,
+                     out_scales: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The pipelined round's staging gather: per-layer positions ``ids
+    [L,B,P]`` (-1 = not staged) -> the tier's rows ``[L,B,P,D]`` in its
+    storage dtype, and a quantized tier's scales ``[L,B,P,1]`` (None for a
+    raw tier), on ``ids.device`` (into ``out`` / ``out_scales`` if given).
+    One launch over every layer (:func:`gops.gather_rows_raw`, the direct
+    route's warp per id with no widening), so a staged row is the bytes
+    the synchronous gather would read.  ``slot_mask`` [B] (required,
+    keyword-only; None = every slot) drops masked slots' ids."""
+    if slot_mask is not None:
+        ids = torch.where(slot_mask[None, :, None], ids, -1)
+    Lh, B, P = ids.shape
+    per = _gather_flat_ids(host_cache, ids.permute(1, 0, 2).reshape(B, -1),
+                           batch_offset, block_table)
+    flat, stride = _stacked_flat(host_cache)
+    idx = _stacked_ids(per.view(B, Lh, P).permute(1, 0, 2).contiguous(),
+                       stride)
+    sflat = None if host_scales is None else _stacked_flat(host_scales)[0]
+    return gops.gather_rows_raw(flat, sflat, idx, out=out,
+                                out_scales=out_scales)
+
+
+def scatter_from_slab(host_cache: torch.Tensor,
+                      host_scales: torch.Tensor | None, ids: torch.Tensor,
+                      rows: torch.Tensor, scales: torch.Tensor | None, *,
+                      slot_mask: torch.Tensor | None, batch_offset: int = 0,
+                      block_table: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The pipelined round's commit: every layer's appended rows ``[L,B,Q,D]``
+    (already in the tier's dtype: a quantized tier's payload, quantized
+    once in the layer loop, with its ``scales [L,B,Q,1]``) written at the
+    positions ``ids [B,Q]`` in one stacked launch per plane; -1 drops.  In
+    place; returns ``(tier, scales)``."""
+    kw = dict(slot_mask=slot_mask, batch_offset=batch_offset,
+              block_table=block_table)
+    host_scatter_rows_stacked(host_cache, ids, rows, **kw)
+    if host_scales is not None:
+        host_scatter_rows_stacked(host_scales, ids, scales, **kw)
+    return host_cache, host_scales
 
 
 def tier_rows_dtype(host_cache: torch.Tensor,

@@ -40,6 +40,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
+from repro_torch.core import transfer as TR
 from repro_torch.kernels.sparse_mla import ops as sk
 from repro_torch.models import mla as M
 
@@ -149,26 +150,27 @@ def ess_sparse_attention(mla_p: dict, idx_p: dict, cfg: ArchConfig,
 
 
 def _fork_fetch(state: ESSLayerState, miss_ids: torch.Tensor,
-                stream: torch.cuda.Stream | None
+                stream: torch.cuda.Stream | None, out_dtype=None
                 ) -> tuple[torch.Tensor, Fork]:
     """Issue the miss fetch of ``miss_ids [B,M]`` on ``stream`` into rows
-    allocated on the current stream; returns ``(rows, fork)``: join the
-    fork before reading the rows."""
+    allocated on the current stream (``out_dtype`` rows from a quantized
+    tier; bf16 without one); returns ``(rows, fork)``: join the fork
+    before reading the rows."""
+    dt = offload.tier_rows_dtype(state.host_latent, state.host_scales) \
+        if out_dtype is None else out_dtype
     rows = torch.empty((*miss_ids.shape, state.host_latent.shape[-1]),
-                       dtype=offload.tier_rows_dtype(state.host_latent,
-                                                     state.host_scales),
-                       device=miss_ids.device)
+                       dtype=dt, device=miss_ids.device)
     with Fork(stream, miss_ids, rows) as fork:
         offload.gather_tier_rows(
             state.host_latent, state.host_scales, miss_ids,
             layer=state.layer, batch_offset=state.batch_offset,
-            block_table=state.block_table, out=rows)
+            block_table=state.block_table, out=rows, out_dtype=out_dtype)
     return rows, fork
 
 
 def _da_or_none(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys, lens,
                 overlap, slot_mask, fetch_stream):
-    pool, lk, stats, ids, req_valid, K, M_env = _topk_and_lookup(
+    pool, lk, stats, ids, req_valid, K, M_env, _ = _topk_and_lookup(
         idx_p, cfg, x_norm, state, idx_keys, lens, slot_mask)
     # issue the fetch first; DA forks it (Attn0 does not depend on it),
     # the union attention of ``none`` waits for it
@@ -210,21 +212,28 @@ def _topk_and_lookup(idx_p, cfg, x_norm, state, idx_keys, lens, slot_mask):
     pool, lk, stats = LP.lookup(state.pool, ids.reshape(B, Q * K),
                                 req_valid.reshape(B, Q * K), M_env,
                                 slot_mask=slot_mask, dedup=Q > 1)
-    return pool, lk, stats, ids, req_valid, K, M_env
+    return pool, lk, stats, ids, req_valid, K, M_env, sc
 
 
 def _finish_attention(mla_p, cfg, x_norm, positions, pool, lk, ids,
-                      req_valid, fetched, fork, K, M_env, overlap, slot_mask):
+                      req_valid, fetched, fork, K, M_env, overlap, slot_mask,
+                      resolve=None):
     """Attn0 on pool-resident rows, Attn1 on ``fetched``, exact merge (or
     one union attention for ``none``); then LRU admission.  ``fork`` is
     the fetch's: joined before anything reads ``fetched`` (Attn1, the
-    merge, the admission that writes the rows into the pool).  Returns
-    ``(out, pool)``; the caller ticks the clock."""
+    merge, the admission that writes the rows into the pool), and then
+    ``resolve(fetched)``, if given, makes the miss rows from it (the staged
+    round's sources).  Returns ``(out, pool)``; the caller ticks the
+    clock."""
     B, Q, _ = x_norm.shape
     q_comb = M.absorbed_query(mla_p, cfg, x_norm, positions)     # [B,Q,H,D]
     D = fetched.shape[-1]
-    if overlap == "none":
+
+    def joined():
         fork.join()
+        return fetched if resolve is None else resolve(fetched)
+    if overlap == "none":
+        fetched = joined()
         rows_hit, _ = LP.gather_resident(pool, lk.slot, lk.hit)
         fr = fetched.gather(1, lk.miss_rank.clamp(0, M_env - 1)[..., None]
                             .expand(B, Q * K, D))
@@ -242,7 +251,7 @@ def _finish_attention(mla_p, cfg, x_norm, positions, pool, lk, ids,
         mvalid = lk.miss_ids >= 0
         fvalid = _fetch_valid(lk, B, Q, K, M_env) & mvalid[:, None] \
             if Q > 1 else mvalid[:, None]
-        fork.join()
+        fetched = joined()
         p1 = _attend_rows(q_comb, fetched[:, None].expand(B, Q, -1, D)
                           if Q > 1 else fetched[:, None], fvalid, cfg)
         part = M.merge_partials(p0, p1)
@@ -279,7 +288,7 @@ def _dba(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys, lens,
     for sl, st, sm in halves:
         # half-2's indexer and lookup go on the current stream while
         # half-1's fetch runs on the fetch stream
-        pool, lk, stats, ids, rv, K, M_env = _topk_and_lookup(
+        pool, lk, stats, ids, rv, K, M_env, _ = _topk_and_lookup(
             idx_p, cfg, x_norm[sl], st, idx_keys[sl], lens[sl], sm)
         looked.append((pool, lk, stats, ids, rv))
         fetches.append(_fork_fetch(st, lk.miss_ids, fetch_stream))
@@ -297,3 +306,81 @@ def _dba(mla_p, idx_p, cfg, x_norm, positions, state, idx_keys, lens,
     pool = LP.tick(state.pool)
     return torch.cat(outs, 0), state._replace(pool=pool), ESSStats(
         torch.cat(hit), torch.cat(miss), torch.cat(ovf))
+
+
+def ess_sparse_attention_staged(mla_p: dict, idx_p: dict, cfg: ArchConfig,
+                                x_norm: torch.Tensor, positions: torch.Tensor,
+                                state: ESSLayerState, idx_keys: torch.Tensor,
+                                lens: torch.Tensor, *, new_rows: torch.Tensor,
+                                widx: torch.Tensor,
+                                staged_ids_l: torch.Tensor,
+                                staged_rows_l: torch.Tensor,
+                                staged_scales_l: torch.Tensor | None = None,
+                                overlap: str = "da",
+                                slot_mask: torch.Tensor | None = None,
+                                fetch_stream: torch.cuda.Stream | None = None):
+    """One layer of the pipelined round's compute stage: the selection of
+    :func:`ess_sparse_attention` (indexer, top-k, pool lookup, admission),
+    with each miss row taken from the first of three sources:
+
+    1. the round's own appended rows, ``new_rows [B,Q,D]`` at positions
+       ``widx [B,Q]`` (their tier write waits for the commit stage): the
+       value a write and a read back through the tier would give;
+    2. the slab staged last round, ``staged_ids_l [B,P]`` /
+       ``staged_rows_l [B,P,D]`` (a quantized tier's payload and its
+       ``staged_scales_l``, dequantized here at miss width);
+    3. the synchronous tier gather of the rest, forked onto
+       ``fetch_stream`` as DA's fetch is and joined before Attn1, the merge
+       and the admission.
+
+    The reference branches on device values (``lax.cond``: any valid miss,
+    any miss the slab lacks); a CUDA graph cannot, so every side runs and
+    the selects pick the same values.  An all ``-1`` fallback reads nothing
+    over the link (the gather writes zeros for negative ids).
+    ``overlap="dba"`` runs as DA, as in the reference: the slab already
+    takes the fetch off the critical path.
+
+    Returns ``(out, state, stats, plan_sig, (hits, unmatched))``:
+    ``plan_sig = (sc_last [B,S], qlens_last [B], slot_of [B,S])`` (the last
+    query's indexer scores, its horizon, the post-admission pool map), and
+    the slab hits and fallback misses per slot ``[B]`` int32, zero for
+    masked slots."""
+    B, Q, _ = x_norm.shape
+    live = torch.ones((B,), dtype=torch.bool, device=x_norm.device) \
+        if slot_mask is None else slot_mask
+    pool, lk, stats, ids, req_valid, K, M_env, sc = _topk_and_lookup(
+        idx_p, cfg, x_norm, state, idx_keys, lens, slot_mask)
+
+    mvalid = lk.miss_ids >= 0
+    D = new_rows.shape[-1]
+    own_eq = (lk.miss_ids[:, :, None] == widx[:, None, :]) \
+        & (widx >= 0)[:, None, :]                                  # [B,M,Q]
+    own = own_eq.any(-1)
+    own_rows = new_rows.gather(
+        1, TR.first_true(own_eq)[..., None].expand(B, -1, D))      # [B,M,D]
+    need = mvalid & ~own
+    smatch, srows = TR.match_staged(staged_ids_l, staged_rows_l,
+                                    lk.miss_ids, need,
+                                    staged_scales_l=staged_scales_l,
+                                    out_dtype=new_rows.dtype)
+    unmatched = need & ~smatch
+    fb, fork = _fork_fetch(state, torch.where(unmatched, lk.miss_ids, -1),
+                           fetch_stream if overlap != "none" else None,
+                           out_dtype=new_rows.dtype)
+
+    def resolve(fb_rows):
+        fetched = torch.where(own[..., None], own_rows,
+                              torch.where(smatch[..., None], srows, fb_rows))
+        return torch.where(mvalid[..., None], fetched,
+                           torch.zeros_like(fetched))
+
+    out, pool = _finish_attention(mla_p, cfg, x_norm, positions, pool, lk,
+                                  ids, req_valid, fb, fork, K, M_env,
+                                  "da" if overlap == "dba" else overlap,
+                                  slot_mask, resolve=resolve)
+    pool = LP.tick(pool)
+    qlast = lens[:, -1] if lens.dim() == 2 else lens
+    liv = live.int()
+    return out, state._replace(pool=pool), ESSStats(*stats), \
+        (sc[:, -1], qlast, pool.slot_of), \
+        (smatch.int().sum(-1) * liv, unmatched.int().sum(-1) * liv)

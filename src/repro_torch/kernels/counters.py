@@ -17,7 +17,8 @@ from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.kernels.indexer import ops as iops
 from repro_torch.kernels.sparse_mla import ops as sops
 
-WRAPPERS = (gops.gather_rows, gops.gather_rows_dequant, gops.scatter_rows,
+WRAPPERS = (gops.gather_rows, gops.gather_rows_dequant,
+            gops.gather_rows_raw, gops.scatter_rows,
             gops.gather_pages, gops.gather_pages_dequant,
             iops.indexer_scores, sops.partial_attend, sops.merge_splits)
 

@@ -3,7 +3,8 @@
 //
 // Replaces, in src/repro/kernels/gather_cache/gather_cache.py:
 //   gather_rows_kernel               -> gather_rows_kernel (direct route),
-//                                       mark/fetch/expand (staged route)
+//                                       mark/fetch/expand (staged route),
+//                                       gather_rows_raw_kernel (the slab)
 //   gather_rows_dequant_kernel       -> gather_rows_dequant_kernel (direct),
 //                                       mark/fetch_dequant/expand (staged)
 //   gather_row_blocks_kernel         -> gather_pages_kernel
@@ -42,6 +43,12 @@
 // through the paired converter), the product is one fp32 multiply and the
 // bf16 result is rounded to nearest even, so the output equals the plain
 // PyTorch version (q.float() * s.float()) bit for bit.
+//
+// * raw (the pipelined round's staging slab): the direct route's warp per
+//   id, copying the tier's stored bytes with no widening -- a bf16 row, or
+//   a quantized row's int8/fp8 payload and, in the same launch, its 2-byte
+//   f16 scale (lane 0 loads it beside the payload vectors), so the slab
+//   holds the tier's own bytes and dequantizes later at miss width.
 //
 // A launch of a row gather may be given a counter (int32 on the device):
 // it adds the number of tier rows the launch read over the link (the live
@@ -120,6 +127,38 @@ __global__ void gather_rows_kernel(const uint4* __restrict__ src,
   if (id >= s) id = s - 1;
   copy_row_warp<kStream>(src + id * vpr, dst, vpr, lane);
   if (count != nullptr && lane == 0) atomicAdd(count, 1);
+}
+
+// The raw gather: out[i] = src[clip(ids[i])] and, with kScales, out_s[i] =
+// scales[clip(ids[i])] (the f16 scale as its 16 bits); zero rows and zero
+// scales where ids[i] < 0, which read nothing from src.  One warp per row.
+template <bool kScales>
+__global__ void gather_rows_raw_kernel(const uint4* __restrict__ src,
+                                       const uint16_t* __restrict__ scales,
+                                       const int64_t* __restrict__ ids,
+                                       uint4* __restrict__ out,
+                                       uint16_t* __restrict__ out_s, int64_t m,
+                                       int64_t s, int vpr,
+                                       int* __restrict__ count) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  if (row >= m) return;
+  const int lane = threadIdx.x & 31;
+  int64_t id = ids[row];
+  uint4* dst = out + row * vpr;
+  if (id < 0) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int j = lane; j < vpr; j += 32) dst[j] = z;
+    if (kScales && lane == 0) out_s[row] = 0;
+    return;
+  }
+  if (id >= s) id = s - 1;
+  uint16_t sv = 0;
+  if (kScales && lane == 0) sv = scales[id];   // in flight with the payload
+  copy_row_warp<false>(src + id * vpr, dst, vpr, lane);
+  if (lane == 0) {
+    if (kScales) out_s[row] = sv;
+    if (count != nullptr) atomicAdd(count, 1);
+  }
 }
 
 // ---- the staged route: mark, fetch, expand ------------------------------
@@ -395,6 +434,28 @@ int ess_gather_rows(const void* src, const int64_t* ids, void* out,
   gather_rows_kernel<false><<<row_grid(m), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)src, ids, (uint4*)out, m, s, (int)(row_bytes / 16),
       count);
+  return (int)cudaGetLastError();
+}
+
+// The raw gather (direct route, no widening): out[i] = src[c] and, when
+// scales is not null, out_scales[i] = scales[c] (f16, one per row), c =
+// clip(ids[i]); zero rows and scales where ids[i] < 0.  row_bytes is a
+// multiple of 16.  count (may be null): += rows read from src.
+int ess_gather_rows_raw(const void* src, const void* scales,
+                        const int64_t* ids, void* out, void* out_scales,
+                        int64_t m, int64_t s, int64_t row_bytes, int* count,
+                        void* stream) {
+  if (m == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int vpr = (int)(row_bytes / 16);
+  if (scales != nullptr)
+    gather_rows_raw_kernel<true><<<row_grid(m), kThreads, 0, st>>>(
+        (const uint4*)src, (const uint16_t*)scales, ids, (uint4*)out,
+        (uint16_t*)out_scales, m, s, vpr, count);
+  else
+    gather_rows_raw_kernel<false><<<row_grid(m), kThreads, 0, st>>>(
+        (const uint4*)src, nullptr, ids, (uint4*)out, nullptr, m, s, vpr,
+        count);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ alone): *direct*, one warp per id reading its row over the link, or
 *staged*, where each distinct row crosses the link once per launch into a
 device staging buffer that is then expanded to the ids.  Their counters
 split ``launches`` into ``launches_direct`` and ``launches_staged``.
+:func:`gather_rows_raw` is the direct route without widening: a quantized
+tier's payload and scale in one launch (the pipelined round's slab).
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def _lib() -> ctypes.CDLL:
         lib.ess_gather_rows_staged.argtypes = [_P, _P, _P, _P, _P, _I64,
                                                _I64, _I64, _P, _P]
         lib.ess_gather_rows_staged.restype = ctypes.c_int
+        lib.ess_gather_rows_raw.argtypes = [_P, _P, _P, _P, _P, _I64, _I64,
+                                            _I64, _P, _P]
+        lib.ess_gather_rows_raw.restype = ctypes.c_int
         lib.ess_scatter_rows.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
         lib.ess_scatter_rows.restype = ctypes.c_int
         lib.ess_gather_rows_dequant.argtypes = [
@@ -200,6 +205,58 @@ def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
 gather_rows.launches = 0
 gather_rows.launches_direct = 0
 gather_rows.launches_staged = 0
+
+
+def gather_rows_raw(cache: torch.Tensor, scales: torch.Tensor | None,
+                    ids: torch.Tensor, *, out: torch.Tensor | None = None,
+                    out_scales: torch.Tensor | None = None,
+                    fetched: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The tier's stored bytes, not widened: cache [S,D] (bf16, or an
+    int8/fp8 payload), scales [S,1] f16 or None, ids [...] -> ``(rows
+    [..., D] of the cache's dtype, scales [..., 1] or None)`` on
+    ``ids.device``; row ``clip(ids)``, zero rows and zero scales where
+    ``ids < 0`` (those read nothing).  One launch of the direct route's
+    warp per id moves the payload and its scale together (the pipelined
+    round's staging slab, which dequantizes later at miss width).
+    ``out`` / ``out_scales`` receive the results; ``fetched`` as
+    :func:`gather_rows`."""
+    if scales is not None and (
+            scales.dtype != torch.float16
+            or scales.shape != (*cache.shape[:-1], 1)):
+        raise ValueError("gather_rows_raw: scales must be f16 [..., 1], one "
+                         "per row of the cache")
+    D = cache.shape[-1]
+    if ids.device.type == "cpu":
+        if fetched is not None:
+            fetched += ref.rows_read(ids, cache.shape[0], False)
+        rows, sc = ref.gather_rows_raw_ref(cache, scales, ids)
+        return (rows if out is None else _into(out, rows, ids),
+                sc if out_scales is None or sc is None
+                else _into(out_scales, sc, ids))
+    if ids.device.type != "cuda":
+        raise ValueError(f"gather_rows_raw: unsupported device {ids.device}")
+    row_bytes = _check_rows(cache, "gather_rows_raw cache")
+    idf = ids.reshape(-1).to(torch.int64).contiguous()
+    rows = _out_rows(out, ids, D, cache.dtype)
+    sptr = optr = _P(None)
+    srows = None
+    if scales is not None:
+        _check_rows(scales, "gather_rows_raw scales", vec16=False)
+        srows = _out_rows(out_scales, ids, 1, scales.dtype)
+        sptr, optr = _P(device_pointer(scales)), _P(srows.data_ptr())
+    lib = _lib()
+    _build.check(lib, lib.ess_gather_rows_raw(
+        _P(device_pointer(cache)), sptr, _P(idf.data_ptr()),
+        _P(rows.data_ptr()), optr, ids.numel(), cache.shape[0], row_bytes,
+        _count_ptr(fetched, ids.device), _build.stream_ptr(rows)),
+        "gather_rows_raw")
+    gather_rows_raw.launches += 1
+    return (rows.view(*ids.shape, D),
+            None if srows is None else srows.view(*ids.shape, 1))
+
+
+gather_rows_raw.launches = 0
 
 
 def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,

@@ -15,6 +15,15 @@ def gather_rows_ref(cache: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where((ids >= 0)[..., None], rows, torch.zeros_like(rows))
 
 
+def gather_rows_raw_ref(cache: torch.Tensor, scales: torch.Tensor | None,
+                        ids: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`gather_rows_ref` of the stored bytes, and of the f16 scale
+    plane ``scales [S, 1]`` beside them (zero scales where ``ids < 0``)."""
+    return (gather_rows_ref(cache, ids),
+            None if scales is None else gather_rows_ref(scales, ids))
+
+
 def rows_read(ids: torch.Tensor, s: int, staged: bool) -> int:
     """Tier rows a row gather over ``s`` rows reads for ``ids``: every id
     ``>= 0`` on the direct route, each distinct clipped one once on the

@@ -11,11 +11,15 @@ indexer's (both routes' kernels), each also per decode round.  With
 ``--mtp-depth 1`` it also times the pieces a speculative round adds, each
 alone and replayed from a CUDA graph at the serve's batch: the sampler
 (``sample_batch`` over the vocabulary, two slots greedy, one top-k, one
-top-p) and the MTP draft (``mtp_draft``).
+top-p) and the MTP draft (``mtp_draft``).  With ``--overlap`` the decode
+rounds run pipelined (a staging slab of the session's default size, its
+gather and the fallback fetches on a fetch stream), and the slab gather's
+time beside other device work is printed too.
 
   python -m repro_torch.launch.profile_serve --arch deepseek-v32-exp-ess \\
       --layers 4 --requests 4 --prompt-len 8192 --new-tokens 32 \\
       --prefill-chunk 256 --rounds 5 [--chunk 9] [--host-cache-dtype int8]
+      [--overlap]
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ from repro_torch.models.params import init_params
 from repro_torch.serving import engine as E
 
 
-# kernel names of the row gathers' passes (direct, mark, fetch, expand)
+# kernel names of the row gathers' passes (direct, mark, fetch, expand;
+# the pipelined round's slab gather)
 _GATHER_KERNELS = ("gather_rows_kernel", "gather_rows_dequant_kernel",
-                   "mark_rows_kernel", "fetch_marked_rows")
+                   "mark_rows_kernel", "fetch_marked_rows",
+                   "gather_rows_raw_kernel")
+# the slab gather alone
+SLAB_KERNELS = ("gather_rows_raw_kernel",)
 # kernel names of the indexer's two routes (tensor-core, general)
 _INDEXER_KERNELS = ("indexer_tc_kernel", "indexer_scores_kernel")
 
@@ -73,11 +81,12 @@ def _summary(prof, wall_s: float, top: int, windows: int = 1) -> list[str]:
     return out
 
 
-def overlap_profile(prof) -> dict:
+def overlap_profile(prof, kernels: tuple = _GATHER_KERNELS) -> dict:
     """The device timeline of a profiled window, swept over every device
     activity's interval (kernels and copies): ``busy_us``, the time in
     which at least one ran; ``gather_us``, the time in which a tier row
-    gather ran (either route's passes); and ``overlap_us``, the
+    gather ran (either route's passes, the slab's; or the kernels named
+    in ``kernels``, e.g. :data:`SLAB_KERNELS`); and ``overlap_us``, the
     time in which a gather ran while another device activity ran too.  One
     stream runs one kernel at a time, so that time is a gather running
     beside work of another stream (the DA / DBA fetch stream, a TBO
@@ -88,7 +97,7 @@ def overlap_profile(prof) -> dict:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         if b > a:
-            g = any(k in ev.name for k in _GATHER_KERNELS)
+            g = any(k in ev.name for k in kernels)
             edges += [(a, 1, g), (b, -1, g)]
     edges.sort(key=lambda e: (e[0], e[1]))      # ends before starts
     n = ng = 0
@@ -158,6 +167,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--chunk", type=int, default=2,
                     help="the prefill chunk to profile (1-based)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="pipelined decode rounds (the staging slab)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
@@ -195,23 +206,41 @@ def main(argv=None) -> int:
     logits, caches = E.ess_prefill(params, cfg, tokens, positions, max_seq,
                                    prefill_chunk=C, last_logits_only=True)
     tok = logits[:, -1].argmax(-1)
-    o = E.ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches)
+    kw = {}
+    if args.overlap:
+        from repro_torch.core import transfer as TR
+        from repro_torch.core.overlap import side_stream
+        hs = caches.host_scales
+        P = max(1, int(cfg.ess.max_miss_ratio
+                       * min(cfg.dsa.index_topk, max_seq)))
+        kw = dict(staged=TR.empty_slab(
+            cfg.num_layers, B, P, caches.host_latent.shape[-1],
+            caches.host_latent.dtype, None if hs is None else hs.dtype,
+            device=dev), fetch_stream=side_stream(dev))
+    o = E.ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches,
+                     **kw)
     tok, caches = o.logits[:, 0].argmax(-1), o.caches
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.rounds):
             o = E.ess_decode(params, cfg, tok[:, None], caches.lens[:, None],
-                             caches)
+                             caches, **kw)
             tok, caches = o.logits[:, 0].argmax(-1), o.caches
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ov = overlap_profile(prof)
+    slab = ""
+    if args.overlap:
+        so = overlap_profile(prof, SLAB_KERNELS)
+        slab = (f"; the slab gather beside other device work "
+                f"{so['overlap_us'] / args.rounds:.1f} us/round of "
+                f"{so['gather_us'] / args.rounds:.1f}")
     print(f"decode: {args.rounds} rounds after the first "
           f"({wall * 1e3 / args.rounds:.2f} ms/round under the profiler; "
           f"gathers beside other device work "
           f"{ov['overlap_us'] / args.rounds:.1f} us/round of "
-          f"{ov['gather_us'] / args.rounds:.1f}):")
+          f"{ov['gather_us'] / args.rounds:.1f}{slab}):")
     print("\n".join(_summary(prof, wall, args.top, args.rounds)))
     if cfg.mtp_depth:
         print(_pieces(params, cfg, B, dev))

@@ -36,9 +36,12 @@ from repro_torch.cache import latent_cache as LC
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
+from repro_torch.core import transfer as TR
 from repro_torch.core import warmup as WU
-from repro_torch.core.overlap import (ESSLayerState, _attend_rows,
-                                      ess_sparse_attention, side_stream)
+from repro_torch.core.overlap import (ESSLayerState, Fork, _attend_rows,
+                                      ess_sparse_attention,
+                                      ess_sparse_attention_staged,
+                                      side_stream)
 from repro_torch.distributed import compression as cmp
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
@@ -90,11 +93,80 @@ def _append_ikeys(ik: torch.Tensor, widx: torch.Tensor, new_ik: torch.Tensor
                 (widx >= 0) & (widx < ik.shape[1]))
 
 
+def _commit_and_plan(cfg: ArchConfig, caches: LC.ESSCaches, staged: tuple,
+                     widx: torch.Tensor, live: torch.Tensor, lat_stack: list,
+                     scale_stack: list, sigs: list, misses: torch.Tensor,
+                     pf_h: torch.Tensor,
+                     fetch_stream: torch.cuda.Stream | None):
+    """The pipelined round's commit and plan stages, after its layer loop.
+
+    Commit: every layer's appended rows (a quantized tier's ``(q, s)``,
+    quantized once in the loop) go to the tier in one stacked write per
+    plane.  Plan: the layers' last-query scores, ranked in one batched
+    stable top-k over ``[L*B, S]``; ids already staged are kept with their
+    rows (the tier is append-only below the truncation edges, which cancel
+    what they invalidate); only new ids are gathered, forked onto
+    ``fetch_stream`` after the commit's write, so that the gather reads the
+    rows appended this round.  The reference plans only if the round missed
+    (``lax.cond``); here both sides run and ``torch.where`` keeps the old
+    slab when none did (the gather's ids are then all -1 and read nothing).
+
+    The new ids are written into the slab at once; returns ``(land,
+    pf_wasted [B])``: ``land()`` joins the gather and copies the new rows
+    (and scales) into the slab, in place."""
+    old_ids, old_rows, old_scales = staged
+    bt = caches.block_tables
+    offload.scatter_from_slab(
+        caches.host_latent, caches.host_scales, widx, torch.stack(lat_stack),
+        torch.stack(scale_stack) if scale_stack else None, slot_mask=None,
+        block_table=bt)
+    Lh, B, P = old_ids.shape
+    D = old_rows.shape[-1]
+    pf_w = (old_ids >= 0).sum((0, 2)).int() * live.int() - pf_h
+    pred = TR.plan_prefetch(
+        torch.stack([s[0] for s in sigs]).reshape(Lh * B, -1),
+        sigs[0][1].repeat(Lh),
+        torch.stack([s[2] for s in sigs]).reshape(Lh * B, -1),
+        live.repeat(Lh), cfg.dsa.index_topk, P).view(Lh, B, P)
+    go = (misses > 0).any()
+    eq = (pred[..., None] == old_ids[..., None, :]) \
+        & (old_ids >= 0)[..., None, :] & (pred >= 0)[..., None]   # [L,B,P,P]
+    have = eq.any(-1)
+    src = TR.first_true(eq)
+    rows_b = TR.raw_bytes(old_rows)
+    reused = rows_b.gather(2, src[..., None].expand(Lh, B, P, D))
+    reused_s = None if old_scales is None else old_scales.gather(
+        2, src[..., None])
+    new_ids = torch.where(go & ~have, pred, -1)
+    fresh = torch.empty((Lh, B, P, D), dtype=old_rows.dtype,
+                        device=old_rows.device)
+    fresh_s = None if old_scales is None else torch.empty(
+        (Lh, B, P, 1), dtype=old_scales.dtype, device=old_scales.device)
+    with Fork(fetch_stream, new_ids, fresh,
+              *([] if fresh_s is None else [fresh_s])) as fork:
+        offload.gather_into_slab(caches.host_latent, caches.host_scales,
+                                 new_ids, slot_mask=None, block_table=bt,
+                                 out=fresh, out_scales=fresh_s)
+    old_ids.copy_(torch.where(go, pred, old_ids))
+
+    def land() -> None:
+        fork.join()
+        keep = have[..., None]
+        rows_b.copy_(torch.where(go, torch.where(
+            keep, reused, TR.raw_bytes(fresh)), rows_b))
+        if old_scales is not None:
+            old_scales.copy_(torch.where(
+                go, torch.where(keep, reused_s, fresh_s), old_scales))
+    return land, pf_w
+
+
 def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                positions: torch.Tensor, caches: LC.ESSCaches, *,
                layerwise_policy: tuple[str, ...] | None = None,
                slot_mask: torch.Tensor | None = None,
-               fetch_stream: torch.cuda.Stream | None = None) -> DecodeOut:
+               fetch_stream: torch.cuda.Stream | None = None,
+               staged: tuple | None = None,
+               land_slab: bool = True) -> DecodeOut:
     """tokens [B,Q] -> logits [B,Q,V] fp32.  Q>1 = draft verification.
 
     ``slot_mask`` [B] marks live slots; masked slots write nothing, take no
@@ -104,7 +176,22 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     sessions run it); ``fetch_stream`` carries the DA / DBA miss fetches
     (:mod:`repro_torch.core.overlap`).  Updates the caches in place;
     ``stats`` holds per-slot ``hits`` / ``misses`` / ``overflow`` summed
-    over layers, and ``hidden``."""
+    over layers, and ``hidden``.
+
+    ``staged = (ids [L,B,P], rows [L,B,P,D], scales [L,B,P,1] | None)``,
+    the slab's persistent tensors (:mod:`repro_torch.core.transfer`),
+    makes this the **pipelined** round: each layer sources its misses from
+    its own appended rows, the slab and a fallback gather
+    (:func:`~repro_torch.core.overlap.ess_sparse_attention_staged`); the
+    layers' tier writes wait for one stacked commit after the loop; the
+    plan then stages the next round's rows into the slab, in place
+    (:func:`_commit_and_plan`), its gather on ``fetch_stream`` beside the
+    final norm and the unembedding.  ``land_slab=False`` leaves the
+    gather's join and the rows' copy to the caller, as
+    ``stats["land_slab"]()`` (the serve round runs the token selection
+    first).  ``stats`` gains the prefetch counters ``pf_hits`` /
+    ``pf_misses`` / ``pf_wasted`` ``[B]`` int32.  The streams equal the
+    synchronous round's."""
     B, Q = tokens.shape
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
     lens = caches.lens
@@ -117,6 +204,10 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     attn_lens = widx + 1        # query q sees positions <= its own
     hits = misses = ovf = torch.zeros((B,), dtype=torch.int64,
                                       device=tokens.device)
+    # the pipelined round: appended rows held for the commit, the layers'
+    # plan signals, the prefetch counters
+    lat_stack, scale_stack, sigs = [], [], []
+    pf_h = pf_m = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
 
     for layer in range(cfg.num_layers):
         lp, is_moe = _layer_params(params, cfg, layer)
@@ -127,17 +218,42 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         _append_ikeys(caches.ikeys[layer], widx,
                       M.indexer_keys(lp["indexer"], h))
         new_lat = M.latent_entries(lp["mla"], cfg, h, positions)
-        offload.scatter_tier_rows(caches.host_latent, caches.host_scales,
-                                  widx, new_lat, slot_mask=None, layer=layer,
-                                  block_table=caches.block_tables)
+        if staged is None:
+            offload.scatter_tier_rows(caches.host_latent, caches.host_scales,
+                                      widx, new_lat, slot_mask=None,
+                                      layer=layer,
+                                      block_table=caches.block_tables)
+        elif caches.host_scales is None:
+            own_rows = new_lat.to(caches.host_latent.dtype)
+            lat_stack.append(own_rows)
+        else:
+            # quantized once: the commit writes this (q, s) and the round's
+            # own misses read dequant(q, s), what the tier would give back
+            q_lat, s_lat = cmp.quantize_rows(new_lat,
+                                             caches.host_latent.dtype)
+            lat_stack.append(q_lat)
+            scale_stack.append(s_lat)
+            own_rows = cmp.dequantize_rows(q_lat, s_lat, cfg.param_dtype)
         st = ESSLayerState(caches.pools[layer], caches.host_latent, layer,
                            block_table=caches.block_tables,
                            host_scales=caches.host_scales)
-        attn, st2, stats = ess_sparse_attention(
-            lp["mla"], lp["indexer"], cfg, h, positions, st,
-            caches.ikeys[layer], attn_lens,
-            overlap=_overlap_for_layer(cfg, layer, layerwise_policy),
-            slot_mask=live, fetch_stream=fetch_stream)
+        ov = _overlap_for_layer(cfg, layer, layerwise_policy)
+        if staged is None:
+            attn, st2, stats = ess_sparse_attention(
+                lp["mla"], lp["indexer"], cfg, h, positions, st,
+                caches.ikeys[layer], attn_lens, overlap=ov, slot_mask=live,
+                fetch_stream=fetch_stream)
+        else:
+            attn, st2, stats, sig, pf = ess_sparse_attention_staged(
+                lp["mla"], lp["indexer"], cfg, h, positions, st,
+                caches.ikeys[layer], attn_lens, new_rows=own_rows, widx=widx,
+                staged_ids_l=staged[0][layer],
+                staged_rows_l=staged[1][layer],
+                staged_scales_l=None if staged[2] is None
+                else staged[2][layer], overlap=ov, slot_mask=live,
+                fetch_stream=fetch_stream)
+            sigs.append(sig)
+            pf_h, pf_m = pf_h + pf[0], pf_m + pf[1]
         caches.pools[layer] = st2.pool
         x = x + attn
         x = x + _ffn(lp, cfg, x, is_moe)
@@ -145,10 +261,20 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         misses = misses + stats.misses
         ovf = ovf + stats.overflow
 
+    if staged is not None:
+        land, pf_w = _commit_and_plan(cfg, caches, staged, widx, live,
+                                      lat_stack, scale_stack, sigs, misses,
+                                      pf_h, fetch_stream)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params.get("unembed", params["embed"]), x)
     stats_out = {"hits": hits, "misses": misses, "overflow": ovf,
                  "hidden": x}
+    if staged is not None:
+        stats_out.update(pf_hits=pf_h, pf_misses=pf_m, pf_wasted=pf_w)
+        if land_slab:
+            land()
+        else:
+            stats_out["land_slab"] = land
     return DecodeOut(logits, caches._replace(lens=new_lens), stats_out)
 
 
@@ -402,9 +528,10 @@ def device_get(parts: list, pinned: Optional[torch.Tensor] = None
     return dst.numpy().copy()
 
 
-# decode rounds before a freshly promoted slot's working set is warm;
-# excluded from the decode cadence (ServeReport.rounds_per_s), as in the
-# reference, whose pipelined round needs them to fill its slab
+# decode rounds before a freshly promoted slot's working set is warm and,
+# pipelined, its slab filled (round N computes on rows staged in round
+# N-1, planned from round N-2's scores); excluded from the decode cadence
+# (ServeReport.rounds_per_s) in both modes, as in the reference
 PIPELINE_FILL_ROUNDS = 2
 
 
@@ -439,6 +566,18 @@ class ServeReport:
     spec_rounds: int = 0                # rounds run as draft + verify
     drafted_tokens: int = 0             # greedy slots' drafts scored
     accepted_tokens: int = 0            # drafts accepted (bonus excluded)
+    # the pipelined round's prefetch accounting, summed over layers and
+    # slots: staged rows that served misses, misses the fallback gathered,
+    # staged rows nobody requested
+    prefetch_hits: int = 0
+    prefetch_misses: int = 0
+    prefetch_wasted_rows: int = 0
+
+    @property
+    def prefetch_hit_rate(self) -> float:
+        """Slab hits over the misses that needed tier rows."""
+        tot = self.prefetch_hits + self.prefetch_misses
+        return self.prefetch_hits / tot if tot else 0.0
 
     @property
     def tokens_per_s(self) -> float:
@@ -485,8 +624,7 @@ class _PrefillTask:
 
 class ServeSession:
     """One long-lived ESS decode batch driven by the continuous-batching
-    scheduler (counterpart of ``repro.serving.engine.ServeSession`` in its
-    synchronous form: no pipelined slab).
+    scheduler (counterpart of ``repro.serving.engine.ServeSession``).
 
     * ``num_slots`` decode slots share one batch; more requests than slots
       stream through as slots free up.
@@ -533,6 +671,16 @@ class ServeSession:
     * ``do_warmup=True`` runs the LRU-warmup replay after a slot's last
       chunk (ragged chunks, the first token resolved on the host, as the
       reference's legacy path does).
+    * ``overlap=True`` runs every round **pipelined** (plan -> compute ->
+      commit): each layer's misses come from the round's own rows, a
+      staging slab of ``prefetch_rows`` rows per layer and slot filled
+      during the previous round, and a fallback gather; the appended rows
+      reach the tier in one stacked write at the end, and the slab for the
+      next round is planned from this round's indexer scores and gathered
+      on the fetch stream (:mod:`repro_torch.core.transfer`).  The streams
+      equal the synchronous session's; ``report`` counts prefetch hits,
+      misses and wasted rows.  The slab's default size is the miss
+      envelope, ``max_miss_ratio * min(index_topk, max_seq)`` rows.
     """
 
     def __init__(self, params: dict, cfg: ArchConfig, *, num_slots: int,
@@ -541,7 +689,8 @@ class ServeSession:
                  prompt_fn: Optional[Callable[[Request], Any]] = None,
                  do_warmup: bool = False, prefill_chunk: int = 64,
                  mtp_depth: int = 0, tbo: bool = False,
-                 compiled: bool = True, device=None):
+                 compiled: bool = True, overlap: bool = False,
+                 prefetch_rows: Optional[int] = None, device=None):
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -555,6 +704,12 @@ class ServeSession:
                              f"{cfg.mtp_depth} stacked draft modules")
         self.mtp_depth = max(0, mtp_depth)
         self.tbo = tbo and num_slots >= 2
+        self.overlap = overlap
+        self.prefetch_rows = 0
+        if overlap:
+            self.prefetch_rows = prefetch_rows if prefetch_rows is not None \
+                else max(1, int(cfg.ess.max_miss_ratio
+                                * min(cfg.dsa.index_topk, max_seq)))
         self.paged = LC.uses_paged_host(cfg)
         blocks_per_slot = LC.num_blocks(cfg, max_seq)
         self.num_pages = 0
@@ -575,9 +730,20 @@ class ServeSession:
             cfg, num_slots, max_seq, cfg.param_dtype, device=self.device,
             num_pages=self.num_pages if self.paged else None,
             map_slots=not self.paged)
-        self.state = ES.init_engine_state(cfg, caches, num_slots)
+        self.state = ES.init_engine_state(cfg, caches, num_slots,
+                                          prefetch_rows=self.prefetch_rows)
+        # the slab's lifecycle edges and the prefetch accounting; None
+        # when synchronous
+        self.transfer: Optional[TR.TransferEngine] = None
+        if self.prefetch_rows > 0:
+            hs = caches.host_scales
+            self.transfer = TR.TransferEngine(
+                cfg.num_layers, num_slots, self.prefetch_rows,
+                caches.host_latent.shape[-1], caches.host_latent.dtype,
+                scale_dtype=None if hs is None else hs.dtype)
         self._out = ES.init_round_out(num_slots, self.mtp_depth + 1,
-                                      self.device)
+                                      self.device,
+                                      prefetch=self.transfer is not None)
         # the fetch's host side: the round result plus a first token per
         # slot at most
         self._pinned = None
@@ -940,6 +1106,10 @@ class ServeSession:
         lens[slot].sub_(n_drop)                 # a Python int: no host copy
         for p in self.caches.pools:
             LP.invalidate_beyond(p, lens)
+        if self.transfer is not None:
+            # staged ids beyond the cut: their rows are about to be
+            # written again (the new length stays on the device)
+            self.transfer.truncate_slot(self.state, slot, lens[slot])
 
     def _plan_round(self) -> Optional[_RoundPlan]:
         """Plan stage: sample page pressure, collect the just-promoted
@@ -982,10 +1152,14 @@ class ServeSession:
                           self._pinned)
         t_deliver = time.perf_counter()
         B, n = self.num_slots, out.packed.numel()
-        toks = host[:B * out.tokens.shape[1]].reshape(B, -1)
-        n_emit = host[B * out.tokens.shape[1]:n - 2]
-        self.report.h2d_rows += int(host[n - 2])
-        self.report.hit_rows += int(host[n - 1])
+        nq = B * out.tokens.shape[1]
+        toks = host[:nq].reshape(B, -1)
+        n_emit = host[nq:nq + B]
+        self.report.h2d_rows += int(host[nq + B])
+        self.report.hit_rows += int(host[nq + B + 1])
+        if self.transfer is not None:
+            pf = host[nq + B + 2:n].reshape(3, B).sum(1)
+            self.transfer.commit(self.report, *pf)
         t0s = host[n:]
         # every live slot appends Q latent rows per layer
         q_round = self.mtp_depth + 1 if spec else 1

@@ -13,8 +13,9 @@ unembed and a greedy argmax.
 Verify: one ``ess_decode`` step at Q = depth + 1 scores every draft; a
 draft is accepted while it equals the model's own argmax (``cumprod`` of
 the matches); the rejected positions roll back in place: ``lens``
-shrinks and every pool drops its entries beyond (``invalidate_beyond``).
-Everything is sync-free, so the round runs inside a CUDA graph.
+shrinks, every pool drops its entries beyond (``invalidate_beyond``) and
+a pipelined round's slab cancels its staged ids beyond.  Everything is
+sync-free, so the round runs inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ def speculative_step(params: dict, cfg: ArchConfig, caches,
                      slot_mask: Optional[torch.Tensor] = None,
                      sample_mask: Optional[torch.Tensor] = None,
                      depth: Optional[int] = None,
-                     decode_fn: Optional[Callable] = None) -> SpecOut:
+                     decode_fn: Optional[Callable] = None,
+                     staged_ids: Optional[torch.Tensor] = None) -> SpecOut:
     """One MTP speculative round over the slot batch: the drafts, then the
     verify step at Q = depth + 1, ``decode_fn(params, cfg, tokens,
     positions, caches) -> DecodeOut`` (the reference's seam; by default
@@ -99,7 +101,10 @@ def speculative_step(params: dict, cfg: ArchConfig, caches,
 
     ``caches.lens`` is corrected in place, then every pool drops its
     entries at rejected positions (after the verify step's admit and
-    tick, as ``invalidate_beyond`` requires)."""
+    tick, as ``invalidate_beyond`` requires), and ``staged_ids [L,B,P]``
+    (a pipelined round's slab, which the verify step has just planned)
+    cancels its ids at those positions: their tier rows hold rejected
+    drafts, which the next round's appends overwrite."""
     from repro_torch.serving import engine as E   # engine imports this
     B = prev_tok.shape[0]
     depth = cfg.mtp_depth if depth is None else depth
@@ -125,6 +130,9 @@ def speculative_step(params: dict, cfg: ArchConfig, caches,
     caches.lens.copy_(corrected)
     for p in out.caches.pools:
         LP.invalidate_beyond(p, caches.lens)
+    if staged_ids is not None:
+        staged_ids.copy_(torch.where(staged_ids < caches.lens[None, :, None],
+                                     staged_ids, -1))
 
     hid = out.stats["hidden"]                                      # [B,Q,d]
     last = n_acc.clamp(0, depth)[:, None, None].expand(B, 1, hid.shape[-1])

@@ -45,7 +45,15 @@ Both round kinds step the model through one raw step (the reference's
 ``_make_raw_step``): ``ess_decode``, or with ``tbo`` the Two-Batch
 Overlap composition (:mod:`repro_torch.serving.tbo`), whose half B runs
 on a stream of its own.  The DA / DBA miss fetches fork onto fetch
-streams.  These side streams are made once, by :class:`StepPrograms`,
+streams.
+
+A pipelined session's state holds the staging slab
+(:mod:`repro_torch.core.transfer`); both round kinds then read it in
+each layer and plan the next one after the layer loop, its gather forked
+onto the fetch stream beside the final norm, the unembedding and the token
+selection, and joined before the slab's rows are copied into place at the
+end of the round (a TBO half lands its own before its join).  The round's
+prefetch counters ride in ``RoundOut``, in the round's one fetch.  These side streams are made once, by :class:`StepPrograms`,
 outside any capture; each fork inside a round is joined inside it, so a
 captured round's side streams are parallel branches of its graph.
 
@@ -93,22 +101,41 @@ def _select(state: EngineState, logits: torch.Tensor, g: torch.Tensor,
 
 
 def _make_raw_step(tbo: bool, streams: TBO.Streams) -> Callable:
-    """``(params, cfg, tokens [B,Q], positions [B,Q], caches, slot_mask)
-    -> DecodeOut``: the model step both round kinds share, TBO-composed
-    when ``tbo`` and the batch has two slots or more."""
+    """``(params, cfg, tokens [B,Q], positions [B,Q], caches, slot_mask,
+    staged) -> DecodeOut``: the model step both round kinds share,
+    TBO-composed when ``tbo`` and the batch has two slots or more.  With a
+    slab ``staged``, the whole batch's step leaves the slab's landing to
+    the caller (``stats["land_slab"]``); TBO halves land their own."""
     from repro_torch.serving import engine as E   # engine imports this
 
-    def raw(params, cfg, tokens, positions, caches, slot_mask=None):
+    def raw(params, cfg, tokens, positions, caches, slot_mask=None,
+            staged=None):
         if tbo and tokens.shape[0] >= 2:
             logits, merged, stats = TBO.tbo_step(
                 E.ess_decode, params, cfg, tokens, positions, caches,
-                slot_mask=slot_mask, streams=streams)
+                slot_mask=slot_mask, streams=streams, staged=staged)
             return E.DecodeOut(logits, merged, stats)
         return E.ess_decode(params, cfg, tokens, positions, caches,
                             slot_mask=slot_mask,
-                            fetch_stream=streams.fetch_a)
+                            fetch_stream=streams.fetch_a, staged=staged,
+                            land_slab=False)
 
     return raw
+
+
+def _land(stats: dict) -> None:
+    """Join a pipelined step's slab gather and copy its rows into place
+    (nothing to do for a synchronous step or TBO halves, which landed)."""
+    land = stats.pop("land_slab", None)
+    if land is not None:
+        land()
+
+
+def _pack_prefetch(out: RoundOut, stats: dict) -> None:
+    if out.pf_hits is not None:
+        out.pf_hits.copy_(stats["pf_hits"])
+        out.pf_misses.copy_(stats["pf_misses"])
+        out.pf_wasted.copy_(stats["pf_wasted"])
 
 
 def _decode_round_fn(cfg: ArchConfig, raw: Callable, sampled: bool
@@ -118,9 +145,10 @@ def _decode_round_fn(cfg: ArchConfig, raw: Callable, sampled: bool
         caches = state.caches
         live = state.slot_mask
         o = raw(params, cfg, state.tok[:, None], caches.lens[:, None],
-                caches, slot_mask=live)
+                caches, slot_mask=live, staged=state.staged)
         logits = o.logits[:, -1]                                  # [B,V]
         t = _select(state, logits, greedy(logits), sampled)
+        _land(o.stats)
         caches.lens.copy_(o.caches.lens)
         state.tok.copy_(torch.where(live, t, state.tok))
         state.hidden.copy_(torch.where(live[:, None],
@@ -131,6 +159,7 @@ def _decode_round_fn(cfg: ArchConfig, raw: Callable, sampled: bool
         out.n_emit.copy_(live.long())
         out.h2d_rows.copy_(o.stats["misses"].sum().view(1))
         out.hit_rows.copy_(o.stats["hits"].sum().view(1))
+        _pack_prefetch(out, o.stats)
 
     return fn
 
@@ -145,12 +174,14 @@ def _spec_round_fn(cfg: ArchConfig, raw: Callable, depth: int,
         live = state.slot_mask
 
         def verify(p_, c_, t_, po_, ca_):
-            return raw(p_, c_, t_, po_, ca_, slot_mask=live)
+            return raw(p_, c_, t_, po_, ca_, slot_mask=live,
+                       staged=state.staged)
         spec = MTP.speculative_step(
             params, cfg, state.caches, state.tok, state.hidden,
             slot_mask=live, sample_mask=state.sample_mask, depth=depth,
-            decode_fn=verify)
+            decode_fn=verify, staged_ids=state.staged_ids)
         t0 = _select(state, spec.logits[:, 0], spec.tokens[:, 0], sampled)
+        _land(spec.stats)
         tokens = torch.cat([t0[:, None], spec.tokens[:, 1:]], dim=1)
         n_emit = torch.where(live, torch.where(state.sample_mask, 1,
                                                spec.n_accepted), 0)
@@ -163,6 +194,7 @@ def _spec_round_fn(cfg: ArchConfig, raw: Callable, depth: int,
         out.n_emit.copy_(n_emit)
         out.h2d_rows.copy_(spec.stats["misses"].sum().view(1))
         out.hit_rows.copy_(spec.stats["hits"].sum().view(1))
+        _pack_prefetch(out, spec.stats)
 
     return fn
 

@@ -24,6 +24,10 @@ equal the reference's.  The merge copies back only what a step rebinds:
 Each half dispatches its own tokens through the MoE, with its own
 capacity ``ceil(T_half * K / E * cf)``, as the reference's halves do; a
 TBO round therefore reads the experts' weights twice.
+
+A pipelined round's staging slab splits along its slot axis as views
+(``[:, :h]``, ``[:, h:]``): each half commits, plans and lands its own
+slab half in place, its gather on its own fetch stream.
 """
 
 from __future__ import annotations
@@ -83,15 +87,29 @@ def merge_caches(caches: LC.ESSCaches, caches_a: LC.ESSCaches,
     return caches
 
 
+def split_slab(staged: Optional[tuple], half: int
+               ) -> tuple[dict, dict]:
+    """A slab ``(ids, rows, scales)`` split on its slot axis into views,
+    as each half's ``staged=`` keyword (none without a slab)."""
+    if staged is None:
+        return {}, {}
+    return tuple({"staged": tuple(None if t is None else t[:, sl]
+                                  for t in staged)}
+                 for sl in (slice(0, half), slice(half, None)))
+
+
 def two_batch_step(step_fn: Callable, params: dict, cfg, tokens, positions,
                    caches_a: LC.ESSCaches, caches_b: LC.ESSCaches, *,
                    slot_mask: Optional[torch.Tensor] = None,
-                   streams: Optional[Streams] = None):
+                   streams: Optional[Streams] = None,
+                   staged: Optional[tuple] = None):
     """tokens / positions [B,Q] split at ``B // 2`` over pre-split caches
     (:func:`split_caches`).  ``step_fn(params, cfg, tokens, positions,
     caches, slot_mask=..., fetch_stream=...)`` steps one half (e.g.
-    ``engine.ess_decode``); ``slot_mask`` [B] splits alongside.  Half B
-    runs on ``streams.half_b`` and is joined before this returns.
+    ``engine.ess_decode``); ``slot_mask`` [B] splits alongside, and a
+    pipelined round's slab ``staged`` (passed on as ``staged=``) on its
+    slot axis.  Half B runs on ``streams.half_b`` and is joined before
+    this returns.
 
     Returns ``(logits [B,Q,V], caches_a', caches_b', stats)``, ``stats``
     the halves' concatenated along the batch."""
@@ -100,14 +118,15 @@ def two_batch_step(step_fn: Callable, params: dict, cfg, tokens, positions,
     sm_a = sm_b = None
     if slot_mask is not None:
         sm_a, sm_b = slot_mask[:h], slot_mask[h:]
+    kw_a, kw_b = split_slab(staged, h)
     crossing = [tokens, positions] + [p.step for p in caches_b.pools]
     if slot_mask is not None:
         crossing.append(slot_mask)
     with Fork(streams.half_b, *crossing) as fork_b:
         out_b = step_fn(params, cfg, tokens[h:], positions[h:], caches_b,
-                        slot_mask=sm_b, fetch_stream=streams.fetch_b)
+                        slot_mask=sm_b, fetch_stream=streams.fetch_b, **kw_b)
     out_a = step_fn(params, cfg, tokens[:h], positions[:h], caches_a,
-                    slot_mask=sm_a, fetch_stream=streams.fetch_a)
+                    slot_mask=sm_a, fetch_stream=streams.fetch_a, **kw_a)
     fork_b.join()
     logits = torch.cat([out_a.logits, out_b.logits])
     stats = {k: torch.cat([out_a.stats[k], out_b.stats[k]])
@@ -118,11 +137,12 @@ def two_batch_step(step_fn: Callable, params: dict, cfg, tokens, positions,
 def tbo_step(step_fn: Callable, params: dict, cfg, tokens, positions,
              caches: LC.ESSCaches, *,
              slot_mask: Optional[torch.Tensor] = None,
-             streams: Optional[Streams] = None):
+             streams: Optional[Streams] = None,
+             staged: Optional[tuple] = None):
     """Split, step both halves, merge: the step-level TBO block of the
     serve round.  Returns ``(logits [B,Q,V], caches, stats)``."""
     ca, cb = split_caches(caches, tokens.shape[0] // 2)
     logits, ca2, cb2, stats = two_batch_step(
         step_fn, params, cfg, tokens, positions, ca, cb,
-        slot_mask=slot_mask, streams=streams)
+        slot_mask=slot_mask, streams=streams, staged=staged)
     return logits, merge_caches(caches, ca2, cb2), stats

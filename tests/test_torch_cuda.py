@@ -1012,3 +1012,205 @@ def test_cuda_overlap_profiled_graph_rounds(cuda, case):
     ov = overlap_profile(prof)
     print(f"{case}: {ov}")
     assert ov["gather_us"] > 0 and ov["overlap_us"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The pipelined round: the slab gather, graph rounds, host syncs
+# ---------------------------------------------------------------------------
+
+def _stacked_tier(g, name, paged, L=3, B=4, S=96, R=16, D=576):
+    """A pinned stacked tier ([L, B*S/R, R, D] paged with shuffled block
+    tables, or [L, B, S, D] dense) of ``name`` (bf16, or an int8 / fp8
+    payload with its f16 scales)."""
+    from repro_torch.distributed import compression as cmp
+    lead = (L, B * S // R, R) if paged else (L, B, S)
+    x = torch.randn(lead + (D,), generator=g)
+    scales = None
+    if name == "bf16":
+        host = x.to(torch.bfloat16)
+    else:
+        host, scales = cmp.quantize_rows(x, QDT[name])
+        scales = scales.pin_memory()
+    bt = torch.randperm(B * S // R, generator=g).view(B, S // R) \
+        if paged else None
+    return host.pin_memory(), scales, bt
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("name", ["int8", "fp8", "bf16"])
+def test_cuda_gather_into_slab_bitwise(cuda, name, paged):
+    """The slab gather (one ``gather_rows_raw`` launch over every layer:
+    payload and, for a quantized tier, its scale, raw) against its plain
+    version on the same pinned tier, bit for bit; ids -1 (zero rows and
+    scales), live and past the end; one dense TBO half's view too."""
+    from repro_torch.core import offload as TO
+    g = torch.Generator().manual_seed(4)
+    host, scales, bt = _stacked_tier(g, name, paged)
+    ids = torch.randint(-1, 100, (3, 4, 256), generator=g, dtype=torch.int32)
+    n0 = gops.gather_rows_raw.launches
+    got, got_s = TO.gather_into_slab(
+        host, scales, ids.to(cuda), slot_mask=None,
+        block_table=None if bt is None else bt.to(cuda))
+    assert gops.gather_rows_raw.launches == n0 + 1
+    want, want_s = TO.gather_into_slab(host, scales, ids, slot_mask=None,
+                                       block_table=bt)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    if scales is None:
+        assert got_s is None
+    else:
+        assert torch.equal(got_s.cpu().view(torch.int16),
+                           want_s.view(torch.int16))
+    if not paged:                                     # a TBO half's view
+        half_s = None if scales is None else scales[:, 2:]
+        got, got_s = TO.gather_into_slab(host[:, 2:], half_s,
+                                         ids[:, 2:].to(cuda), slot_mask=None)
+        want, want_s = TO.gather_into_slab(host[:, 2:], half_s, ids[:, 2:],
+                                           slot_mask=None)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.uint8),
+                           want.view(torch.uint8))
+
+
+def test_cuda_slab_gather_fork_join_inside_capture(cuda):
+    """The commit's tier write on the current stream, the slab gather
+    forked onto a side stream after it, joined before the slab's copy, all
+    recorded in one capture: every replay's slab holds the rows that
+    replay wrote (the gather is ordered after the write)."""
+    from repro_torch.core import offload as TO
+    from repro_torch.core.overlap import Fork, side_stream
+    g = torch.Generator().manual_seed(6)
+    host, _, bt = _stacked_tier(g, "bf16", True)
+    btd = bt.to(cuda)
+    side = side_stream(cuda)
+    widx = torch.tensor([[5], [17], [40], [95]], device=cuda)
+    ids = widx.view(1, 4, 1).expand(3, 4, 1).to(torch.int32).contiguous()
+    rows = torch.empty((3, 4, 1, 576), dtype=torch.bfloat16, device=cuda)
+    slab = torch.zeros((3, 4, 1, 576), dtype=torch.bfloat16, device=cuda)
+
+    def body():
+        TO.scatter_from_slab(host, None, widx, rows, None, slot_mask=None,
+                             block_table=btd)
+        fresh = torch.empty_like(slab)
+        with Fork(side, ids, fresh) as f:
+            TO.gather_into_slab(host, None, ids, slot_mask=None,
+                                block_table=btd, out=fresh)
+        f.join()
+        slab.copy_(fresh)
+
+    rows.normal_()
+    body()
+    torch.cuda.synchronize()
+    assert torch.equal(slab, rows)
+    graph = torch.cuda.CUDAGraph()
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):
+        graph.capture_begin(capture_error_mode="relaxed")
+        body()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(cap)
+    for _ in range(3):
+        rows.normal_()
+        slab.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(slab, rows)
+
+
+PIPELINED = {"bf16-q1": ("bf16", 0), "int8-q1": ("int8", 0),
+             "bf16-spec": ("bf16", 1)}
+
+
+@pytest.mark.parametrize("case", list(PIPELINED))
+def test_cuda_pipelined_session_graph_replay_matches_eager(cuda, case):
+    """A pipelined session (``overlap=True``, 4 slots, a sampled request
+    among four; Q = 1 rounds, or depth-1 spec rounds) with its rounds
+    replayed from CUDA graphs against the same session run eagerly:
+    streams, caches and the slab bit for bit, launch counts (replays
+    added) equal, one slab gather a round; plan, compute and prefill
+    stages under sync-debug "error"; and the streams equal the
+    synchronous graph session's (the slab holds the gather's bits)."""
+    from repro_torch.kernels import counters
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    tier, depth = PIPELINED[case]
+    import dataclasses
+    cfg = dataclasses.replace(_mini_cfg(tier), mtp_depth=depth)
+    params = init_params(cfg, 1, device=cuda)
+
+    def sync_free(fn):
+        def wrapped(*a, **k):
+            with _SyncFree():
+                return fn(*a, **k)
+        return wrapped
+
+    def run(compiled, overlap=True):
+        s = E.ServeSession(params, cfg, num_slots=4, max_seq=300,
+                           prefill_chunk=64, mtp_depth=depth,
+                           compiled=compiled, overlap=overlap, device=cuda)
+        for name in ("_plan_round", "_compute_round", "prefill_round"):
+            setattr(s, name, sync_free(getattr(s, name)))
+        before = counters.snapshot()
+        rep = s.run(_overlap_requests())
+        torch.cuda.synchronize()
+        return s, rep, counters.diff(counters.snapshot(), before)
+
+    g, rg, ng = run(True)
+    e, re_, ne = run(False)
+    base, rb, _ = run(True, overlap=False)
+    assert g.outputs == e.outputs == base.outputs
+    assert rg.rounds == re_.rounds == rb.rounds >= 8
+    assert rg.prefetch_hits + rg.prefetch_misses > 0
+    assert (rg.prefetch_hits, rg.prefetch_misses,
+            rg.prefetch_wasted_rows) == (re_.prefetch_hits,
+                                         re_.prefetch_misses,
+                                         re_.prefetch_wasted_rows)
+    assert g.programs.replays + g.programs.captures == rg.rounds
+    assert ng == ne
+    assert ng[("gather_rows_raw", "launches")] == rg.rounds
+    cg, ce = g.caches, e.caches
+    assert torch.equal(cg.lens, ce.lens)
+    assert torch.equal(cg.host_latent.view(torch.uint8),
+                       ce.host_latent.view(torch.uint8))
+    for a, b in zip(cg.pools, ce.pools):
+        for f in ("ids", "last_use", "slot_of", "step"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(a.data.view(torch.int16), b.data.view(torch.int16))
+    sg, se = g.state, e.state
+    assert torch.equal(sg.staged_ids, se.staged_ids)
+    assert torch.equal(sg.staged_rows.view(torch.uint8),
+                       se.staged_rows.view(torch.uint8))
+    if tier != "bf16":
+        assert torch.equal(sg.staged_scales.view(torch.int16),
+                           se.staged_scales.view(torch.int16))
+
+
+def test_cuda_pipelined_profiled_slab_gather(cuda):
+    """In pipelined graph rounds under ``torch.profiler`` the slab gather
+    (``gather_rows_raw``) runs on the card each round; its time beside
+    other device work is printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import SLAB_KERNELS, overlap_profile
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+    cfg = _overlap_cfg("da")
+    params = init_params(cfg, 3, device=cuda)
+    s = E.ServeSession(params, cfg, num_slots=4, max_seq=600,
+                       prefill_chunk=128, overlap=True, compiled=True,
+                       device=cuda)
+    for i in range(4):
+        s.submit(Request(rid=i, prompt_len=400 + 30 * i, max_new_tokens=40))
+    while len(s.sched.active_slots()) < 4 or s.programs.replays < 2:
+        s.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            s.step()
+        torch.cuda.synchronize()
+    slab = overlap_profile(prof, SLAB_KERNELS)
+    print(f"slab: {slab}; all gathers: {overlap_profile(prof)}")
+    assert slab["gather_us"] > 0
