@@ -114,13 +114,35 @@ the script exits non-zero without a result line):
    per plane a round); prints ms/round, the prefetch hit rate, misses and
    wasted rows, and the time in the profiled rounds in which the slab
    gather (``gather_rows_raw``) ran beside other device work;
+13. cluster — the PD-disaggregated ``EssCluster`` after session F: one
+   prefill worker (2 slots) and two decode workers (2 slots each) sharing
+   the serve's weights, ``max_seq`` 8224, chunk 256, on session A's first
+   four requests (rid 1 sampled: temperature 0.8, top-k 16, seed 5), at a
+   miss envelope and a MoE capacity that cannot bind; a bf16 tier, then
+   int8 with the LRU warmup (the tails shipped in the packets); graph
+   rounds.  Each run's streams must equal a 4-slot ``EssEngine``'s on the
+   same weights bit for bit, each pack (the page gather straight into a
+   pinned packet) must make exactly one host wait and no other sync and
+   each install (the page write from the packet) none; prints migrations,
+   wire bytes, the pack's page-copy device ms and wall ms, install ms,
+   decode ms per round per decode worker, mean TTFT and the page
+   kernels' launches (:func:`cluster_phase`);
 11. session D — every weight zeroed in place, so every argmax is token 0
    and every draft is accepted: 2 requests (``SESSION_D``) at depth 1 in
    graph mode must show accept rate 1.0, 2 tokens per live slot-round
    but at the budget clamp, no request past its budget, and the streams
    of the same requests at Q = 1 rounds (the last phase).
 
-Each of phases 5-12 sets every launch count to 0 just before it runs and
+Phase 3 also times the page kernels (a TMA ring) at the graft shape (129
+pages) and the pack shape (128 pages): ``gather_pages`` and
+``gather_pages_dequant`` into device memory, the pack's page copy straight
+into a pinned packet (route (a), bf16 and int8 with its scale plane,
+beside route (b): device out, then one device -> pinned copy) and the
+install's ``put_pages`` (pinned packet -> pinned tier), each against its
+plain version, the copy engine on the same bytes and its bound (the larger
+direction over the link's peak).
+
+Each of phases 5-13 sets every launch count to 0 just before it runs and
 reads them just after (9b's replays count nothing: it prints the eager
 rounds' and the captures' launches); the kernels line's
 ``launches_session_e`` are session E's eager run's, its
@@ -131,7 +153,8 @@ at Q <= 2 also time SDPA replayed from a graph (``library_device_ms``).
 The kernels line's ``launches`` are session A's
 eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
 merge), session B's eager run's (the gather-dequant routes), session C's
-eager run's (the verify shapes) and the grafts' (the page gathers); every
+eager run's (the verify shapes), the grafts' (the page gathers) and the
+cluster runs' (the pack's page gather and the install's page write); every
 kernel of the line must have one: counted where the wrappers launch, not derived
 from a graph's replays, which the graph runs' equal counts then confirm.
 
@@ -531,64 +554,156 @@ def check_kernels(torch, dev):
               f"{ndist} distinct) x ({D} + 2) B int8, bf16 out")
     del q, sc, pay, scd, pids
 
-    # -- gather_pages / gather_pages_dequant: one slot's pages (129) in
-    #    every layer (4) of the serve cell's tier, bf16 and int8 ----------
+    # -- the page kernels (TMA ring): gather_pages and its dequant variant
+    #    at the graft shape (one slot's 129 pages in every layer, 4, of the
+    #    serve cell's tier) and at the pack shape (an 8192-token prompt's
+    #    128 pages), bf16 and int8; the pack's two routes; the install ----
     Lh = 4
     NBs = -(-S // R)
-    pids = torch.arange(2 * NBs, 3 * NBs, device=dev)       # slot 2's pages
-    pbytes = Lh * NBs * R * D                                # elements
+    PAGE_SRC = "src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu"
+
+    def page_ids(n):
+        return torch.arange(2 * NBs, 2 * NBs + n, device=dev)
+
+    def want_pages(t, ids):
+        return gref.gather_pages_ref(t, ids.cpu()[None].expand(Lh, -1), R)
     tier = randn((Lh, NP * R, D)).cpu().pin_memory()
-    got = gops.gather_pages(tier, pids, R)
-    torch.cuda.synchronize()
-    require(torch.equal(got.cpu(), gref.gather_pages_ref(
-        tier, pids.cpu()[None].expand(Lh, -1), R)), "gather_pages differs")
-    ddst = torch.empty((Lh, NBs * R, D), dtype=torch.bfloat16, device=dev)
-    nb, _ = bound_ms(2 * pbytes + 8 * Lh * NBs, 0, "bf16",
-                     host_bytes=2 * pbytes)
-    records["gather_pages"] = dict(
-        name="gather_pages", route="cuda",
-        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
-        replaces="src/repro/kernels/gather_cache/gather_cache.py:111",
-        max_abs_err=0.0,
-        ms=timed_ms(torch, lambda: gops.gather_pages(tier, pids, R)),
-        plain_ms=wall_ms(torch, lambda: gref.gather_pages_ref(
-            tier, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
-        bound_ms=nb, bound_by="bytes", library_ms=None,
-        # the same bytes as one contiguous pinned -> device copy
-        copy_ms=timed_ms(torch, lambda: ddst.view(-1, D).copy_(
-            tier.view(-1, D)[:Lh * NBs * R], non_blocking=True)))
-    del tier
     q, sc = cmp.quantize_rows(randn((Lh, NP * R, D)), torch.int8)
     q, sc = q.cpu().pin_memory(), sc.cpu().pin_memory()
-    for out_dt in (torch.bfloat16, torch.float32):
-        got = gops.gather_pages_dequant(q, sc, pids, R, out_dt)
-        want = gref.gather_pages_dequant_ref(
-            q, sc, pids.cpu()[None].expand(Lh, -1), R, out_dt)
+    for n in (NBs, NBs - 1):
+        pids = page_ids(n)
+        got = gops.gather_pages(tier, pids, R)
+        gq, gs = gops.gather_pages(q, pids, R, scales=sc)
         torch.cuda.synchronize()
-        require(torch.equal(got.cpu().view(torch.uint8),
-                            want.view(torch.uint8)),
-                f"gather_pages_dequant differs ({out_dt})")
-    qdst = torch.empty((Lh, NBs * R, D), dtype=torch.int8, device=dev)
-    sdst = torch.empty((Lh, NBs * R, 1), dtype=torch.float16, device=dev)
+        require(torch.equal(got.cpu(), want_pages(tier, pids))
+                and torch.equal(gq.cpu(), want_pages(q, pids))
+                and torch.equal(gs.cpu(), want_pages(sc, pids)),
+                f"gather_pages differs ({n} pages)")
+        for out_dt in (torch.bfloat16, torch.float32):
+            got = gops.gather_pages_dequant(q, sc, pids, R, out_dt)
+            want = gref.gather_pages_dequant_ref(
+                q, sc, pids.cpu()[None].expand(Lh, -1), R, out_dt)
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu().view(torch.uint8),
+                                want.view(torch.uint8)),
+                    f"gather_pages_dequant differs ({n} pages, {out_dt})")
+    del got, gq, gs, want
 
-    def copy_pages_q8():
-        qdst.view(-1, D).copy_(q.view(-1, D)[:Lh * NBs * R],
-                               non_blocking=True)
-        sdst.view(-1, 1).copy_(sc.view(-1, 1)[:Lh * NBs * R],
-                               non_blocking=True)
-    nb, _ = bound_ms(pbytes * 2 + 8 * Lh * NBs, 0, "bf16",
-                     host_bytes=pbytes + Lh * NBs * R * 2)
-    records["gather_pages_dequant"] = dict(
-        name="gather_pages_dequant", route="cuda",
-        source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
-        replaces="src/repro/kernels/gather_cache/gather_cache.py:145",
-        max_abs_err=0.0,
-        ms=timed_ms(torch, lambda: gops.gather_pages_dequant(q, sc, pids, R)),
-        plain_ms=wall_ms(torch, lambda: gref.gather_pages_dequant_ref(
-            q, sc, pids.cpu()[None].expand(Lh, -1), R).to(dev)),
-        bound_ms=nb, bound_by="bytes", library_ms=None,
-        copy_ms=timed_ms(torch, copy_pages_q8))
-    del q, sc
+    def page_record(name, replaces, fn, plain, nbytes, host_bytes, copy,
+                    **extra):
+        nb, by = bound_ms(nbytes, 0, "bf16", host_bytes=host_bytes)
+        return dict(name=name, route="cuda", source=PAGE_SRC,
+                    replaces=replaces, max_abs_err=0.0,
+                    ms=timed_ms(torch, fn, iters=10),
+                    device_ms=graph_ms(torch, fn, iters=10),
+                    plain_ms=wall_ms(torch, plain, iters=3),
+                    bound_ms=nb, bound_by=by, library_ms=None,
+                    copy_ms=timed_ms(torch, copy, iters=10), **extra)
+
+    def h2d(n_rows, planes):
+        """The copy engine moving the same bytes: contiguous pinned ->
+        device copies of ``n_rows`` rows of each plane."""
+        dsts = [torch.empty((n_rows, t.shape[-1]), dtype=t.dtype,
+                            device=dev) for t in planes]
+
+        def run():
+            for d_, t in zip(dsts, planes):
+                d_.copy_(t.view(-1, t.shape[-1])[:n_rows],
+                         non_blocking=True)
+        return run
+    R5 = "src/repro/kernels/gather_cache/gather_cache.py:111"
+    R6 = "src/repro/kernels/gather_cache/gather_cache.py:145"
+    # the graft: device out
+    pids = page_ids(NBs)
+    pe = Lh * NBs * R * D                                  # elements
+    records["gather_pages"] = page_record(
+        "gather_pages", R5, lambda: gops.gather_pages(tier, pids, R),
+        lambda: want_pages(tier, pids).to(dev), 2 * pe + 8 * Lh * NBs,
+        2 * pe, h2d(Lh * NBs * R, [tier]),
+        shape=f"graft: {Lh} layers x {NBs} pages x {R} x {2 * D} B, "
+              f"device out")
+    records["gather_pages_dequant"] = page_record(
+        "gather_pages_dequant", R6,
+        lambda: gops.gather_pages_dequant(q, sc, pids, R),
+        lambda: gref.gather_pages_dequant_ref(
+            q, sc, pids.cpu()[None].expand(Lh, -1), R).to(dev),
+        2 * pe + 8 * Lh * NBs, pe + Lh * NBs * R * 2,
+        h2d(Lh * NBs * R, [q, sc]),
+        shape=f"graft: {Lh} x {NBs} pages x {R} x ({D} + 2) B int8, bf16 "
+              f"out")
+    # the pack shape (128 pages): #6 re-timed there for information; #5
+    # writes straight into a pinned packet (route (a)), timed beside route
+    # (b), the kernel into device memory and one device -> pinned copy
+    pids = page_ids(NBs - 1)
+    pe = Lh * (NBs - 1) * R * D
+    n_rows = Lh * (NBs - 1) * R
+    nb6, _ = bound_ms(2 * pe, 0, "bf16", host_bytes=pe + n_rows * 2)
+    records["gather_pages_dequant"].update(
+        pack_shape_ms=timed_ms(torch, lambda: gops.gather_pages_dequant(
+            q, sc, pids, R), iters=10),
+        pack_shape_device_ms=graph_ms(torch, lambda: gops.gather_pages_dequant(
+            q, sc, pids, R), iters=10),
+        pack_shape_bound_ms=nb6,
+        pack_shape_copy_ms=timed_ms(torch, h2d(n_rows, [q, sc]), iters=10))
+    for tag, src, ssc in (("", tier, None), ("-int8", q, sc)):
+        row_b = D * src.element_size() + (0 if ssc is None else 2)
+        out = torch.empty((Lh, n_rows // Lh, D), dtype=src.dtype,
+                          pin_memory=True)
+        osc = None if ssc is None else torch.empty(
+            (Lh, n_rows // Lh, 1), dtype=torch.float16, pin_memory=True)
+        kw = dict(scales=ssc, out=out, out_scales=osc)
+        got = gops.gather_pages(src, pids, R, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(out, want_pages(src, pids)) and (
+            ssc is None or torch.equal(osc, want_pages(ssc, pids))),
+            f"gather_pages into a pinned packet differs{tag}")
+        dev_out = torch.empty(out.shape, dtype=out.dtype, device=dev)
+        dev_osc = None if osc is None else torch.empty(
+            osc.shape, dtype=osc.dtype, device=dev)
+
+        def route_b():
+            gops.gather_pages(src, pids, R, scales=ssc, out=dev_out,
+                              out_scales=dev_osc)
+            out.copy_(dev_out, non_blocking=True)
+            if osc is not None:
+                osc.copy_(dev_osc, non_blocking=True)
+        # read over the link one way, written over it the other: the bound
+        # is the larger over one direction's peak
+        records[f"gather_pages[pack{tag}]"] = page_record(
+            f"gather_pages[pack{tag}]", R5,
+            lambda: gops.gather_pages(src, pids, R, **kw),
+            lambda: [t.pin_memory() for t in (
+                [want_pages(src, pids)] if ssc is None
+                else [want_pages(src, pids), want_pages(ssc, pids)])],
+            8 * Lh * (NBs - 1), n_rows * row_b,
+            h2d(n_rows, [src] if ssc is None else [src, ssc]),
+            route_b_ms=timed_ms(torch, route_b, iters=10),
+            shape=f"pack: {Lh} x {NBs - 1} pages x {R} x {row_b} B into "
+                  f"a pinned packet (route (a))")
+        # the install: the packet's pages into a pinned tier at fresh ids
+        dst = torch.zeros_like(src).pin_memory()
+        dsc = None if ssc is None else torch.zeros_like(ssc).pin_memory()
+        new = torch.randperm(NP, device=dev)[:NBs - 1]
+        gops.put_pages(dst, new, out.view(Lh, -1, D), R, dst_scales=dsc,
+                       src_scales=osc)
+        torch.cuda.synchronize()
+        require(torch.equal(want_pages(dst, new), out) and (
+            ssc is None or torch.equal(want_pages(dsc, new), osc)),
+            f"put_pages differs{tag}")
+        records[f"put_pages[install{tag}]"] = page_record(
+            f"put_pages[install{tag}]",
+            "src/repro/cluster/kv_transfer.py:155",
+            lambda: gops.put_pages(dst, new, out.view(Lh, -1, D), R,
+                                   dst_scales=dsc, src_scales=osc),
+            lambda: gops.put_pages(dst, new.cpu(), out.view(Lh, -1, D), R,
+                                   dst_scales=dsc, src_scales=osc),
+            8 * Lh * (NBs - 1), n_rows * row_b,
+            h2d(n_rows, [src] if ssc is None else [src, ssc]),
+            shape=f"install: {Lh} x {NBs - 1} pages x {row_b} B, pinned "
+                  f"packet -> pinned tier")
+        del out, osc, dev_out, dev_osc, dst, dsc
+    del tier, q, sc, pids
+    torch.cuda.empty_cache()
 
     # -- gather_rows_raw: the pipelined round's slab gather, one launch over
     #    every layer of the serve cell's stacked tier (ids [L, B, P], P the
@@ -1766,6 +1881,17 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                 n["gather_rows_raw"]
     print(f"session F: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 13. the PD cluster: one prefill and two decode workers sharing the
+    #     weights, bf16 then int8 + warmup, each against a 4-slot EssEngine
+    t0 = time.perf_counter()
+    cl = cluster_phase(torch, dev, serve, args, qargs, params, counted,
+                       card)
+    for tag, n in cl.items():
+        sfx = "" if tag == "bf16" else "-int8"
+        records[f"gather_pages[pack{sfx}]"]["launches"] = n["gather_pages"]
+        records[f"put_pages[install{sfx}]"]["launches"] = n["put_pages"]
+    print(f"cluster: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 11. session D: every weight zeroed in place, so every argmax is token
     #     0 and every draft is accepted; graph mode, against Q = 1 rounds
     for t in leaves(params):
@@ -1804,6 +1930,158 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
           + ", ".join(f"rid {r} {[c for q, _, c in emits if q == r]}"
                       for r in range(len(SESSION_D)))
           + "), streams equal to the Q = 1 session's", flush=True)
+
+
+# the cluster phase: one prefill worker (2 slots) and two decode workers
+# (2 slots each) on the card, on session A's first four requests (rid 1
+# sampled), held bit for bit against one 4-slot EssEngine
+CLUSTER_PROMPTS = SESSION_PROMPTS[:4]
+CLUSTER_NEW = SESSION_NEW[:4]
+CLUSTER_SAMPLED = {1: dict(temperature=0.8, top_k=16, seed=5)}
+
+
+def cluster_phase(torch, dev, serve, args, qargs, params, counted, card):
+    """The PD-disaggregated cluster on one card (see the module docstring):
+    the serve's config at a miss envelope and a MoE capacity that cannot
+    bind (``max_miss_ratio`` 1, capacity factor E / top_k), so that a
+    slot's decode math does not depend on its co-residents; a bf16 tier
+    (graph rounds), then an int8 tier with the LRU warmup (tails shipped in
+    the packets, replayed on the decode side; graph rounds).  Each run's
+    streams must equal a 4-slot ``EssEngine``'s on the same weights bit for
+    bit; every request migrates; every pack makes exactly one host wait
+    and no other sync, every install none (``set_sync_debug_mode
+    ("error")`` around both); the page gather carries every pack and the
+    page write every install.  Returns ``{run: launch counts}``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.cluster import EssCluster
+    from repro_torch.cluster import kv_transfer as KT
+    from repro_torch.core import offload
+    from repro_torch.serving.api import EssEngine, SamplingParams
+
+    def unbound(cfg):
+        mo = cfg.moe
+        return dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                mo, capacity_factor=mo.num_experts / mo.top_k),
+            ess=dataclasses.replace(cfg.ess, max_miss_ratio=1.0))
+    rng = np.random.default_rng(0)
+    cfg0 = serve.config_from_args(args)
+    prompts = [rng.integers(0, cfg0.vocab_size, (1, n))
+               for n in CLUSTER_PROMPTS]
+    sps = [SamplingParams(max_tokens=n, **CLUSTER_SAMPLED.get(i, {}))
+           for i, n in enumerate(CLUSTER_NEW)]
+    kw = dict(max_seq=SESSION_MAX_SEQ, prefill_chunk=PREFILL_CHUNK,
+              prompt_fn=lambda r: prompts[r.rid], device=dev)
+    out = {}
+    for tag, a, warm in (("bf16", args, False),
+                         ("int8 warmup", qargs, True)):
+        cfg = unbound(serve.config_from_args(a))
+        t0 = time.perf_counter()
+        eng = EssEngine(params, cfg, num_slots=4, do_warmup=warm, **kw)
+        want = [(o.tokens, o.finish_reason)
+                for o in eng.generate(CLUSTER_PROMPTS, sps,
+                                      max_rounds=10000)]
+        eng_s = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        m = dict(pack_wall=[], copy_ev=[], install_wall=[], put_ev=[],
+                 waits=0)
+        pack, install = KT.pack_migration, KT.install_migration
+        gather, put, wait = (offload.gather_tier_pages,
+                             offload.put_tier_pages, KT.host_wait)
+
+        def events(key, fn):
+            def run(*a_, **k_):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                fn(*a_, **k_)
+                ev[1].record()
+                m[key].append(ev)
+            return run
+
+        def one_wait(d):
+            torch.cuda.set_sync_debug_mode(0)
+            m["waits"] += 1
+            wait(d)
+            torch.cuda.set_sync_debug_mode("error")
+
+        def sync_checked(key, fn):
+            def run(*a_, **k_):
+                torch.cuda.set_sync_debug_mode("error")
+                t = time.perf_counter()
+                try:
+                    return fn(*a_, **k_)
+                finally:
+                    m[key].append(1e3 * (time.perf_counter() - t))
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
+        KT.pack_migration = sync_checked("pack_wall", pack)
+        KT.install_migration = sync_checked("install_wall", install)
+        offload.gather_tier_pages = events("copy_ev", gather)
+        offload.put_tier_pages = events("put_ev", put)
+        KT.host_wait = one_wait
+        try:
+            t0 = time.perf_counter()
+            clu = EssCluster(params, cfg, num_prefill=1, num_decode=2,
+                             num_slots=2, do_warmup=warm, **kw)
+            outs, n = counted(lambda: clu.generate(CLUSTER_PROMPTS, sps,
+                                                   max_rounds=10000))
+            clu_s = time.perf_counter() - t0
+        finally:
+            KT.pack_migration, KT.install_migration = pack, install
+            offload.gather_tier_pages, offload.put_tier_pages = gather, put
+            KT.host_wait = wait
+            torch.cuda.set_sync_debug_mode(0)
+        got = [(o.tokens, o.finish_reason) for o in outs]
+        met = clu.metrics()
+        require(got == want, f"cluster {tag}: streams differ from the "
+                f"4-slot EssEngine's: {got} vs {want}")
+        nm = met["migrations"]
+        require(nm == len(CLUSTER_PROMPTS) == met["installed"]
+                and all(w.installed > 0 for w in clu.decode),
+                f"cluster {tag}: {nm} migrations, installs "
+                f"{[w.installed for w in clu.decode]}")
+        require(m["waits"] == nm == len(m["pack_wall"]),
+                f"cluster {tag}: {m['waits']} host waits for {nm} packs")
+        require(n["gather_pages"] == nm and n["put_pages"] == nm,
+                f"cluster {tag}: page launches {n['gather_pages']} / "
+                f"{n['put_pages']} for {nm} migrations")
+        if warm:
+            require(n["gather_rows_dequant_direct"] > 0,
+                    f"cluster {tag}: no warmup replay on the decode side")
+        torch.cuda.synchronize()
+        copy_ms = [a.elapsed_time(b) for a, b in m["copy_ev"]]
+        put_ms = [a.elapsed_time(b) for a, b in m["put_ev"]]
+        per_worker = []
+        for w in clu.decode:
+            r = w.session.report
+            steady = r.rounds - r.fill_rounds
+            per_worker.append(f"{1e3 * r.decode_wall_s / steady:.2f} "
+                              f"({steady} rounds)" if steady else "none")
+        ttft = [o.ttft_s for o in outs if o.ttft_s is not None]
+        print(f"cluster {tag}: launches " + ", ".join(
+            f"{k} {v}" for k, v in n.items()), flush=True)
+        print(f"cluster {tag}: streams bit-identical to the 4-slot "
+              f"EssEngine's ({sum(len(t) for t, _ in got)} tokens; engine "
+              f"{eng_s:.1f} s, cluster {clu_s:.1f} s wall); {nm} migrations, "
+              f"{met['wire_bytes']} wire bytes; pack: page copy "
+              f"{sum(copy_ms) / nm:.3f} ms device ({min(copy_ms):.3f}-"
+              f"{max(copy_ms):.3f}), wall incl. its one wait "
+              f"{sum(m['pack_wall']) / nm:.3f} ms; install: wall "
+              f"{sum(m['install_wall']) / nm:.3f} ms (no host sync), page "
+              f"write {sum(put_ms) / nm:.3f} ms device; decode ms/round per "
+              f"decode worker {per_worker}; mean TTFT "
+              f"{1e3 * sum(ttft) / len(ttft):.1f} ms; launches gather_pages "
+              f"{n['gather_pages']}, put_pages {n['put_pages']}  [{card}]",
+              flush=True)
+        out[tag] = n
+        del clu
+        torch.cuda.empty_cache()
+    return out
 
 
 def leaves(tree):
@@ -1878,6 +2156,13 @@ def main() -> int:
                  else "")
               + (f", copy of the same bytes {r['copy_ms']:.4f} ms"
                  if "copy_ms" in r else "")
+              + (f", route (b) (device out + one device -> pinned copy) "
+                 f"{r['route_b_ms']:.4f} ms" if "route_b_ms" in r else "")
+              + (f"; at the pack shape: kernel {r['pack_shape_ms']:.4f} ms "
+                 f"(device {r['pack_shape_device_ms']:.4f}), bound "
+                 f"{r['pack_shape_bound_ms']:.4f} ms, copy "
+                 f"{r['pack_shape_copy_ms']:.4f} ms"
+                 if "pack_shape_ms" in r else "")
               + (f", direct route on the same ids {r['direct_ms']:.4f} ms"
                  if "direct_ms" in r else "")
               + (f", wrapper host {r['host_us']:.2f} us (UVA lookup each "
@@ -1941,6 +2226,7 @@ def main() -> int:
                "gather_rows_raw": gops.gather_rows_raw,
                "gather_pages": gops.gather_pages,
                "gather_pages_dequant": gops.gather_pages_dequant,
+               "put_pages": gops.put_pages,
                "scatter_rows": gops.scatter_rows,
                "indexer_scores": iops.indexer_scores,
                "sparse_mla_partial": sops.partial_attend,
@@ -2084,7 +2370,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms", "general_ms",
             "general_device_ms", "copy_ms", "direct_ms", "distinct_rows",
-            "top2048_overlap", "launches_session_e", "launches_session_f")
+            "top2048_overlap", "launches_session_e", "launches_session_f",
+            "route_b_ms", "pack_shape_ms", "pack_shape_device_ms",
+            "pack_shape_bound_ms", "pack_shape_copy_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -291,3 +291,45 @@ def scatter_tier_rows_stacked(host_cache: torch.Tensor,
     host_scatter_rows_stacked(host_cache, ids, q, **kw)
     host_scatter_rows_stacked(host_scales, ids, s, **kw)
     return host_cache, host_scales
+
+
+def gather_tier_pages(host_cache: torch.Tensor,
+                      host_scales: torch.Tensor | None, ids: torch.Tensor,
+                      out: torch.Tensor, out_scales: torch.Tensor | None
+                      ) -> None:
+    """The PD migration's pack: pages ``ids [n]`` (physical, on the caller's
+    device) of a paged tier ``[L, NP, R, D]`` -> ``out [L, n, R, D]`` in
+    the tier's storage dtype, and a quantized tier's scale plane ->
+    ``out_scales [L, n, R, 1]``, raw: one :func:`gops.gather_pages` launch
+    over every layer and both planes, ordered on the caller's stream after
+    the tier writes before it.  ``out`` may be pinned host memory (the
+    packet), written through its UVA pointer."""
+    Lh, NP, R, D = host_cache.shape
+    n = ids.shape[0]
+    kw = dict(out=out.view(Lh, n * R, D))
+    if host_scales is not None:
+        kw.update(scales=host_scales.view(Lh, NP * R, 1),
+                  out_scales=out_scales.view(Lh, n * R, 1))
+    gops.gather_pages(host_cache.view(Lh, NP * R, D), ids, R, **kw)
+
+
+def put_tier_pages(host_cache: torch.Tensor,
+                   host_scales: torch.Tensor | None, ids: torch.Tensor,
+                   pages: torch.Tensor, scales: torch.Tensor | None) -> None:
+    """The PD migration's install, the inverse of :func:`gather_tier_pages`:
+    ``pages [L, n, R, D]`` (and ``scales [L, n, R, 1]``) -> pages ``ids
+    [n]`` of the tier, verbatim, in place: one :func:`gops.put_pages`
+    launch over every layer and both planes on ``ids``' device, ordered on
+    the caller's stream.  ``pages`` may be pinned host memory (the
+    packet), read through its UVA pointer."""
+    Lh, NP, R, D = host_cache.shape
+    n = pages.shape[1]
+    kw = {}
+    if host_scales is not None:
+        if scales is None:
+            raise ValueError("a quantized tier needs the packet's scale "
+                             "plane")
+        kw = dict(dst_scales=host_scales.view(Lh, NP * R, 1),
+                  src_scales=scales.reshape(Lh, n * R, 1))
+    gops.put_pages(host_cache.view(Lh, NP * R, D), ids,
+                   pages.reshape(Lh, n * R, D), R, **kw)

@@ -19,7 +19,7 @@ from repro_torch.kernels.sparse_mla import ops as sops
 
 WRAPPERS = (gops.gather_rows, gops.gather_rows_dequant,
             gops.gather_rows_raw, gops.scatter_rows,
-            gops.gather_pages, gops.gather_pages_dequant,
+            gops.gather_pages, gops.gather_pages_dequant, gops.put_pages,
             iops.indexer_scores, sops.partial_attend, sops.merge_splits)
 
 

@@ -14,6 +14,15 @@ device staging buffer that is then expanded to the ids.  Their counters
 split ``launches`` into ``launches_direct`` and ``launches_staged``.
 :func:`gather_rows_raw` is the direct route without widening: a quantized
 tier's payload and scale in one launch (the pipelined round's slab).
+
+The page kernels move whole pages (``block_rows`` rows) over every layer in
+one launch, by TMA bulk copies through a shared-memory ring:
+:func:`gather_pages` (by source ids, a quantized tier's scale plane raw in
+the same launch, into device memory or pinned host memory) and its inverse
+:func:`put_pages` (to destination ids: the PD migration's install) share
+one kernel; :func:`gather_pages_dequant` widens as it goes.
+:func:`probe_link_read` measures the link's read rate by either kind of
+SM read (measurement only).
 """
 
 from __future__ import annotations
@@ -56,9 +65,13 @@ def _lib() -> ctypes.CDLL:
         lib.ess_gather_rows_dequant_staged.argtypes = [
             _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _P]
         lib.ess_gather_rows_dequant_staged.restype = ctypes.c_int
-        lib.ess_gather_pages.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64,
-                                         _P]
-        lib.ess_gather_pages.restype = ctypes.c_int
+        lib.ess_copy_pages.argtypes = [_P, _P, _P, _I64, _P, _P, _P, _I64,
+                                       _I64, _I64, _I64, _I64, _P]
+        lib.ess_copy_pages.restype = ctypes.c_int
+        lib.ess_probe_bulk_read.argtypes = [_P, _I64, _I, _I, _P, _P]
+        lib.ess_probe_bulk_read.restype = ctypes.c_int
+        lib.ess_probe_lsu_read.argtypes = [_P, _I64, _I, _P, _P]
+        lib.ess_probe_lsu_read.restype = ctypes.c_int
         lib.ess_gather_pages_dequant.argtypes = [
             _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _P]
         lib.ess_gather_pages_dequant.restype = ctypes.c_int
@@ -364,41 +377,151 @@ def _page_args(cache: torch.Tensor, block_ids: torch.Tensor,
     c3 = cache if cache.dim() == 3 else cache[None]
     Lh, S, _ = c3.shape
     if S % block_rows:
-        raise ValueError(f"gather_pages: {S} rows are not whole pages of "
+        raise ValueError(f"page gather: {S} rows are not whole pages of "
                          f"{block_rows}")
     ids = block_ids.to(torch.int64)
     ids = (ids if ids.dim() == 2 else ids[None]).expand(Lh, -1).contiguous()
     return c3, ids, S // block_rows
 
 
+def _plane(t: torch.Tensor | None, shape: tuple, dtype, device, what: str
+           ) -> torch.Tensor:
+    """A page kernel's output plane: a new tensor on ``device``, or the
+    caller's ``t`` (contiguous, of ``shape`` and ``dtype``; on the card or
+    pinned on the host, which the kernel writes through its UVA
+    pointer)."""
+    if t is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _check_scales(scales: torch.Tensor, c3: torch.Tensor, what: str
+                  ) -> torch.Tensor:
+    s3 = scales.reshape(*c3.shape[:-1], 1)
+    if scales.dtype != torch.float16 or not scales.is_contiguous():
+        raise ValueError(f"{what}: scales must be contiguous f16 [..., 1], "
+                         f"one per row")
+    return s3
+
+
+def _copy_pages(src, src_sc, src_ids, dst, dst_sc, dst_ids, nb: int,
+                block_rows: int, stream_of: torch.Tensor) -> None:
+    """One launch of the page-copy kernel over every layer (see
+    ``ess_copy_pages`` in ``csrc/gather_rows.cu``)."""
+    Lh, _, D = src.shape
+    row_bytes = _check_rows(src.reshape(-1, D), "page copy source")
+    if src_sc is not None and block_rows % 8:
+        raise ValueError(f"page copy with scales: {block_rows} rows a page "
+                         f"is not a multiple of 8")
+
+    def ptr(t):
+        return _P(None) if t is None else _P(device_pointer(t))
+    lib = _lib()
+    _build.check(lib, lib.ess_copy_pages(
+        ptr(src), ptr(src_sc), _P(None if src_ids is None
+                                  else src_ids.data_ptr()),
+        src.shape[1] // block_rows, ptr(dst), ptr(dst_sc),
+        _P(None if dst_ids is None else dst_ids.data_ptr()),
+        dst.shape[1] // block_rows, Lh, nb, block_rows, row_bytes,
+        _build.stream_ptr(stream_of)), "copy_pages")
+
+
 def gather_pages(cache: torch.Tensor, block_ids: torch.Tensor,
-                 block_rows: int) -> torch.Tensor:
+                 block_rows: int, *, scales: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None,
+                 out_scales: torch.Tensor | None = None):
     """Whole-page gather: cache [S,D] (or [L,S,D]) of ``S / block_rows``
     pages, block_ids [NB] (or [L,NB], or [NB] for every layer) -> pages
-    [NB*block_rows, D] (or [L, NB*block_rows, D]) on ``block_ids.device``.
-    Page ids are clipped to the pool; one launch covers every layer."""
-    c3, ids, npages = _page_args(cache, block_ids, block_rows)
+    [NB*block_rows, D] (or [L, NB*block_rows, D]) of the cache's dtype on
+    ``block_ids.device``.  Page ids are clipped to the pool; one launch
+    covers every layer.
+
+    ``scales`` (f16 ``[..., 1]``, one per row of the cache: a quantized
+    tier's scale plane) moves in the same launch, raw, and the result is
+    ``(pages, page_scales)``.  ``out`` / ``out_scales`` receive them: the
+    caller's memory, on the card or pinned on the host (the kernel writes
+    it through its UVA pointer)."""
+    c3, ids, _ = _page_args(cache, block_ids, block_rows)
     Lh, _, D = c3.shape
-    if block_ids.device.type == "cpu":
-        out = ref.gather_pages_ref(c3, ids, block_rows)
-    else:
-        if block_ids.device.type != "cuda":
-            raise ValueError(f"gather_pages: unsupported device "
-                             f"{block_ids.device}")
-        _check_rows(c3.reshape(-1, D), "gather_pages cache")
-        nb = ids.shape[1]
-        out = torch.empty((Lh, nb * block_rows, D), dtype=c3.dtype,
-                          device=block_ids.device)
-        lib = _lib()
-        _build.check(lib, lib.ess_gather_pages(
-            _P(device_pointer(c3)), _P(ids.data_ptr()), _P(out.data_ptr()),
-            Lh, nb, npages, block_rows * D * c3.element_size(),
-            _build.stream_ptr(out)), "gather_pages")
-        gather_pages.launches += 1
-    return out if cache.dim() == 3 else out[0]
+    nb = ids.shape[1]
+    shape = (Lh, nb * block_rows, D) if cache.dim() == 3 \
+        else (nb * block_rows, D)
+    s3 = None if scales is None else _check_scales(scales, c3,
+                                                   "gather_pages")
+    dev = block_ids.device
+    if dev.type == "cpu":
+        got = ref.gather_pages_ref(c3, ids, block_rows)
+        got_s = None if s3 is None else ref.gather_pages_ref(s3, ids,
+                                                             block_rows)
+        pages = got.view(shape) if out is None else out.copy_(got.view(shape))
+        if s3 is None:
+            return pages
+        ss = shape[:-1] + (1,)
+        return pages, (got_s.view(ss) if out_scales is None
+                       else out_scales.copy_(got_s.view(ss)))
+    if dev.type != "cuda":
+        raise ValueError(f"gather_pages: unsupported device {dev}")
+    pages = _plane(out, shape, c3.dtype, dev, "gather_pages out")
+    sc = None if s3 is None else _plane(out_scales, shape[:-1] + (1,),
+                                        torch.float16, dev,
+                                        "gather_pages out_scales")
+    _copy_pages(c3, s3, ids, pages.view(Lh, nb * block_rows, D),
+                None if sc is None else sc.view(Lh, nb * block_rows, 1),
+                None, nb, block_rows, ids)
+    gather_pages.launches += 1
+    return pages if sc is None else (pages, sc)
 
 
 gather_pages.launches = 0
+
+
+def put_pages(dst: torch.Tensor, dst_ids: torch.Tensor, src: torch.Tensor,
+              block_rows: int, *, dst_scales: torch.Tensor | None = None,
+              src_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Whole-page write, the inverse of :func:`gather_pages`: page ``i`` of
+    ``src`` [L, NB*block_rows, D] -> page ``dst_ids[l, i]`` of ``dst``
+    [L, S, D] (``dst_ids`` [NB] for every layer, or [L, NB]); ids outside
+    the pool drop.  ``src_scales`` -> ``dst_scales`` (f16 ``[..., 1]``)
+    in the same launch.  In place, verbatim bits; returns ``dst``.  Either
+    side may be on the card or pinned on the host; the launch runs on
+    ``dst_ids``' device (the plain version for CPU ids)."""
+    if src.dtype != dst.dtype:
+        raise TypeError(f"put_pages: {src.dtype} pages into a {dst.dtype} "
+                        f"destination")
+    if (src_scales is None) != (dst_scales is None):
+        raise ValueError("put_pages: scales on both sides or neither")
+    Lh, S, D = dst.shape
+    if S % block_rows or src.shape[1] % block_rows or src.shape[0] != Lh:
+        raise ValueError(f"put_pages: src {tuple(src.shape)} / dst "
+                         f"{tuple(dst.shape)} not whole pages of "
+                         f"{block_rows} rows over the same layers")
+    nb = src.shape[1] // block_rows
+    ids = dst_ids.to(torch.int64)
+    ids = (ids if ids.dim() == 2 else ids[None]).expand(Lh, nb).contiguous()
+    if ids.device.type == "cpu":
+        ref.put_pages_ref(dst, ids, src, block_rows)
+        if dst_scales is not None:
+            ref.put_pages_ref(dst_scales, ids, src_scales, block_rows)
+        return dst
+    if ids.device.type != "cuda":
+        raise ValueError(f"put_pages: unsupported device {ids.device}")
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("put_pages: src and dst must be contiguous")
+    s_sc = None if src_scales is None else _check_scales(
+        src_scales, src, "put_pages src")
+    d_sc = None if dst_scales is None else _check_scales(
+        dst_scales, dst, "put_pages dst")
+    _copy_pages(src, s_sc, None, dst, d_sc, ids, nb, block_rows, ids)
+    put_pages.launches += 1
+    return dst
+
+
+put_pages.launches = 0
 
 
 def gather_pages_dequant(cache: torch.Tensor, scales: torch.Tensor,
@@ -433,3 +556,31 @@ def gather_pages_dequant(cache: torch.Tensor, scales: torch.Tensor,
 
 
 gather_pages_dequant.launches = 0
+
+
+def probe_link_read(src: torch.Tensor, *, bulk_chunk: int = 0,
+                    ctas_per_sm: int = 2, kb_in_flight: int = 16
+                    ) -> torch.Tensor:
+    """Measurement only (the link probe of ``tests/test_torch_cuda.py``):
+    read every byte of ``src`` (on the card, or pinned on the host through
+    its UVA pointer) once on the SMs, by TMA bulk copies of
+    ``bulk_chunk`` bytes (``ctas_per_sm`` persistent CTAs an SM, four
+    chunks in flight each) or, with ``bulk_chunk=0``, by 16-byte loads
+    with ``kb_in_flight`` (16, 32 or 64) KB in flight an SM.  Returns the
+    per-CTA sink (int64 on the card)."""
+    nbytes = src.numel() * src.element_size()
+    if nbytes % max(bulk_chunk, 16):
+        raise ValueError("probe_link_read: bytes not whole chunks")
+    sink = torch.zeros(1024, dtype=torch.int64, device="cuda")
+    lib = _lib()
+    stream = _build.stream_ptr(sink)
+    if bulk_chunk:
+        rc = lib.ess_probe_bulk_read(_P(device_pointer(src)), nbytes,
+                                     bulk_chunk, ctas_per_sm,
+                                     _P(sink.data_ptr()), stream)
+    else:
+        rc = lib.ess_probe_lsu_read(_P(device_pointer(src)), nbytes,
+                                    kb_in_flight, _P(sink.data_ptr()),
+                                    stream)
+    _build.check(lib, rc, "probe_link_read")
+    return sink

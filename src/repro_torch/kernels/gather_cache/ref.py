@@ -64,6 +64,21 @@ def gather_pages_ref(cache: torch.Tensor, block_ids: torch.Tensor,
     return out.reshape(Lh, -1, D)
 
 
+def put_pages_ref(dst: torch.Tensor, dst_ids: torch.Tensor,
+                  src: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """In place: page ``i`` of ``src [L, NB*block_rows, D]`` -> page
+    ``dst_ids[l, i]`` of ``dst [L, S, D]``; ids outside ``[0, S /
+    block_rows)`` are dropped.  Returns ``dst``."""
+    Lh, S, D = dst.shape
+    npages = S // block_rows
+    pages = dst.view(Lh, npages, block_rows, D)
+    srcp = src.reshape(Lh, -1, block_rows, D)
+    keep = (dst_ids >= 0) & (dst_ids < npages)                 # [L, NB]
+    li, pi = keep.nonzero(as_tuple=True)
+    pages[li, dst_ids[li, pi]] = srcp[li, pi].to(dst.dtype)
+    return dst
+
+
 def gather_pages_dequant_ref(cache: torch.Tensor, scales: torch.Tensor,
                              block_ids: torch.Tensor, block_rows: int,
                              out_dtype=torch.bfloat16) -> torch.Tensor:

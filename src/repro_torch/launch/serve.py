@@ -1,7 +1,8 @@
 """Serve synthetic prompts through the ESS path.
 
 Builds random weights from ``--seed`` on the device and synthetic prompts
-from the same seed with numpy, then serves them through the
+from the same seed with numpy, then serves them through the public
+:class:`repro_torch.serving.api.EssEngine` (``generate``) over the
 continuous-batching :class:`repro_torch.serving.engine.ServeSession`
 (one decode slot per request, the decode round replayed as a CUDA graph
 on the card and run eagerly on the CPU), or, with ``--fixed-batch``, as
@@ -44,8 +45,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import cut_depth, get_config
 from repro_torch.models.params import init_params
 from repro_torch.cache import latent_cache as LC
-from repro_torch.serving.engine import ServeSession, generate_batch
-from repro_torch.serving.scheduler import Request
+from repro_torch.serving.api import EssEngine, SamplingParams
+from repro_torch.serving.engine import generate_batch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,23 +152,27 @@ def run(args, params=None, cfg=None) -> dict:
 
 
 def _run_session(args, cfg, params, prompts, max_seq, dev, init_s) -> dict:
-    session = ServeSession(
+    engine = EssEngine(
         params, cfg, num_slots=args.slots or args.requests, max_seq=max_seq,
         prompt_fn=lambda req: prompts[req.rid][None],
         prefill_chunk=args.prefill_chunk, mtp_depth=args.mtp_depth,
         tbo=args.tbo, compiled=dev.type == "cuda" and not args.eager,
         device=dev)
-    stop = () if args.stop_token is None else (args.stop_token,)
-    rep = session.run([Request(rid=i, prompt_len=args.prompt_len,
-                               max_new_tokens=args.new_tokens,
-                               temperature=args.temperature,
-                               top_k=args.top_k, top_p=args.top_p,
-                               stop_token_ids=stop)
-                       for i in range(args.requests)],
-                      max_rounds=1 << 30)
+    sp = SamplingParams(
+        max_tokens=args.new_tokens, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p,
+        stop_token_ids=() if args.stop_token is None
+        else (args.stop_token,))
+    outs = engine.generate([args.prompt_len] * args.requests, sp,
+                           max_rounds=1 << 30)
+    session = engine.session
+    rep = session.report
+    rep.finished_rids = [r.rid for r in session.sched.finished]
+    rep.admissions_blocked = session.sched.blocked_admissions
     steady = rep.rounds - rep.fill_rounds
     return {
-        "cfg": cfg, "params": params, "session": session, "report": rep,
+        "cfg": cfg, "params": params, "engine": engine, "outputs": outs,
+        "session": session, "report": rep, "metrics": engine.metrics(),
         "init_s": init_s, "decode_rounds": rep.rounds,
         "decode_ms_per_round": 1e3 / rep.rounds_per_s if steady else 0.0,
         "decode_tok_s": rep.tokens_per_s,

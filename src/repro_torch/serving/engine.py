@@ -796,7 +796,10 @@ class ServeSession:
                              generator=g)
 
     def _prompt_tokens(self, req: Request) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(self._prompt_fn(req))).long()
+        p = self._prompt_fn(req)
+        if isinstance(p, torch.Tensor) and p.device == self.device:
+            return p.reshape(1, -1).long()      # already on the device
+        t = torch.as_tensor(np.asarray(p)).long()
         return upload(t.reshape(1, -1), self.device)
 
     def pages_needed(self, req: Request) -> int:

@@ -132,13 +132,17 @@ def admit_slot(state: EngineState, slot: int, req: Request) -> EngineState:
     return state
 
 
-def promote_slot(state: EngineState, slot: int, tok: torch.Tensor,
+def promote_slot(state: EngineState, slot: int, tok,
                  hidden: torch.Tensor) -> EngineState:
     """Flip a freshly prefilled slot into the decode batch: install the
-    first token (a device scalar) and the hidden, arm the chain at
-    emission index 1 and unfreeze the slot."""
-    state.tok[slot].copy_(tok)
-    state.hidden[slot].copy_(hidden)
+    first token (a device scalar, or a Python int: a migrated request's)
+    and the hidden (on the device, or pinned on the host: copied without
+    waiting), arm the chain at emission index 1 and unfreeze the slot."""
+    if isinstance(tok, torch.Tensor):
+        state.tok[slot].copy_(tok)
+    else:
+        state.tok[slot].fill_(int(tok))
+    state.hidden[slot].copy_(hidden, non_blocking=True)
     state.emit_index[slot].fill_(1)
     state.slot_mask[slot].fill_(True)
     return state

@@ -1214,3 +1214,287 @@ def test_cuda_pipelined_profiled_slab_gather(cuda):
     slab = overlap_profile(prof, SLAB_KERNELS)
     print(f"slab: {slab}; all gathers: {overlap_profile(prof)}")
     assert slab["gather_us"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The page kernels (TMA ring), the link probe, and the PD migration
+# ---------------------------------------------------------------------------
+
+_PROBE = r"""
+import json, sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.gather_cache import ops as gops
+n = 256 * 2**20
+host = torch.randint(0, 255, (n,), dtype=torch.uint8).pin_memory()
+card = torch.empty(n, dtype=torch.uint8, device="cuda")
+
+def rate(fn, iters=4):
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return n * iters / (a.elapsed_time(b) * 1e-3)
+
+out = {"copy_engine_h2d": rate(lambda: card.copy_(host, non_blocking=True))}
+for src, tag in ((card, "device"), (host, "host")):
+    for kb in (16, 32, 64):
+        out[f"lsu_{tag}_{kb}kb"] = rate(
+            lambda: gops.probe_link_read(src, kb_in_flight=kb))
+    for chunk in (16384, 32768):
+        for per_sm in (1, 2):
+            out[f"bulk_{tag}_{chunk // 1024}kb_x{per_sm}"] = rate(
+                lambda: gops.probe_link_read(src, bulk_chunk=chunk,
+                                             ctas_per_sm=per_sm))
+print(json.dumps(out))
+"""
+
+
+def test_cuda_link_probe_tma_reads_host_memory(cuda):
+    """The microbenchmark behind the page kernels' design: can TMA bulk
+    copies read pinned host memory through its UVA pointer, at what rate,
+    and how does that compare with the SMs' own 16-byte loads at 16 / 32 /
+    64 KB in flight an SM, and with the copy engine?  Run in a child
+    process (a fault would end it, not this session); the rates (bytes/s,
+    256 MiB per read) go to ``chiprun_out/link_probe.json``."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rates = json.loads(r.stdout.strip().splitlines()[-1])
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "link_probe.json").write_text(json.dumps(rates, indent=1))
+    print("link probe GB/s: " + ", ".join(f"{k} {v / 1e9:.2f}"
+                                           for k, v in rates.items()))
+    assert all(v > 0 for v in rates.values())
+
+
+def _tier(g, shape, name):
+    if name == "bf16":
+        return torch.randn(shape, generator=g).bfloat16().pin_memory(), None
+    return _quantized_tier(g, shape, name)
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", ["graft", "pack", "odd"])
+@pytest.mark.parametrize("out", ["device", "pinned"])
+def test_cuda_gather_pages_tma_bitwise(cuda, name, shape, out):
+    """#5 on the TMA ring: 4 layers x 129 pages (the graft), x 128 (the
+    pack) and 7 (odd), 64 rows of 576, bf16 / int8 / fp8 tiers with the
+    scale plane riding in the same launch, ids past either end clipped as
+    the plain version clips them; into device memory and straight into
+    pinned host memory (the pack's route (a)); bit for bit."""
+    g = torch.Generator().manual_seed(20)
+    L, R, D = 4, 64, 576
+    nb = {"graft": 129, "pack": 128, "odd": 7}[shape]
+    NP = nb + 5
+    tier, sc = _tier(g, (L, NP * R, D), name)
+    ids = torch.randperm(NP, generator=g)[:nb]
+    ids[::11] = NP + 4
+    ids[3::13] = -3
+    kw = {}
+    if out == "pinned":
+        kw["out"] = torch.empty((L, nb * R, D), dtype=tier.dtype,
+                                pin_memory=True)
+        if sc is not None:
+            kw["out_scales"] = torch.empty((L, nb * R, 1),
+                                           dtype=torch.float16,
+                                           pin_memory=True)
+    n0 = gops.gather_pages.launches
+    got = gops.gather_pages(tier, ids.to(cuda), R, scales=sc, **kw)
+    assert gops.gather_pages.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = gops.gather_pages(tier, ids, R, scales=sc)
+    if sc is None:
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert (a.device.type == "cpu") == (out == "pinned")
+        assert torch.equal(_bits(a.cpu()), _bits(b))
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("nb", [129, 128, 7])
+def test_cuda_gather_pages_dequant_tma_bitwise(cuda, name, dt, nb):
+    """#6 on the TMA ring at the graft and pack shapes and an odd count,
+    bf16 and fp32 out, ids clipped: bit for bit the plain version."""
+    g = torch.Generator().manual_seed(21)
+    L, R, D = 4, 64, 576
+    NP = nb + 3
+    q, s = _quantized_tier(g, (L, NP * R, D), name)
+    ids = torch.randint(-2, NP + 3, (nb,), generator=g)
+    got = gops.gather_pages_dequant(q, s, ids.to(cuda), R, TORCH_DT[dt])
+    torch.cuda.synchronize()
+    want = gref.gather_pages_dequant_ref(q, s, ids[None].expand(L, -1), R,
+                                         TORCH_DT[dt])
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+@pytest.mark.parametrize("src_on", ["pinned", "device"])
+def test_cuda_put_pages_bitwise(cuda, name, src_on):
+    """The install's page write: packet pages (pinned, read over UVA, or on
+    the card) into a pinned tier at destination ids, the scale plane in
+    the same launch; ids outside the pool drop; other pages untouched."""
+    g = torch.Generator().manual_seed(22)
+    L, R, D, NP, n = 4, 64, 576, 40, 9
+    src, ssc = _tier(g, (L, n * R, D), name)
+    dst, dsc = _tier(g, (L, NP * R, D), name)
+    want, wsc = dst.clone(), None if dsc is None else dsc.clone()
+    ids = torch.randperm(NP, generator=g)[:n]
+    ids[4] = NP + 1
+    ids[6] = -1
+    if src_on == "device":
+        src = src.to(cuda)
+        ssc = None if ssc is None else ssc.to(cuda)
+    n0 = gops.put_pages.launches
+    gops.put_pages(dst, ids.to(cuda), src, R, dst_scales=dsc,
+                   src_scales=ssc)
+    assert gops.put_pages.launches == n0 + 1
+    torch.cuda.synchronize()
+    gops.put_pages(want, ids, src.cpu(), R, dst_scales=wsc,
+                   src_scales=None if ssc is None else ssc.cpu())
+    assert torch.equal(_bits(dst), _bits(want))
+    if dsc is not None:
+        assert torch.equal(_bits(dsc), _bits(wsc))
+
+
+def _cluster_cfg(tier):
+    """The mini config with a miss envelope and a MoE capacity that cannot
+    bind, so a slot's decode math does not depend on its co-residents."""
+    import dataclasses
+    cfg = _mini_cfg(tier)
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k),
+        ess=dataclasses.replace(cfg.ess, max_miss_ratio=1.0))
+
+
+def _prefilled(cuda, cfg, params):
+    """A prefill session on the card with one 300-token prompt promoted
+    (rid 0, 12 new tokens): ``(session, slot, req, t0)``."""
+    from repro_torch.cluster import workers as W
+    from repro_torch.serving.scheduler import Request
+    s = W.make_prefill_session()(params, cfg, num_slots=2, max_seq=400,
+                                 prefill_chunk=128, device=cuda)
+    s.submit(Request(rid=0, prompt_len=300, max_new_tokens=12))
+    s.admit()
+    while not s._pending_first:
+        s.prefill_round()
+    [(slot, req, t0)] = s._pending_first
+    s._pending_first = []
+    return s, slot, req, t0
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+def test_cuda_pack_install_bitwise_one_wait_no_sync(cuda, tier,
+                                                    monkeypatch):
+    """The pack on the card against the plain path on the same state (the
+    page copy with CPU ids), bit for bit, with exactly one host wait and
+    no other sync; the install into a decode session under sync-debug
+    "error": the decode tier's new pages hold the packet's bits, and
+    ``lens``, keys, token and hidden are written in place."""
+    from repro_torch.cluster import kv_transfer as KT
+    from repro_torch.core import offload
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _cluster_cfg(tier)
+    params = init_params(cfg, 3, device=cuda)
+    s, slot, req, t0 = _prefilled(cuda, cfg, params)
+    waits = []
+    wait = KT.host_wait
+
+    def counted_wait(dev):
+        torch.cuda.set_sync_debug_mode(0)
+        waits.append(dev)
+        wait(dev)
+        torch.cuda.set_sync_debug_mode("error")
+    monkeypatch.setattr(KT, "host_wait", counted_wait)
+    n0 = gops.gather_pages.launches
+    with _SyncFree():
+        pkt = KT.pack_migration(s, slot, req, t0)
+    assert len(waits) == 1 and gops.gather_pages.launches == n0 + 1
+    assert pkt.pages.is_pinned() and pkt.t0 == int(t0)
+    ids = torch.tensor(s.allocator.owned(slot)[:pkt.n_pages])
+    pages = torch.empty_like(pkt.pages)
+    scales = None if pkt.scales is None else torch.empty_like(pkt.scales)
+    c = s.caches
+    offload.gather_tier_pages(c.host_latent, c.host_scales, ids, pages,
+                              scales)
+    assert torch.equal(_bits(pkt.pages), _bits(pages))
+    if scales is not None:
+        assert torch.equal(_bits(pkt.scales), _bits(scales))
+    for k, ik in zip(c.ikeys, pkt.ikeys):
+        assert torch.equal(_bits(k[slot, :300].cpu()), _bits(ik))
+    assert torch.equal(_bits(s.state.hidden[slot].cpu()), _bits(pkt.hidden))
+
+    d = E.ServeSession(params, cfg, num_slots=2, max_seq=400, device=cuda)
+    keep = (d.caches.lens, d.caches.block_tables, d.state.tok,
+            d.state.hidden)
+    n0 = gops.put_pages.launches
+    with _SyncFree():
+        dslot = KT.install_migration(d, pkt)
+    assert gops.put_pages.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(keep, (d.caches.lens,
+               d.caches.block_tables, d.state.tok, d.state.hidden)))
+    new = d.allocator.owned(dslot)[:pkt.n_pages]
+    assert torch.equal(_bits(d.caches.host_latent[:, new]), _bits(pkt.pages))
+    if pkt.scales is not None:
+        assert torch.equal(_bits(d.caches.host_scales[:, new]),
+                           _bits(pkt.scales))
+    assert int(d.caches.lens[dslot]) == 300
+    assert int(d.state.tok[dslot]) == pkt.t0
+    assert torch.equal(_bits(d.state.hidden[dslot].cpu()), _bits(pkt.hidden))
+    for k, ik in zip(d.caches.ikeys, pkt.ikeys):
+        assert torch.equal(_bits(k[dslot, :300].cpu()), _bits(ik))
+
+
+@pytest.mark.parametrize("tier,warm", [("bf16", False), ("int8", True)],
+                         ids=["bf16", "int8-warmup"])
+def test_cuda_cluster_streams_match_engine(cuda, tier, warm):
+    """One prefill and two decode workers on one card, sharing the weights,
+    graph rounds: the streams of 4 requests (one sampled) equal a 4-slot
+    ``EssEngine``'s bit for bit; every request migrates; the page gather
+    carries the pack and the page write the install."""
+    from repro_torch.cluster import EssCluster
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.api import EssEngine, SamplingParams
+    cfg = _cluster_cfg(tier)
+    params = init_params(cfg, 4, device=cuda)
+    prompts = [300, 120, 250, 64]
+    sps = [SamplingParams(max_tokens=12), SamplingParams(
+        max_tokens=6, temperature=0.8, top_k=16, seed=5),
+        SamplingParams(max_tokens=9), SamplingParams(max_tokens=7)]
+
+    def prompt_fn(req):
+        g = torch.Generator().manual_seed(50 + req.rid)
+        return torch.randint(0, cfg.vocab_size, (1, req.prompt_len),
+                             generator=g)
+    kw = dict(max_seq=400, prefill_chunk=128, do_warmup=warm,
+              prompt_fn=prompt_fn, device=cuda)
+    eng = EssEngine(params, cfg, num_slots=4, **kw)
+    want = [(o.tokens, o.finish_reason) for o in eng.generate(prompts, sps)]
+    g0, p0 = gops.gather_pages.launches, gops.put_pages.launches
+    clu = EssCluster(params, cfg, num_prefill=1, num_decode=2, num_slots=2,
+                     **kw)
+    got = [(o.tokens, o.finish_reason) for o in clu.generate(prompts, sps)]
+    assert got == want
+    m = clu.metrics()
+    assert m["migrations"] == 4 == m["installed"]
+    assert gops.gather_pages.launches - g0 == 4
+    assert gops.put_pages.launches - p0 == 4
+    assert all(w.installed > 0 for w in clu.decode)

@@ -44,7 +44,9 @@ def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serving.engine, "
-            "repro_torch.launch.serve, repro_torch.kernels._build\n"
+            "repro_torch.launch.serve, repro_torch.kernels._build, "
+            "repro_torch.serving.api, repro_torch.cluster, "
+            "repro_torch.simulator.costmodel\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -96,6 +98,10 @@ def _fake_cuda_calls():
         "gather_pages": lambda: g.gather_pages(
             torch.zeros((2, 8, 64), device=dev),
             torch.zeros(2, dtype=torch.long, device=dev), 4),
+        "put_pages": lambda: g.put_pages(
+            torch.zeros((2, 8, 64), device=dev),
+            torch.zeros(2, dtype=torch.long, device=dev),
+            torch.zeros((2, 4, 64), device=dev), 2),
         "gather_pages_dequant": lambda: g.gather_pages_dequant(
             torch.zeros((2, 8, 64), dtype=torch.float8_e4m3fn, device=dev),
             torch.zeros((2, 8, 1), dtype=torch.float16, device=dev),
@@ -116,7 +122,8 @@ def _fake_cuda_calls():
 
 @pytest.mark.parametrize("name", ["gather_rows", "scatter_rows",
                                   "gather_rows_dequant", "gather_pages",
-                                  "gather_pages_dequant", "indexer_scores",
+                                  "put_pages", "gather_pages_dequant",
+                                  "indexer_scores",
                                   "partial_attend", "partial_attend_tc",
                                   "merge_splits"])
 def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):
