@@ -37,9 +37,9 @@ the script exits non-zero without a result line):
    512 fetched rows shared by both queries (one set expanded over Q, each
    query masked to its own);
 4. small  — the smoke config in fp32 on the card against the plain CPU path
-   (prefill + teacher-forced decode), a reference on a small input; its
-   sparse-MLA partials and indexer scores must all take the general
-   route;
+   (the ESS prefill + teacher-forced decode, then the monolithic model's
+   prefill + decode), a reference on a small input; its sparse-MLA
+   partials and indexer scores must all take the general route;
 5. serve  — ``deepseek-v32-exp-ess`` at full width, cut to 4 layers (3
    dense + 1 MoE) and no MTP, 4 requests x 8192-token prompts x 32 new
    tokens with random weights from a seed, bf16 host tier; the launch
@@ -153,7 +153,10 @@ at Q <= 2 also time SDPA replayed from a graph (``library_device_ms``).
 The kernels line's ``launches`` are session A's
 eager run's (the row gathers, scatter, indexer and sparse-MLA shapes,
 merge), session B's eager run's (the gather-dequant routes), session C's
-eager run's (the verify shapes), the grafts' (the page gathers) and the
+eager run's (the verify shapes), the grafts' (the page gathers), the
+monolithic run's prefill (the HBM gather at the prefill shape) and eager
+decode rounds (the HBM gather at the decode shape, ``topk_select``'s
+indexer, the mono-decode partial) and the
 cluster runs' (the pack's page gather and the install's page write); every
 kernel of the line must have one: counted where the wrappers launch, not derived
 from a graph's replays, which the graph runs' equal counts then confirm.
@@ -971,7 +974,172 @@ def check_kernels(torch, dev):
     mla_case("attn1-verify", 2, 2 * M, True, shared=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # -- the monolithic decode: one query over its own 2048 gathered rows
+    mla_case("mono-decode", 1, K, True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return records
+
+
+def check_monolithic_kernels(torch, dev, records):
+    """Phase 3, the generic path's new routes: the row gather over a
+    device-resident ``[B,S,576]`` cache at the decode shape (ids [4,2048])
+    and a prefill chunk's (ids [4, 256 x 2048]), bit for bit, each timed on
+    both routes beside ``torch.index_select`` on the same ids (the library
+    column); ``topk_select`` at the decode shape (the indexer, then the
+    stable sort; its top-2048 against the plain scores'); then the two
+    kernels together, ``sparse_mla_gather_attend``, at both shapes against
+    their plain versions at 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_cache import ops as gops
+    from repro_torch.kernels.gather_cache import ref as gref
+    from repro_torch.kernels.indexer import ops as iops
+    from repro_torch.kernels.indexer import ref as iref
+    from repro_torch.kernels.sparse_mla import ops as sops
+    from repro_torch.kernels.sparse_mla import ref as sref
+    from repro_torch.models.mla import mla_scale, topk_desc
+
+    cfg = get_config("deepseek-v32-exp-ess")
+    g = torch.Generator(device=dev).manual_seed(2121)
+    B, S, C = 4, 8224, PREFILL_CHUNK
+    D, rank, H = cfg.mla.latent_dim, cfg.mla.kv_lora_rank, cfg.num_heads
+    Hi, Di, K = cfg.dsa.index_heads, cfg.dsa.index_dim, cfg.dsa.index_topk
+    scale = mla_scale(cfg)
+    lens = torch.tensor([8193, 8200, 8207, 8224], device=dev)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cache = randn((B, S, D))
+    flat = cache.view(B * S, D)
+    pos = torch.arange(S, device=dev)
+    off = torch.arange(B, device=dev)[:, None] * S
+    # decode: each slot's top-K of random scores over its valid positions;
+    # prefill: C queries ending at each slot's length, each causal
+    valid_d = pos[None] < lens[:, None]                           # [B,S]
+    sc = torch.rand((B, 1, S), generator=g, device=dev)
+    ids_d = sc.masked_fill(~valid_d[:, None], -1.0).topk(K, -1).indices
+    qpos = lens[:, None] - C + torch.arange(C, device=dev)        # [B,C]
+    valid_p = pos[None, None] <= qpos[..., None]                  # [B,C,S]
+    sc = torch.rand((B, C, S), generator=g, device=dev)
+    ids_p = sc.masked_fill(~valid_p, -1.0).topk(K, -1).indices    # [B,C,K]
+    del sc
+
+    def gather_case(tag, ids):
+        """The gather as ``sparse_mla_gather_attend`` calls it: the flat
+        cache, the ids offset by b * S."""
+        m = ids.numel()
+        fids = (ids.reshape(B, -1) + off).reshape(-1)
+        want = gref.gather_rows_ref(flat, fids)
+        for route in ("direct", "staged"):
+            got = gops.gather_rows(flat, fids, route=route)
+            torch.cuda.synchronize()
+            require(torch.equal(got.view(-1, D), want),
+                    f"gather_rows[hbm-{tag}] ({route}) differs")
+            del got
+        del want
+        ndist = int(fids.unique().numel())
+        nb, _ = bound_ms((ndist + m) * D * 2 + 8 * m, 0, "bf16")
+        it = 5 if m > 10**5 else 20
+
+        def run(route=None):
+            return lambda: gops.gather_rows(flat, fids, route=route)
+        rule = "staged" if gops.staged_route(m, B * S, host=False) \
+            else "direct"
+        records[f"gather_rows[hbm-{tag}]"] = dict(
+            name=f"gather_rows[hbm-{tag}]", route="cuda",
+            source="src/repro_torch/kernels/gather_cache/csrc/gather_rows.cu",
+            replaces="src/repro/kernels/gather_cache/gather_cache.py:46",
+            max_abs_err=0.0,
+            ms=timed_ms(torch, run(), iters=it),
+            device_ms=graph_ms(torch, run(), iters=it),
+            direct_ms=timed_ms(torch, run("direct"), iters=it),
+            direct_device_ms=graph_ms(torch, run("direct"), iters=it),
+            staged_ms=timed_ms(torch, run("staged"), iters=it),
+            staged_device_ms=graph_ms(torch, run("staged"), iters=it),
+            plain_ms=timed_ms(torch, lambda: gref.gather_rows_ref(
+                flat, fids), iters=it),
+            bound_ms=nb, bound_by="bytes",
+            library_ms=timed_ms(torch, lambda: torch.index_select(
+                flat, 0, fids), iters=it),
+            library_device_ms=graph_ms(torch, lambda: torch.index_select(
+                flat, 0, fids), iters=it),
+            distinct_rows=ndist,
+            shape=f"HBM cache [{B}, {S}, {D}] bf16, ids [{B}, {m // B}] "
+                  f"({ndist} distinct rows); the rule's route: {rule}")
+
+    gather_case("decode", ids_d)
+    gather_case("prefill", ids_p)
+    torch.cuda.empty_cache()
+
+    # topk_select at the decode shape: the scores kernel, then the stable
+    # sort (lax.top_k's tie order)
+    q, w, keys = randn((B, 1, Hi, Di)), randn((B, 1, Hi)), randn((B, S, Di))
+    vals, ids = iops.topk_select(q, w, keys, valid_d, K)
+    want = iref.indexer_scores_ref(q, w, keys, valid_d)
+    wids = topk_desc(want, K)
+    torch.cuda.synchronize()
+    hit = torch.zeros(want.shape, dtype=torch.bool, device=dev)
+    overlap = float(hit.scatter_(2, ids, True).gather(2, wids).float().mean())
+    require(overlap >= 0.999, f"topk_select: top-{K} overlap with the "
+            f"plain version {overlap:.5f} < 0.999")
+    torch.testing.assert_close(vals, want.gather(2, ids), rtol=1e-4,
+                               atol=1e-3)
+    err = float((vals - want.gather(2, ids)).abs().max())
+    nvalid = int(valid_d.sum())
+    nbytes = (q.numel() + w.numel() + keys.numel()) * 2 + valid_d.numel() \
+        + B * K * (4 + 8)
+    bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
+    scores = iops.indexer_scores(q, w, keys, valid_d)
+    records["indexer_scores[topk_select]"] = dict(
+        name="indexer_scores[topk_select]", route="cuda",
+        source="src/repro_torch/kernels/indexer/csrc/indexer_tc.cu",
+        replaces="src/repro/kernels/indexer/indexer.py:41",
+        max_abs_err=err,
+        ms=timed_ms(torch, lambda: iops.topk_select(q, w, keys, valid_d, K)),
+        device_ms=graph_ms(torch, lambda: iops.topk_select(
+            q, w, keys, valid_d, K)),
+        sort_ms=timed_ms(torch, lambda: topk_desc(scores, K)),
+        plain_ms=timed_ms(torch, lambda: topk_desc(iref.indexer_scores_ref(
+            q, w, keys, valid_d), K)),
+        bound_ms=bms, bound_by=bby, library_ms=None, top2048_overlap=overlap,
+        shape=f"topk_select: q [{B}, 1, {Hi}, {Di}], keys [{B}, {S}, {Di}] "
+              f"bf16, k {K} (scores kernel + stable sort)")
+    del q, w, keys, vals, ids, want, wids, hit, scores
+
+    # the gather-attend (row gather + partial, normalized) against the
+    # plain versions of both, at the decode and the prefill chunk's shapes
+    for tag, ids, valid in (("decode", ids_d, valid_d),
+                            ("prefill", ids_p, valid_p)):
+        Q = ids.shape[1]
+        qq = randn((B, Q, H, D))
+        fids = (ids.reshape(B, -1) + off).reshape(-1)
+        vq = valid if valid.dim() == 3 else valid[:, None].expand(B, Q, S)
+        gv = vq.gather(2, ids)
+
+        def plain():
+            rows = gref.gather_rows_ref(flat, fids).view(B, Q, K, D)
+            o, _, l = sref.sparse_mla_partial_ref(qq, rows, gv, scale, rank)
+            return o / l.clamp_min(1e-30)[..., None]
+
+        def kern():
+            return sops.sparse_mla_gather_attend(qq, cache, ids, valid, scale,
+                                                 rank)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+        err = float((got.float() - want).abs().max())
+        del got, want
+        it = 3 if Q > 1 else 20
+        print(f"  sparse_mla_gather_attend[{tag}]: q {list(qq.shape)}, ids "
+              f"{list(ids.shape)} over the HBM cache: kernels "
+              f"{timed_ms(torch, kern, iters=it):.4f} ms (device "
+              f"{graph_ms(torch, kern, iters=it):.4f}), plain "
+              f"{timed_ms(torch, plain, iters=it, warmup=1):.4f} ms, max "
+              f"err {err:.3g} (2e-2)", flush=True)
+        del qq
+    del cache, flat
+    torch.cuda.empty_cache()
 
 
 def check_small(torch, dev):
@@ -1013,7 +1181,24 @@ def check_small(torch, dev):
     for a, b in zip(cg.pools, cc.pools):
         require(torch.equal(a.slot_of.cpu(), b.slot_of),
                 "small-input pool maps differ")
-    return err
+    # the monolithic model on the same input: prefill + 3 decode steps
+    from repro_torch.models import transformer as T
+    outs = []
+    for p, d in ((p_cpu, "cpu"), (p_gpu, dev)):
+        pf = E.generic_prefill(p, cfg, toks, pos, device=d)
+        caches = T.pad_caches(pf.caches, 48)
+        lg = [pf.logits[:, -1]]
+        tok = lc[:, -1].argmax(-1)[:, None].to(d)
+        for _ in range(3):
+            o = E.generic_decode(p, cfg, tok, caches["lens"][:, None],
+                                 caches, device=d)
+            lg.append(o.logits[:, -1])
+            tok = o.logits[:, -1].argmax(-1)[:, None]
+        outs.append(torch.stack(lg).cpu())
+    torch.cuda.synchronize()
+    merr = float((outs[1] - outs[0]).abs().max())
+    require(merr <= 1e-3, f"small-input monolithic logits differ by {merr}")
+    return max(err, merr)
 
 
 GRAFT_LEN = 2048
@@ -1515,6 +1700,387 @@ def overlap_phase(torch, dev, serve, params, args, card):
 # session C: MTP speculative rounds (depth 1, the published module) with
 # two sampled requests among four (rid: prompt, knobs); session D: zero
 # weights (every draft accepted), two greedy requests (prompt, budget)
+# the monolithic phase: logits held to the ESS fixed batch's within this
+# share of the round's largest logit; greedy disagreements with ESS at
+# most ESS's own against itself (ESS at two prefill chunks: the same
+# function through other GEMM shapes) plus this many, each a near-tie:
+# the monolithic model's gap between the two tokens no wider than ESS's
+# own top-2 gap moves between its two runs (the largest move over every
+# (slot, round)).  Random weights make near-ties: ESS disagrees with
+# itself at a few pairs when only its prefill chunk changes.
+MONO_LOGIT_REL = 5e-2
+MONO_EXTRA_DISAGREE = 1
+MONO_EAGER_ROUNDS = 4             # decode rounds 1-4 eager, then a graph
+MONO_PROFILED = 3                 # the last graph rounds, profiled
+MONO_PLAIN_LEN = 1024             # the plain chunked flash fits here
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 significand bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def counted_capture(torch, fn):
+    """``fn`` captured as a CUDA graph (:func:`capture_graph`); the
+    launches its wrappers counted while recording are taken back and
+    returned as the delta one replay stands for (``StepPrograms``'
+    bookkeeping: add it on each replay)."""
+    from repro_torch.kernels import counters
+    before = counters.snapshot()
+    graph = capture_graph(torch, fn)
+    delta = counters.diff(counters.snapshot(), before)
+    counters.restore(before)
+    return graph, delta
+
+
+def latent_state_bytes(torch, caches) -> dict:
+    """Device bytes of a path's latent state: the monolithic model's
+    latent and indexer planes (a dict cache), or ESS's pools (rows and
+    their maps) and indexer cache; ESS's pinned host tier apart."""
+    def nb(t):
+        return t.numel() * t.element_size()
+    if isinstance(caches, dict):
+        return {"latent": nb(caches["mla"].latent),
+                "indexer": nb(caches["mla"].ikeys)}
+    out = {"pool_rows": sum(nb(p.data) for p in caches.pools),
+           "pool_maps": sum(nb(t) for p in caches.pools
+                            for t in (p.ids, p.last_use, p.slot_of)),
+           "indexer": sum(nb(t) for t in caches.ikeys)}
+    out["host_tier"] = nb(caches.host_latent) + (
+        0 if caches.host_scales is None else nb(caches.host_scales))
+    return out
+
+
+def monolithic_phase(torch, dev, serve, params, args, card, counted,
+                     records):
+    """Phase 7b: the generic path (the monolithic model, the whole latent
+    cache in device memory) on the fixed-batch serve's 4 x 8192-token
+    prompts, 32 new tokens: ``generic_prefill`` (the kernel route, by ids
+    in 256-query chunks), then greedy ``generic_decode`` rounds, rounds
+    1-``MONO_EAGER_ROUNDS`` eager, the rest replayed from a CUDA graph
+    (a replay's launches, from the capture, checked against an eager
+    round's; the kernels line takes the prefill's and the eager rounds'
+    counts).  Held teacher-forced against the
+    ESS fixed batch (``ess_prefill`` with the warmup, ``ess_decode``) fed
+    the same tokens with the miss envelope unbound: every round's logits
+    within ``MONO_LOGIT_REL`` of its largest; ESS run again at twice the
+    prefill chunk gives its own greedy disagreements, which the monolithic
+    model may exceed by ``MONO_EXTRA_DISAGREE``, and its own noise on a
+    greedy choice (how far its top-2 gap moves between the two runs),
+    which bounds each disagreement's gap.  Then the
+    prefill and one decode round at ``MONO_PLAIN_LEN`` tokens against the
+    plain version (the chunked flash, the plain decode).  Prints prefill
+    tok/s, decode ms/round (graph and eager) and each path's device bytes
+    of latent state."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.overlap import side_stream
+    from repro_torch.kernels import counters
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    cfg = serve.config_from_args(args)
+    B, S, new = args.requests, args.prompt_len, args.new_tokens
+    max_seq = S + new
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int64)     # the serve's prompts
+    toks = torch.as_tensor(prompts, device=dev)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    w_out = params.get("unembed", params["embed"])
+
+    def main_path():
+        start = counters.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf = E.generic_prefill(params, cfg, toks, pos, device=dev,
+                               want_logits=False)
+        first = L.unembed(w_out, pf.hidden[:, -1:])[:, 0]        # [B,V]
+        caches = T.pad_caches(pf.caches, max_seq)
+        del pf
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        at_prefill = counters.snapshot()
+        prefill = counters.diff(at_prefill, start)
+        logits = [first]
+        tok = first.argmax(-1)[:, None].clone()
+        eager_ms, graph_ms = [], []
+
+        def step():
+            return E.generic_decode(params, cfg, tok, caches["lens"][:, None],
+                                    caches, device=dev)
+        for _ in range(MONO_EAGER_ROUNDS):
+            t0 = time.perf_counter()
+            lg = step().logits[:, -1].clone()
+            tok.copy_(lg.argmax(-1)[:, None])
+            torch.cuda.synchronize()
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg)
+        eager = counters.diff(counters.snapshot(), at_prefill)
+        box = {}
+        graph, delta = counted_capture(torch, lambda: box.update(out=step()))
+        n_graph = new - 1 - MONO_EAGER_ROUNDS
+        prof_ms, kern = 0.0, {}
+        for i in range(n_graph):
+            # the last MONO_PROFILED graph rounds run under the profiler
+            profiled = i >= n_graph - MONO_PROFILED
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) \
+                    if profiled else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                graph.replay()
+                counters.add(delta)
+                lg = box["out"].logits[:, -1].clone()
+                tok.copy_(lg.argmax(-1)[:, None])
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            if profiled:
+                prof_ms += wall
+                for ev in prof.key_averages():
+                    if ev.device_type == DeviceType.CUDA:
+                        kern[ev.key] = kern.get(ev.key, 0.0) \
+                            + ev.self_device_time_total / 1e3
+            else:
+                graph_ms.append(wall)
+            logits.append(lg)
+        del graph, box
+        return dict(logits=torch.stack(logits, 1), caches=caches,
+                    prefill=prefill, eager=eager, delta=delta,
+                    prefill_s=prefill_s, eager_ms=eager_ms,
+                    graph_ms=graph_ms, prof_ms=prof_ms, kernels=kern)
+
+    torch.cuda.reset_peak_memory_stats()
+    mono, n = counted(main_path)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L_ = cfg.num_layers
+    chunks = -(-S // PREFILL_CHUNK)
+    rounds = new - 1
+    for name in ("indexer_scores", "gather_rows", "sparse_mla_partial",
+                 "sparse_mla_merge"):
+        require(n[name] > 0, f"{name} was not launched by the monolithic run")
+    require_tc_only(n, "monolithic")
+    want = {"indexer_by_q": {1: L_ * rounds, PREFILL_CHUNK: L_ * chunks},
+            "sparse_mla_by_shape": {(1, cfg.dsa.index_topk): L_ * rounds,
+                                    (PREFILL_CHUNK, cfg.dsa.index_topk):
+                                        L_ * chunks}}
+    for key, exp in want.items():
+        require(n[key] == exp, f"monolithic {key}: {n[key]}, expected {exp}")
+    require(n["gather_rows"] == L_ * (rounds + chunks),
+            f"monolithic gather_rows: {n['gather_rows']} launches, "
+            f"expected {L_ * (rounds + chunks)}")
+    require(n["gather_rows_dequant"] == 0 and n["scatter_rows"] == 0,
+            "the monolithic path touched the host tier")
+    # counted where the wrappers launch: the prefill's, and the eager
+    # decode rounds'; each graph replay stands for one eager round
+    K = cfg.dsa.index_topk
+    n_pf, n_eg, delta = mono.pop("prefill"), mono.pop("eager"), \
+        mono.pop("delta")
+    E_ = MONO_EAGER_ROUNDS
+    for what, got, exp in (
+            ("prefill gather_rows", n_pf[("gather_rows", "launches")],
+             L_ * chunks),
+            ("prefill gather_rows staged",
+             n_pf[("gather_rows", "launches_staged")], 0),
+            ("prefill indexer by Q",
+             n_pf[("indexer_scores", "launches_by_q")],
+             {PREFILL_CHUNK: L_ * chunks}),
+            ("prefill partial by shape",
+             n_pf[("partial_attend", "launches_by_shape")],
+             {(PREFILL_CHUNK, K): L_ * chunks}),
+            ("eager decode gather_rows", n_eg[("gather_rows", "launches")],
+             L_ * E_),
+            ("eager decode gather_rows staged",
+             n_eg[("gather_rows", "launches_staged")], 0),
+            ("eager decode indexer by Q",
+             n_eg[("indexer_scores", "launches_by_q")], {1: L_ * E_}),
+            ("eager decode partial by shape",
+             n_eg[("partial_attend", "launches_by_shape")],
+             {(1, K): L_ * E_})):
+        require(got == exp, f"monolithic {what}: {got}, expected {exp}")
+    require(n_eg[("merge_splits", "launches")] > 0,
+            "monolithic: the eager decode rounds merged no splits")
+    for key, v in delta.items():
+        per = {k: E_ * c for k, c in v.items()} if isinstance(v, dict) \
+            else E_ * v
+        require(n_eg[key] == per, f"monolithic {key}: a graph round stands "
+                f"for {v}, {E_} eager rounds counted {n_eg[key]}")
+    mono_bytes = latent_state_bytes(torch, mono["caches"])
+    mono_logits = mono.pop("logits")
+    del mono["caches"]
+    torch.cuda.empty_cache()
+
+    # the ESS fixed batch on the same tokens, teacher-forced: the envelope
+    # unbound, each round fed the monolithic model's greedy token; run
+    # twice, at the serve's prefill chunk and at twice it: the same
+    # function through other GEMM shapes, ESS's spread against itself
+    cfg_x = dataclasses.replace(cfg, ess=dataclasses.replace(
+        cfg.ess, max_miss_ratio=1.0))
+    forced = mono_logits.argmax(-1)                           # [B,new]
+    fetch = side_stream(dev)
+
+    def ess_run(chunk):
+        lg0, ess = E.ess_prefill(params, cfg_x, toks, pos, max_seq,
+                                 prefill_chunk=chunk, last_logits_only=True)
+        out = [lg0[:, -1]]
+        for r in range(rounds):
+            o = E.ess_decode(params, cfg_x, forced[:, r:r + 1],
+                             ess.lens[:, None], ess, fetch_stream=fetch)
+            ess = o.caches
+            out.append(o.logits[:, -1])
+        return torch.stack(out, 1), latent_state_bytes(torch, ess)
+
+    ess_logits, ess_bytes = ess_run(args.prefill_chunk)
+    ess2_logits, _ = ess_run(2 * args.prefill_chunk)
+    torch.cuda.empty_cache()
+    require(bool(torch.isfinite(mono_logits).all()),
+            "monolithic: non-finite logits")
+
+    def spread(a, b):
+        """Per (slot, round): max |a - b| over the vocabulary, its share
+        of max|a|, and whether the argmaxes agree."""
+        d = (a - b).abs().amax(-1)
+        return d, d / a.abs().amax(-1), a.argmax(-1) == b.argmax(-1)
+
+    def pair_gap(x, pair):
+        """x[..., t1] - x[..., t2] for the token pairs ``pair`` [..., 2]."""
+        v = x.gather(-1, pair)
+        return v[..., 0] - v[..., 1]
+
+    _, rel, agree = spread(mono_logits, ess_logits)
+    _, rel2, agree2 = spread(ess_logits, ess2_logits)
+    worst, share = float(rel.max()), float(agree.float().mean())
+    # ESS's own noise on the quantity a greedy token turns on: how far the
+    # gap between its top-2 tokens moves from one ESS run to the other
+    top2 = ess_logits.topk(2, -1).indices                     # [B,new,2]
+    moves = (pair_gap(ess_logits, top2) - pair_gap(ess2_logits, top2)).abs()
+    bound = float(moves.max())
+    n_mono, n_self = int((~agree).sum()), int((~agree2).sum())
+    print(f"monolithic vs ESS (teacher-forced, {B} x {new} (slot, round) "
+          f"pairs): max |logit diff| / max|logit| {worst:.4g} (limit "
+          f"{MONO_LOGIT_REL}), greedy agreement {share:.4f} ({n_mono} "
+          f"disagreements); ESS at chunk {args.prefill_chunk} vs ESS at "
+          f"chunk {2 * args.prefill_chunk}: {float(rel2.max()):.4g}, "
+          f"agreement {float(agree2.float().mean()):.4f} ({n_self} "
+          f"disagreements; limit for the monolithic model {n_self} + "
+          f"{MONO_EXTRA_DISAGREE}); ESS's top-2 gap moves up to {bound:.4g} "
+          f"between its runs (median {float(moves.median()):.4g})",
+          flush=True)
+    print("  per round, max |logit diff| / max|logit|, monolithic vs ESS: "
+          + ", ".join(f"{float(v):.3g}" for v in rel.amax(0))
+          + "; ESS vs ESS: "
+          + ", ".join(f"{float(v):.3g}" for v in rel2.amax(0)), flush=True)
+    wide, sub_ulp = [], 0
+    for b, r in (~agree).nonzero().tolist():
+        m = mono_logits[b, r]
+        am, ae = int(forced[b, r]), int(ess_logits[b, r].argmax())
+        pair = torch.tensor([am, ae], device=m.device)
+        gap = float(pair_gap(m, pair))
+        own = float((pair_gap(ess_logits[b, r], pair)
+                     - pair_gap(ess2_logits[b, r], pair)).abs())
+        top = m.topk(2).values
+        ulp = bf16_ulp(float(m[am]))
+        sub_ulp += gap < ulp
+        print(f"  disagreement slot {b} round {r}: monolithic {am} "
+              f"(top-2 gap {float(top[0] - top[1]):.4g}), ESS {ae}; the "
+              f"monolithic logits' gap between them {gap:.4g} (limit "
+              f"{bound:.4g}); ESS's own gap between them moves {own:.4g} "
+              f"between its runs; one bf16 ulp at {float(m[am]):.3f} is "
+              f"{ulp:.4g}", flush=True)
+        if gap > bound:
+            wide.append((b, r, gap))
+    print(f"  for information: {sub_ulp} of the {n_mono} disagreements "
+          f"below one bf16 ulp", flush=True)
+    require(worst <= MONO_LOGIT_REL,
+            f"monolithic vs ESS: logits {worst:.4g} of their scale apart")
+    require(n_mono <= n_self + MONO_EXTRA_DISAGREE,
+            f"monolithic vs ESS: {n_mono} greedy disagreements, ESS against "
+            f"itself {n_self}")
+    require(not wide, f"monolithic vs ESS: disagreements wider than ESS's "
+            f"own top-2 gap moves (slot, round, gap): {wide}")
+    del ess2_logits
+    del mono_logits, ess_logits
+
+    # the kernel route against the plain version at MONO_PLAIN_LEN tokens
+    Sp = MONO_PLAIN_LEN
+    outs = {}
+    for kern in (True, False):
+        pf = E.generic_prefill(params, cfg, toks[:, :Sp], pos[:, :Sp],
+                               device=dev, want_logits=False,
+                               use_kernel=kern)
+        first = L.unembed(w_out, pf.hidden[:, -1:])[:, 0]
+        caches = T.pad_caches(pf.caches, Sp + 1)
+        del pf
+        o = E.generic_decode(params, cfg, first.argmax(-1)[:, None],
+                             caches["lens"][:, None], caches, device=dev,
+                             use_kernel=kern)
+        outs[kern] = (first, o.logits[:, -1], caches["mla"])
+        del o, caches
+    errs = []
+    for a, b in zip(outs[True][:2], outs[False][:2]):
+        errs.append(float(((a - b).abs().amax(-1)
+                           / b.abs().amax(-1)).max()))
+    lat_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(outs[True][2], outs[False][2]))
+    print(f"monolithic kernel route vs plain at {Sp} tokens: prefill "
+          f"logits {errs[0]:.4g}, decode logits {errs[1]:.4g} of their "
+          f"scale apart (limit {MONO_LOGIT_REL}); caches max |diff| "
+          f"{lat_err:.4g}", flush=True)
+    require(max(errs) <= MONO_LOGIT_REL,
+            "monolithic kernel route differs from the plain version")
+    del outs
+    torch.cuda.empty_cache()
+
+    em, gm = mono["eager_ms"], mono["graph_ms"]
+    print(f"monolithic: prefill {B * S / mono['prefill_s']:.0f} tok/s "
+          f"({mono['prefill_s']:.2f} s for {B} x {S}); decode "
+          f"{sum(gm) / len(gm):.2f} ms/round graph ({len(gm)} rounds, "
+          f"the profiled ones apart), "
+          f"{sum(em[1:]) / len(em[1:]):.2f} ms/round eager (rounds 2-"
+          f"{len(em)}; round 1 {em[0]:.2f}); peak device memory "
+          f"{peak:.1f} GiB  [{card}]", flush=True)
+    busy = sum(mono["kernels"].values())
+    top = sorted(mono["kernels"].items(), key=lambda kv: -kv[1])[:6]
+    print(f"monolithic: {MONO_PROFILED} profiled graph rounds: device busy "
+          f"{100 * busy / mono['prof_ms']:.1f} % ({mono['prof_ms'] / MONO_PROFILED:.2f} "
+          f"ms/round under the profiler); by device ms a round: "
+          + ", ".join(f"{k[:48]} {v / MONO_PROFILED:.3f}" for k, v in top)
+          + f"  [{card}]", flush=True)
+    gb = 1e-6
+    print(f"monolithic: latent state on the card {sum(mono_bytes.values()) * gb:.2f} "
+          f"MB (latent {mono_bytes['latent'] * gb:.2f} + indexer "
+          f"{mono_bytes['indexer'] * gb:.2f}); ESS {ess_bytes['pool_rows'] * gb + ess_bytes['indexer'] * gb:.2f} "
+          f"MB (pool rows {ess_bytes['pool_rows'] * gb:.2f} + indexer "
+          f"{ess_bytes['indexer'] * gb:.2f}; pool maps "
+          f"{ess_bytes['pool_maps'] * gb:.2f}), its pinned host tier "
+          f"{ess_bytes['host_tier'] * gb:.2f} MB", flush=True)
+    print(f"monolithic: launches " + ", ".join(
+        f"{k} {v}" for k, v in n.items()), flush=True)
+    # the kernels line: the launches the wrappers counted, the prefill's
+    # and the eager decode rounds' (the graph rounds' are checked above)
+    records["gather_rows[hbm-prefill]"]["launches"] = \
+        n_pf[("gather_rows", "launches")]
+    records["gather_rows[hbm-decode]"]["launches"] = \
+        n_eg[("gather_rows", "launches")]
+    records["sparse_mla_partial[mono-decode]"]["launches"] = \
+        n_eg[("partial_attend", "launches_by_shape")][(1, K)]
+    records["indexer_scores[topk_select]"]["launches"] = \
+        n_eg[("indexer_scores", "launches_by_q")][1]
+    for name, v in (("sparse_mla_partial[prefill]",
+                     n_pf[("partial_attend", "launches_by_shape")]
+                     [(PREFILL_CHUNK, K)]),
+                    ("indexer_scores[prefill]",
+                     n_pf[("indexer_scores", "launches_by_q")]
+                     [PREFILL_CHUNK]),
+                    ("sparse_mla_merge", n_eg[("merge_splits", "launches")])):
+        records[name]["launches_monolithic"] = v
+
+
 SESSION_C = ((8192, {}), (3000, dict(temperature=0.8, top_k=64, seed=123)),
              (6144, {}), (8192, dict(temperature=1.0, top_p=0.9, seed=7)))
 SESSION_C_NEW = 32
@@ -2134,6 +2700,7 @@ def main() -> int:
           f"copies; the bounds take its peak, {LINK_BYTES_S / 1e9:.0f} GB/s "
           f"each way)  [{card}]", flush=True)
     records = check_kernels(torch, dev)
+    check_monolithic_kernels(torch, dev, records)
     for r in records.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2164,7 +2731,13 @@ def main() -> int:
                  f"{r['pack_shape_copy_ms']:.4f} ms"
                  if "pack_shape_ms" in r else "")
               + (f", direct route on the same ids {r['direct_ms']:.4f} ms"
-                 if "direct_ms" in r else "")
+                 if "direct_ms" in r and "staged_ms" not in r else "")
+              + (f", direct route {r['direct_ms']:.4f} ms (device "
+                 f"{r['direct_device_ms']:.4f}), staged route "
+                 f"{r['staged_ms']:.4f} ms (device "
+                 f"{r['staged_device_ms']:.4f})" if "staged_ms" in r else "")
+              + (f", stable sort alone {r['sort_ms']:.4f} ms"
+                 if "sort_ms" in r else "")
               + (f", wrapper host {r['host_us']:.2f} us (UVA lookup each "
                  f"call: {r['host_us_uncached']:.2f} us)"
                  if "host_us" in r else "")
@@ -2356,6 +2929,11 @@ def main() -> int:
         print(f"graft {tier}: {gr}  [{card}]", flush=True)
         require_launched(n, (page_kernel, "scatter_rows"), f"graft {tier}")
 
+    # 7b. the monolithic model (the generic path) on the serve's prompts
+    t0 = time.perf_counter()
+    monolithic_phase(torch, dev, serve, params, args, card, counted, records)
+    print(f"monolithic phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 8-9. the serve sessions
     session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card)
@@ -2372,7 +2950,9 @@ def main() -> int:
             "general_device_ms", "copy_ms", "direct_ms", "distinct_rows",
             "top2048_overlap", "launches_session_e", "launches_session_f",
             "route_b_ms", "pack_shape_ms", "pack_shape_device_ms",
-            "pack_shape_bound_ms", "pack_shape_copy_ms")
+            "pack_shape_bound_ms", "pack_shape_copy_ms", "staged_ms",
+            "staged_device_ms", "direct_device_ms", "sort_ms",
+            "launches_monolithic")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@
 //
 // Bound: bytes, and the host link (about 55 GB/s) rather than HBM
 // (3.35 TB/s) for every byte read from the tier.  Two routes for the row
-// gathers, chosen by the wrapper from shapes alone (ops.staged_route):
+// gathers, chosen by the wrapper from the shapes and the source's memory
+// (ops.staged_route; a device-resident source always reads directly):
 // * direct (M ids <= S tier rows: the decode miss fetch, the warmup
 //   replay): one warp per row; every load of the row -- its 16-byte
 //   payload vectors and, for dequant, its f16 scale, read by every lane

@@ -7,8 +7,9 @@ tensor or a **pinned** host tensor, which the kernel reads (or writes)
 through its UVA device pointer.  Each wrapper counts its launches in a
 plain integer attribute, ``gather_rows.launches``.
 
-The row gathers take one of two routes, by :func:`staged_route` (shapes
-alone): *direct*, one warp per id reading its row over the link, or
+The row gathers take one of two routes, by :func:`staged_route` (the
+shapes, and whether the source is host memory): *direct*, one warp per
+id reading its row over the link (or from device memory), or
 *staged*, where each distinct row crosses the link once per launch into a
 device staging buffer that is then expanded to the ids.  Their counters
 split ``launches`` into ``launches_direct`` and ``launches_staged``.
@@ -106,12 +107,16 @@ def device_pointer(t: torch.Tensor) -> int:
     return dev + (t.data_ptr() - base)
 
 
-def staged_route(m: int, s: int) -> bool:
+def staged_route(m: int, s: int, host: bool = True) -> bool:
     """The row gathers' route rule: stage when the launch's ``m`` ids
-    outnumber the ``s`` rows of the tier view they index, so that ids
-    repeat (by pigeonhole).  The prefill's per-query fetch takes it; the
-    decode miss fetch and the warmup replay (``m <= s``) read directly."""
-    return m > s
+    outnumber the ``s`` rows of the host tier view they index, so that
+    ids repeat (by pigeonhole) and each repeat would cross the link again.
+    The prefill's per-query fetch takes it; the decode miss fetch and the
+    warmup replay (``m <= s``) read directly.  A source in device memory
+    (``host=False``: the monolithic model's latent cache) always reads
+    directly: its repeats hit L2, and staging measured no faster there
+    (PERF.md section 6)."""
+    return host and m > s
 
 
 def _count_ptr(fetched: torch.Tensor | None, device) -> _P:
@@ -169,22 +174,36 @@ def _flat_ids(cache: torch.Tensor, ids: torch.Tensor):
     return cache.reshape(B * S, D), flat
 
 
+def _pick_route(route: str | None, m: int, s: int, host: bool) -> bool:
+    """Whether a row gather stages: :func:`staged_route`'s rule, or the
+    route a caller names (``"staged"`` / ``"direct"``: both routes timed
+    and tested on the same ids)."""
+    if route is None:
+        return staged_route(m, s, host)
+    if route not in ("staged", "direct"):
+        raise ValueError(f"route={route!r}: staged | direct | None")
+    return route == "staged"
+
+
 def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
                 fetched: torch.Tensor | None = None,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                route: str | None = None) -> torch.Tensor:
     """cache [S,D] (or [B,S,D]), ids [...] (or [B,M]) -> rows [..., D] on
     ``ids.device``: ``cache[clip(ids)]``, zero rows where ``ids < 0``.
 
     ``fetched`` (an int32 tensor beside ``ids``, optional) gains the number
     of cache rows the call read: each live id's on the direct route, each
-    distinct row once on the staged route (:func:`staged_route`).  ``out``
-    (optional, ``[..., D]`` of ``ids``' shape) receives the rows: memory
-    the caller allocated, on the stream that consumes them."""
+    distinct row once on the staged route (:func:`staged_route`, or
+    ``route``).  ``out`` (optional, ``[..., D]`` of ``ids``' shape)
+    receives the rows: memory the caller allocated, on the stream that
+    consumes them."""
     cache, ids = _flat_ids(cache, ids)
     m, s = ids.numel(), cache.shape[0]
+    staged = _pick_route(route, m, s, not cache.is_cuda)
     if ids.device.type == "cpu":
         if fetched is not None:
-            fetched += ref.rows_read(ids, s, staged_route(m, s))
+            fetched += ref.rows_read(ids, s, staged)
         rows = ref.gather_rows_ref(cache, ids)
         return rows if out is None else _into(out, rows, ids)
     if ids.device.type != "cuda":
@@ -196,7 +215,7 @@ def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
     cnt = _count_ptr(fetched, ids.device)
     lib = _lib()
     stream = _build.stream_ptr(rows)
-    if staged_route(m, s):
+    if staged:
         staging = torch.empty((s, cache.shape[1]), dtype=cache.dtype,
                               device=ids.device)
         flags = torch.empty(s, dtype=torch.int32, device=ids.device)

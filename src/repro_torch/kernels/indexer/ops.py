@@ -13,6 +13,11 @@ and dtype (:func:`tc_route`):
 ``indexer_scores.launches`` counts every launch, ``.launches_tc`` /
 ``.launches_general`` each route's own, and ``.launches_by_q`` each query
 count Q's (1 at decode, the chunk's length at prefill).
+
+:func:`topk_select` is the DSA selection stage: the scores kernel, then
+the exact top-k with ``lax.top_k``'s tie order (a stable descending sort:
+the lowest index wins among equal scores; ``torch.topk`` on CUDA does not
+promise that order).
 """
 
 from __future__ import annotations
@@ -155,6 +160,19 @@ def indexer_scores(q: torch.Tensor, w: torch.Tensor, keys: torch.Tensor,
     by_q, Q = indexer_scores.launches_by_q, q.shape[1]
     by_q[Q] = by_q.get(Q, 0) + 1
     return out
+
+
+def topk_select(q: torch.Tensor, w: torch.Tensor, keys: torch.Tensor,
+                valid: torch.Tensor | None, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scores + top-k in one call: ``(vals [B,Q,k] fp32, ids [B,Q,k])``,
+    the k largest of :func:`indexer_scores` (``-2e38`` where ``valid`` is
+    False, so invalid keys come last) in descending order, ties in index
+    order.  One indexer launch on CUDA; the plain scores on the CPU."""
+    from repro_torch.models.mla import topk_desc
+    sc = indexer_scores(q, w, keys, valid)
+    ids = topk_desc(sc, k)
+    return sc.gather(-1, ids), ids
 
 
 def _tc_launch(q, w, keys, valid):

@@ -15,6 +15,11 @@ and dtype (:func:`tc_route`):
 ``.launches_tc`` / ``.launches_general`` each route's own,
 ``.launches_by_shape`` each ``(Q, K)``'s (queries, rows per query);
 ``merge_splits.launches`` counts the merges.
+
+:func:`sparse_mla_gather_attend` is the monolithic path's two-kernel
+attention over a device-resident latent cache: the row gather
+(``kernels/gather_cache``) of each query's selected rows, then the
+partial, normalized.
 """
 
 from __future__ import annotations
@@ -237,3 +242,30 @@ partial_attend.launches_tc = 0
 partial_attend.launches_general = 0
 partial_attend.launches_by_shape = {}
 merge_splits.launches = 0
+
+
+def sparse_mla_gather_attend(q_comb: torch.Tensor, latent_cache: torch.Tensor,
+                             ids: torch.Tensor, valid_s: torch.Tensor,
+                             scale: float, rank: int) -> torch.Tensor:
+    """Gather the top-k rows, then attend; the normalized output
+    ``o / max(l, 1e-30)`` in ``q_comb``'s dtype.
+
+    q_comb [B,Q,H,D], latent_cache [B,S,D] (device memory on CUDA), ids
+    [B,Q,K] in ``[0, S)``, valid_s [B,S] (or per query [B,Q,S]) bool.
+    The rows ``[B,Q,K,D]`` come from one ``gather_rows`` launch over the
+    flattened ``[B*S, D]`` cache (the ids offset by ``b * S``: top-k ids
+    are in range, so none is clipped or dropped), their validity is
+    ``valid_s`` at the ids, and one :func:`partial_attend` (plus its split
+    merge) attends to them."""
+    from repro_torch.kernels.gather_cache import ops as gops
+    B, Q, K = ids.shape
+    S, D = latent_cache.shape[1:]
+    flat = ids.reshape(B, Q * K) + torch.arange(
+        0, B * S, S, device=ids.device)[:, None]
+    rows = gops.gather_rows(latent_cache.reshape(B * S, D),
+                            flat.view(-1)).view(B, Q, K, D)
+    if valid_s.dim() == 2:
+        valid_s = valid_s[:, None].expand(B, Q, valid_s.shape[-1])
+    gvalid = valid_s.gather(2, ids)
+    p = partial_attend(q_comb, rows, gvalid, scale, rank)
+    return (p.o / p.l.clamp_min(1e-30)[..., None]).to(q_comb.dtype)

@@ -4,7 +4,6 @@ embeddings, the gated MLP, embed / unembed."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
@@ -45,10 +44,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                      dim=-1).to(dt)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` rounded as the reference's ``jax.nn.silu``: XLA
+    expands the logistic to ``1 / (1 + exp(-x))`` and rounds each step to
+    the input's dtype (bf16: four roundings where ``F.silu`` makes one, up
+    to an ulp apart)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1.0)
+
+
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     if act != "silu":
         raise NotImplementedError(f"activation {act!r} is not ported")
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    return (silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
 
 
 def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """ESS serving steps for DSA+MLA models (counterpart of the synchronous
 path of ``repro.serving.engine``, with a bf16 or a quantized int8 / fp8
-host tier).
+host tier), and the generic path.
 
+* :func:`generic_prefill` / :func:`generic_decode` — the monolithic model
+  (:func:`repro_torch.models.transformer.forward`): the whole latent cache
+  in device memory, the baseline ESS is measured against.
 * :func:`ess_decode` — one Q-token decode step over every layer: append the
   indexer key (device) and the latent row (host tier, UVA write), run ESS
   sparse attention (indexer top-k, pool lookup, UVA miss fetch, Attn0 ||
@@ -43,9 +46,10 @@ from repro_torch.core.overlap import (ESSLayerState, Fork, _attend_rows,
                                       ess_sparse_attention_staged,
                                       side_stream)
 from repro_torch.distributed import compression as cmp
+from repro_torch.models import blocks as MB
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
-from repro_torch.models import moe as MoE
+from repro_torch.models import transformer as T
 from repro_torch.serving import state as ES
 from repro_torch.serving import step as SP
 from repro_torch.serving.api import TokenEvent
@@ -59,16 +63,43 @@ class DecodeOut(NamedTuple):
     stats: dict
 
 
-def _layer_params(params: dict, cfg: ArchConfig, layer: int):
-    """(parameter views of one layer, is_moe)."""
-    nd = cfg.moe.first_dense_layers if cfg.moe else 0
+# ---------------------------------------------------------------------------
+# Generic path
+# ---------------------------------------------------------------------------
 
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    if layer < nd:
-        return pick(params["dense_layers"], layer), False
-    return pick(params["layers"], layer - nd), cfg.moe is not None
+def generic_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                    positions: torch.Tensor, *, device=None, **kw
+                    ) -> T.ForwardOut:
+    """The monolithic prefill (``forward(mode="prefill")``) on ``device``
+    (the card unless ``device="cpu"``): on CUDA the kernel route, by ids
+    in query chunks.  ``kw`` goes to ``forward`` (``want_logits``,
+    ``use_kernel``)."""
+    dev = resolve_device(device)
+    return T.forward(params, cfg, tokens.to(dev), positions.to(dev),
+                     mode="prefill", **kw)
+
+
+def generic_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, caches: dict, *, device=None,
+                   **kw) -> DecodeOut:
+    """One monolithic decode step: tokens [B,Q] at ``caches["lens"]``.
+
+    Updates ``caches`` in place, ``lens`` included, and returns them: no
+    host sync and no rebinding, so a CUDA graph captured over one call
+    replays the next steps (the indexer top-k, the row gather and the
+    sparse-MLA partial on the card)."""
+    dev = resolve_device(device)
+    out = T.forward(params, cfg, tokens.to(dev), positions.to(dev),
+                    mode="decode", caches=caches, **kw)
+    caches["lens"].copy_(out.caches["lens"])
+    return DecodeOut(out.logits, caches, {})
+
+
+# ---------------------------------------------------------------------------
+# ESS path (DSA + MLA + offload)
+# ---------------------------------------------------------------------------
+
+_layer_params = T.layer_params
 
 
 def _overlap_for_layer(cfg: ArchConfig, layer: int,
@@ -76,14 +107,6 @@ def _overlap_for_layer(cfg: ArchConfig, layer: int,
     if cfg.ess.overlap == "layerwise":
         return layerwise[layer] if layerwise is not None else "da"
     return cfg.ess.overlap
-
-
-def _ffn(lp: dict, cfg: ArchConfig, x: torch.Tensor, is_moe: bool
-         ) -> torch.Tensor:
-    h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    if is_moe:
-        return MoE.moe_apply(lp["ffn"], cfg, h2)
-    return L.mlp(lp["ffn"], h2, cfg.act)
 
 
 def _append_ikeys(ik: torch.Tensor, widx: torch.Tensor, new_ik: torch.Tensor
@@ -256,7 +279,7 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             pf_h, pf_m = pf_h + pf[0], pf_m + pf[1]
         caches.pools[layer] = st2.pool
         x = x + attn
-        x = x + _ffn(lp, cfg, x, is_moe)
+        x = x + MB.ffn(lp, cfg, x, is_moe)[0]
         hits = hits + stats.hits
         misses = misses + stats.misses
         ovf = ovf + stats.overflow
@@ -367,7 +390,7 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         del rows
         x = x + M.output_proj(lp["mla"], cfg,
                               M.finalize_partial(part, x.dtype))
-        x = x + _ffn(lp, cfg, x, is_moe)
+        x = x + MB.ffn(lp, cfg, x, is_moe)[0]
 
     # one stacked write per plane for the whole chunk (all layers; pad
     # rows carry widx == -1 and drop)

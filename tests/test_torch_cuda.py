@@ -81,7 +81,9 @@ def test_cuda_gather_rows_staged_bitwise(cuda, dt, on_card):
     n0, st0, di0 = (gops.gather_rows.launches, gops.gather_rows.launches_staged,
                     gops.gather_rows.launches_direct)
     fetched = torch.zeros(1, dtype=torch.int32, device=cuda)
-    got = gops.gather_rows(cache, ids.to(cuda), fetched=fetched)
+    # the rule reads a device cache directly: name the staged route there
+    got = gops.gather_rows(cache, ids.to(cuda), fetched=fetched,
+                           route="staged" if on_card else None)
     assert (gops.gather_rows.launches, gops.gather_rows.launches_staged,
             gops.gather_rows.launches_direct) == (n0 + 1, st0 + 1, di0)
     torch.cuda.synchronize()
@@ -1498,3 +1500,179 @@ def test_cuda_cluster_streams_match_engine(cuda, tier, warm):
     assert gops.gather_pages.launches - g0 == 4
     assert gops.put_pages.launches - p0 == 4
     assert all(w.installed > 0 for w in clu.decode)
+
+
+# ---------------------------------------------------------------------------
+# The monolithic path: gather-attend over an HBM cache, topk_select, the
+# generic decode, forward in each mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route", ["direct", "staged"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_sparse_mla_gather_attend_hbm_vs_plain(cuda, dt, route):
+    """Gather-attend on a device-resident [B,S,D] cache against the plain
+    version on the CPU: bf16 at MLA's widths (the tensor-core route, K =
+    2048, 2 queries with their own masks) at 2e-2, fp32 at narrow widths
+    (the general route) at 1e-5; its gather reads device memory directly,
+    and the same flat ids through ``gather_rows`` on either route give
+    the CPU's rows bit for bit."""
+    g = torch.Generator().manual_seed(21)
+    if dt == "bf16":
+        B, Q, H, D, R, K, S = 2, 2, 128, 576, 512, 2048, 4096
+        tol = dict(rtol=2e-2, atol=2e-2)
+    else:
+        B, Q, H, D, R, K, S = 2, 2, 8, 96, 64, 16, 64
+        tol = dict(rtol=1e-5, atol=1e-5)
+    q = torch.randn((B, Q, H, D), generator=g).to(TORCH_DT[dt])
+    lat = torch.randn((B, S, D), generator=g).to(TORCH_DT[dt])
+    ids = torch.stack([torch.stack([torch.randperm(S, generator=g)[:K]
+                                    for _ in range(Q)]) for _ in range(B)])
+    valid = torch.arange(S)[None, None] < torch.tensor(
+        [[S - 5, S // 2], [S // 3, S]])[..., None]
+    n0 = gops.gather_rows.launches
+    direct0 = gops.gather_rows.launches_direct
+    assert not gops.staged_route(B * Q * K, B * S, host=False)
+    got = sops.sparse_mla_gather_attend(
+        q.to(cuda), lat.to(cuda), ids.to(cuda), valid.to(cuda), 0.07, R)
+    torch.cuda.synchronize()
+    assert gops.gather_rows.launches == n0 + 1
+    assert gops.gather_rows.launches_direct == direct0 + 1
+    want = sops.sparse_mla_gather_attend(q, lat, ids, valid, 0.07, R)
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+    flat = (ids.reshape(B, Q * K) + torch.arange(0, B * S, S)[:, None])
+    flat = flat.reshape(-1)
+    rows = gops.gather_rows(lat.reshape(B * S, D).to(cuda), flat.to(cuda),
+                            route=route)
+    assert torch.equal(rows.cpu(), lat.reshape(B * S, D)[flat])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_topk_select_ids_equal_plain(cuda, dt):
+    """Scores exact in both (small integers), full of ties and with
+    invalid keys: the kernel's ids, tie order included, and values equal
+    the plain version's; bf16 at the indexer's widths takes the
+    tensor-core route."""
+    g = torch.Generator().manual_seed(22)
+    B, Q, Hi, Di, S, k = 2, 3, 64, 128, 700, 256
+    q = torch.randint(-1, 2, (B, Q, Hi, Di), generator=g).float()
+    keys = torch.randint(-1, 2, (B, S, Di), generator=g).float()
+    keys[:, 7::5] = keys[:, 3:4]                        # repeated keys
+    w = torch.randint(0, 3, (B, Q, Hi), generator=g).float() * 0.25
+    valid = torch.arange(S)[None] < torch.tensor([S, 500])[:, None]
+    q, keys, w = (t.to(TORCH_DT[dt]) for t in (q, keys, w))
+    tc0 = iops.indexer_scores.launches_tc
+    vals, ids = iops.topk_select(q.to(cuda), w.to(cuda), keys.to(cuda),
+                                 valid.to(cuda), k)
+    torch.cuda.synchronize()
+    assert iops.indexer_scores.launches_tc - tc0 == (dt == "bf16")
+    pv, pids = iops.topk_select(q, w, keys, valid, k)
+    assert torch.equal(ids.cpu(), pids)
+    assert torch.equal(vals.cpu(), pv)
+    assert int(ids[1].max()) < 500
+
+
+def _mono_cfg(dt=torch.float32):
+    """The smoke config in ``dt`` (fp32: the kernels' general routes)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v32-exp-ess-smoke"),
+                               param_dtype=dt)
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_cuda_forward_modes_vs_cpu(cuda, mode):
+    """``forward`` on the card at smoke widths (fp32) against the plain
+    path on the CPU, same weights: logits (and caches) at 1e-4; decode:
+    prefill, then 4 teacher-forced steps through ``generic_decode``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _mono_cfg()
+    cpu = init_params(cfg, 3, device="cpu")
+    card = {k: v for k, v in _to(cpu, cuda).items()}
+    g = torch.Generator().manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (2, 44), generator=g)
+    pos = torch.arange(44)[None].expand(2, 44)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    if mode != "decode":
+        want = T.forward(cpu, cfg, toks[:, :40], pos[:, :40], mode=mode)
+        got = T.forward(card, cfg, toks[:, :40].to(cuda),
+                        pos[:, :40].to(cuda), mode=mode)
+        torch.testing.assert_close(got.logits.cpu(), want.logits, **tol)
+        if mode == "prefill":
+            for a, b in zip(got.caches["mla"], want.caches["mla"]):
+                torch.testing.assert_close(a.cpu(), b, **tol)
+        return
+    runs = {}
+    for name, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        pf = E.generic_prefill(params, cfg, toks[:, :40], pos[:, :40],
+                               device=dev)
+        caches = T.pad_caches(pf.caches, 48)
+        out = []
+        for r in range(4):
+            o = E.generic_decode(params, cfg, toks[:, 40 + r:41 + r],
+                                 caches["lens"][:, None], caches, device=dev)
+            out.append(o.logits.cpu())
+        runs[name] = (out, caches)
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(runs["card"][1]["mla"], runs["cpu"][1]["mla"]):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    assert runs["card"][1]["lens"].tolist() == [44, 44]
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_cuda_generic_decode_free_of_host_syncs(cuda):
+    """A bf16 prefill at the attention's widths (``_mini_cfg``), then two
+    ``generic_decode`` steps under sync-debug "error"; a CUDA graph
+    captured over a third step replays the next ones with the same logits
+    as eager steps from a copy of the caches."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _mini_cfg()
+    params = init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=g,
+                         device=cuda)
+    pos = torch.arange(300, device=cuda)[None].expand(2, 300)
+    pf = E.generic_prefill(params, cfg, toks, pos, device=cuda)
+    caches = T.pad_caches(pf.caches, 320)
+    tok = pf.logits[:, -1].argmax(-1)[:, None]
+    with _SyncFree():
+        for _ in range(2):
+            o = E.generic_decode(params, cfg, tok, caches["lens"][:, None],
+                                 caches, device=cuda)
+            tok = o.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == [302, 302]
+    # capture one step over persistent buffers, replay it
+    eager = {k: v for k, v in caches.items()}
+    eager["mla"] = T.B.MLACache(*(a.clone() for a in caches["mla"]))
+    eager["lens"] = caches["lens"].clone()
+    static_tok = tok.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="relaxed")
+        out = E.generic_decode(params, cfg, static_tok,
+                               caches["lens"][:, None], caches, device=cuda)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    et = tok.clone()
+    for _ in range(3):
+        graph.replay()
+        e = E.generic_decode(params, cfg, et, eager["lens"][:, None], eager,
+                             device=cuda)
+        torch.testing.assert_close(out.logits, e.logits, rtol=0, atol=0)
+        static_tok.copy_(out.logits[:, -1].argmax(-1)[:, None])
+        et = e.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == eager["lens"].tolist() == [305, 305]
+    assert torch.equal(caches["mla"].latent, eager["mla"].latent)

@@ -40,13 +40,19 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
 
 
+def test_quickstart_mirror_imports_neither_jax_nor_reference():
+    for mod in _imports(ROOT / "examples" / "quickstart_torch.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
 def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.kernels._build, "
             "repro_torch.serving.api, repro_torch.cluster, "
-            "repro_torch.simulator.costmodel\n"
+            "repro_torch.simulator.costmodel, "
+            "repro_torch.models.transformer\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -63,12 +69,18 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.cache.latent_cache import init_ess_caches
     from repro_torch.configs import get_config
     from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import generate_batch
+    from repro_torch.models.transformer import cache_spec
+    from repro_torch.serving.engine import (generate_batch, generic_decode,
+                                            generic_prefill)
     cfg = get_config("deepseek-v32-exp-ess-smoke")
+    toks = torch.zeros((1, 4), dtype=torch.long)
     for call in (lambda: resolve_device(None),
                  lambda: init_params(cfg, 0),
                  lambda: init_ess_caches(cfg, 1, 8),
-                 lambda: generate_batch({}, cfg, np.zeros((1, 4)), 1, 8)):
+                 lambda: generate_batch({}, cfg, np.zeros((1, 4)), 1, 8),
+                 lambda: cache_spec(cfg, 1, 8),
+                 lambda: generic_prefill({}, cfg, toks, toks),
+                 lambda: generic_decode({}, cfg, toks, toks, {})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -114,6 +126,15 @@ def _fake_cuda_calls():
             torch.zeros((1, 1, 64, 576), dtype=torch.bfloat16, device=dev),
             torch.zeros((1, 6, 576), dtype=torch.bfloat16, device=dev),
             torch.ones((1, 6), dtype=torch.bool, device=dev), 0.1, 512),
+        "topk_select": lambda: i.topk_select(
+            torch.zeros((1, 1, 2, 16), device=dev),
+            torch.zeros((1, 1, 2), device=dev),
+            torch.zeros((1, 5, 16), device=dev), None, 2),
+        "sparse_mla_gather_attend": lambda: s.sparse_mla_gather_attend(
+            torch.zeros((1, 1, 4, 40), device=dev),
+            torch.zeros((1, 6, 40), device=dev),
+            torch.zeros((1, 1, 3), dtype=torch.long, device=dev),
+            torch.ones((1, 6), dtype=torch.bool, device=dev), 0.1, 32),
         "merge_splits": lambda: s.merge_splits(
             torch.zeros((2, 3, 512), device=dev),
             torch.zeros((2, 3), device=dev), torch.zeros((2, 3), device=dev)),
@@ -125,7 +146,8 @@ def _fake_cuda_calls():
                                   "put_pages", "gather_pages_dequant",
                                   "indexer_scores",
                                   "partial_attend", "partial_attend_tc",
-                                  "merge_splits"])
+                                  "merge_splits", "topk_select",
+                                  "sparse_mla_gather_attend"])
 def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):
     """Fake CUDA tensors on a machine without CUDA or nvcc: the wrapper
     must try its kernel and fail, not return the plain version."""
