@@ -126,12 +126,30 @@ the script exits non-zero without a result line):
    each install (the page write from the packet) none; prints migrations,
    wire bytes, the pack's page-copy device ms and wall ms, install ms,
    decode ms per round per decode worker, mean TTFT and the page
-   kernels' launches (:func:`cluster_phase`);
+   kernels' launches (:func:`cluster_phase`); the run is also watched by
+   ``audit.ClusterWatch`` (ESS107: one host wait a pack, each rid packed
+   once, prefill rounds waiting only to pack, decode rounds at one fetch,
+   none in an install, none outside a worker round);
 11. session D — every weight zeroed in place, so every argmax is token 0
    and every draft is accepted: 2 requests (``SESSION_D``) at depth 1 in
    graph mode must show accept rate 1.0, 2 tokens per live slot-round
    but at the budget clamp, no request past its budget, and the streams
-   of the same requests at Q = 1 rounds (the last phase).
+   of the same requests at Q = 1 rounds (the last session);
+14. mirrors — ``examples/serve_ess_torch.py``, ``stream_abort_torch.py``
+   and ``serve_cluster_torch.py`` on the card, started together, each in
+   its own process: each must exit 0 (:func:`mirrors_phase`).
+
+The audits (``repro_torch.analysis.audit``; :func:`audit_run` in the
+session phases).  Every session run of ``graph_and_eager`` (A, B, E, C, F)
+is watched: ESS102, one host fetch (``engine.device_get``) a serve round
+and as many as rounds; ESS103 (graph runs), one capture per (round kind,
+sampled) key that ran; ESS104, every ``EngineState`` tensor's dtype as
+built.  The graph runs of A, C, F-A and F-B then serve the same requests
+again under fresh rids: ESS103's captures must not move.  Session B's
+eager run profiles its decode round ``DEQUANT_ROUND`` with shapes and
+dtypes: ESS106, no op widens an int8 tensor of one layer's tier elements
+or more.  Each audit prints its counts and findings on a line of its own;
+a finding fails the run.
 
 Phase 3 also times the page kernels (a TMA ring) at the graft shape (129
 pages) and the pack shape (128 pages): ``gather_pages`` and
@@ -166,6 +184,7 @@ The last two lines are the ``kernels`` JSON object and the result object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1352,6 +1371,8 @@ SESSION_NEW = (32, 16, 32, 24, 32, 16, 32, 32)
 SESSION_SLOTS, SESSION_MAX_SEQ = 4, 8224
 # decode rounds (by index) profiled for the device's busy share
 PROFILED_ROUNDS = (20, 40, 60)
+# session B's eager decode round profiled with shapes and dtypes (ESS106)
+DEQUANT_ROUND = 10
 
 
 def session_prompts(cfg, reqs):
@@ -1364,7 +1385,7 @@ def session_prompts(cfg, reqs):
 def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
                 reqs, mtp_depth=0, num_slots=SESSION_SLOTS,
                 max_seq=SESSION_MAX_SEQ, on_emit=None, tbo=False,
-                overlap=False):
+                overlap=False, watch=None, dequant_round=None):
     """One session run: ``reqs`` (``Request``s with rids 0, 1, ...)
     through ``ServeSession.run``, their prompts from seed 0.  Measures and
     checks around the session's own stages (the session itself is
@@ -1390,19 +1411,26 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
       (``profile_serve.overlap_profile``), and for a pipelined session
       (``overlap``) the same for the slab gather alone;
     * ``on_emit(rid, n_emit, charged)``, if given, sees each decode
-      delivery of the round's tokens.
+      delivery of the round's tokens;
+    * ``watch`` (a name): the run under an ``audit.SessionWatch``
+      (ESS102-ESS104), returned as ``metrics["watch"]``;
+    * ``dequant_round`` (a decode round's index, with ``watch``): the
+      watch runs that round eager under ``torch.profiler`` with shapes and
+      dtypes (ESS106); its time is left out of ms/round.
 
     Returns ``(session, report, counts, metrics)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis import audit
     from repro_torch.launch.profile_serve import SLAB_KERNELS, overlap_profile
     from repro_torch.serving import engine as E
 
     prompts = session_prompts(cfg, reqs)
     session = E.ServeSession(
         params, cfg, num_slots=num_slots, max_seq=max_seq,
-        prompt_fn=lambda r: prompts[r.rid], do_warmup=do_warmup,
+        prompt_fn=lambda r: prompts[r.rid % len(prompts)],
+        do_warmup=do_warmup,
         prefill_chunk=PREFILL_CHUNK, mtp_depth=mtp_depth, tbo=tbo,
         compiled=compiled, overlap=overlap, device=dev)
     m = dict(prefill_s=0.0, decode_ms=[], busy_ms=0.0, profiled_ms=0.0,
@@ -1459,7 +1487,9 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
         k, n0 = session.report.rounds, fetches[0]
         caps = session.programs.captures
         plans.clear()
-        if k in PROFILED_ROUNDS:
+        if k == dequant_round:
+            done = decode()                 # profiled by the watch
+        elif k in PROFILED_ROUNDS:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -1497,10 +1527,15 @@ def run_session(torch, dev, params, cfg, counted, *, compiled, do_warmup,
     session.prefill_round = timed_prefill
     session.decode_round = timed_decode
     E.device_get = counting_fetch
+    w = m["watch"] = None if watch is None \
+        else audit.SessionWatch(session, name=watch,
+                                profile_decode=dequant_round)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep, counts = counted(lambda: session.run(reqs, max_rounds=10000))
+        with w or contextlib.nullcontext():
+            rep, counts = counted(lambda: session.run(reqs,
+                                                      max_rounds=10000))
         m["wall_s"] = time.perf_counter() - t0
     finally:
         E.device_get = fetch
@@ -2096,6 +2131,7 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
 
     import numpy as np
 
+    from repro_torch.analysis import audit
     from repro_torch.models.params import init_mtp_params
     from repro_torch.serving import engine as E
     from repro_torch.serving.scheduler import Request
@@ -2191,9 +2227,41 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                 f"session {tag}: launches {n}, expected {want}")
         return got
 
+    def audit_run(name, sess, w, make_reqs, second_pass):
+        """The run's audits, from its watch: ESS102-ESS104 (and ESS106
+        where a round was profiled), after a second pass of the same
+        requests under fresh rids where asked (ESS103: the captures must
+        not move; the run's own wrappers are taken off the session first).
+        Prints the counts and the findings; a finding fails the run."""
+        t0 = time.perf_counter()
+        if second_pass:
+            for attr in ("_plan_round", "_compute_round", "prefill_round",
+                         "decode_round", "_emit"):
+                vars(sess).pop(attr, None)
+            reqs = make_reqs()
+            with w:
+                w.drive(audit.again(reqs, len(reqs)), max_rounds=10000)
+        fs, c = w.findings(), w.counts()
+        print(f"audit session {name}: ESS102 {c['fetches']} host fetches "
+              f"over {c['rounds']} rounds (at most "
+              f"{c['max_fetches_a_round']} a round); ESS103 "
+              + (f"{c['captures']} captures for {len(c['round_keys'])} "
+                 f"round keys {c['captures_by_key']}"
+                 + (f" after a second pass of the requests "
+                    f"({time.perf_counter() - t0:.1f} s)" if second_pass
+                    else "") if sess.compiled else "eager, no graphs")
+              + f"; ESS104 {len(w.dtypes_in)} state tensors"
+              + (f"; ESS106 {c['profiled_ops']} profiled ops of one eager "
+                 f"round, tier threshold {w.threshold} elements"
+                 if w.profile_decode is not None else "")
+              + f"; findings {len(fs)}"
+              + "".join(f"\n  {f.format()}" for f in fs), flush=True)
+        require(not fs, f"audit session {name}: {len(fs)} finding(s)")
+
     def graph_and_eager(tag, cfg, make_reqs, warm, tier, mtp_depth=0,
                         top_kernels=0, tbo=False, parts=1, overlap=False,
-                        modes=(True, False)):
+                        modes=(True, False), second_pass=False,
+                        dequant_round=None):
         """The session run twice: its rounds replayed as graphs, then
         eagerly.  The streams must be bit-identical and the launch counts
         (the graph's with its replays added) equal; in the graph run's
@@ -2202,16 +2270,19 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         wrappers launch, and the graph run's streams.  ``overlap`` runs
         the session pipelined (its prefetch counters printed, the pipeline
         engaged); ``modes=(True,)`` the graph run alone (its counts
-        returned)."""
+        returned).  Every run is audited (:func:`audit_run`); the graph
+        run also over a second pass with ``second_pass``, the eager run's
+        decode round ``dequant_round`` profiled for ESS106."""
         runs = {}
         qv = mtp_depth + 1 if mtp_depth else None
         for compiled in modes:
             name = f"{tag} {'graph' if compiled else 'eager'}"
             reqs = make_reqs()
-            sess, rep, n, m = run_session(torch, dev, params, cfg, counted,
-                                          compiled=compiled, do_warmup=warm,
-                                          reqs=reqs, mtp_depth=mtp_depth,
-                                          tbo=tbo, overlap=overlap)
+            sess, rep, n, m = run_session(
+                torch, dev, params, cfg, counted, compiled=compiled,
+                do_warmup=warm, reqs=reqs, mtp_depth=mtp_depth, tbo=tbo,
+                overlap=overlap, watch=name,
+                dequant_round=None if compiled else dequant_round)
             session_summary(name, sess, rep, m)
             if overlap:
                 k = len(PROFILED_ROUNDS)
@@ -2249,7 +2320,9 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                         f"session {name}: {pr.replays} graph replays and "
                         f"{pr.captures} captures for {rep.rounds} rounds")
             runs[compiled] = (dict(sess.outputs), rep.rounds, n, got)
-            del sess
+            audit_run(name, sess, m["watch"], make_reqs,
+                      second_pass and compiled)
+            del sess, m
             torch.cuda.empty_cache()
         if False not in runs:
             og, _, ng, got = runs[True]
@@ -2271,7 +2344,8 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                         for i, (p, b) in enumerate(zip(prompts, budgets))]
 
     n, got, a_out = graph_and_eager(
-        "A", scfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False, "bf16")
+        "A", scfg, greedy_reqs(SESSION_PROMPTS, SESSION_NEW), False, "bf16",
+        second_pass=True)
     for name, v in got.items():
         records[name]["launches"] = v
     for name in ("scatter_rows", "sparse_mla_merge"):
@@ -2283,7 +2357,8 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
     qcfg = serve.config_from_args(qargs)
     n, _, b_out = graph_and_eager(
         "B int8 warmup", qcfg,
-        greedy_reqs(SESSION_PROMPTS[:4], SESSION_NEW[:4]), True, "int8")
+        greedy_reqs(SESSION_PROMPTS[:4], SESSION_NEW[:4]), True, "int8",
+        dequant_round=DEQUANT_ROUND)
     records["gather_rows_dequant"]["launches"] = \
         n["gather_rows_dequant_direct"]
     records["gather_rows_dequant[prefill]"]["launches"] = \
@@ -2335,7 +2410,8 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         return [Request(rid=i, prompt_len=p, max_new_tokens=new, **kn)
                 for i, (p, kn) in enumerate(SESSION_C)]
     n, got, c_out = graph_and_eager("C mtp+sampling", ccfg, c_reqs, False,
-                                    "bf16", mtp_depth=1, top_kernels=10)
+                                    "bf16", mtp_depth=1, top_kernels=10,
+                                    second_pass=True)
     print(f"session C: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; Q = 2 "
           f"launches (eager run): "
@@ -2424,7 +2500,8 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
     for tag, fcfg, make, warm, tier, depth, modes, base in f_runs:
         n, got, out = graph_and_eager(f"{tag} pipelined", fcfg, make, warm,
                                       tier, mtp_depth=depth, overlap=True,
-                                      modes=modes)
+                                      modes=modes,
+                                      second_pass=tag != "F-C")
         require(out == base, f"session {tag}: the pipelined streams differ "
                 f"from the synchronous graph session's")
         print(f"session {tag}: pipelined streams bit-identical to the "
@@ -2522,6 +2599,7 @@ def cluster_phase(torch, dev, serve, args, qargs, params, counted, card):
 
     import numpy as np
 
+    from repro_torch.analysis import audit
     from repro_torch.cluster import EssCluster
     from repro_torch.cluster import kv_transfer as KT
     from repro_torch.core import offload
@@ -2594,8 +2672,9 @@ def cluster_phase(torch, dev, serve, args, qargs, params, counted, card):
             t0 = time.perf_counter()
             clu = EssCluster(params, cfg, num_prefill=1, num_decode=2,
                              num_slots=2, do_warmup=warm, **kw)
-            outs, n = counted(lambda: clu.generate(CLUSTER_PROMPTS, sps,
-                                                   max_rounds=10000))
+            with audit.ClusterWatch(clu) as cw:
+                outs, n = counted(lambda: clu.generate(
+                    CLUSTER_PROMPTS, sps, max_rounds=10000))
             clu_s = time.perf_counter() - t0
         finally:
             KT.pack_migration, KT.install_migration = pack, install
@@ -2644,10 +2723,64 @@ def cluster_phase(torch, dev, serve, args, qargs, params, counted, card):
               f"{1e3 * sum(ttft) / len(ttft):.1f} ms; launches gather_pages "
               f"{n['gather_pages']}, put_pages {n['put_pages']}  [{card}]",
               flush=True)
+        fs, c = cw.findings(), cw.counts()
+        print(f"audit cluster {tag}: ESS107 {c['packs']} packs, "
+              f"{c['waits_per_pack']} host wait(s) a pack; {c['installs']} "
+              f"installs, {c['install_waits']} waits in them; "
+              f"{c['prefill_rounds']} prefill rounds waiting only to pack; "
+              f"{c['decode_fetches']} fetches over {c['decode_rounds']} "
+              f"decode rounds; findings {len(fs)}"
+              + "".join(f"\n  {f.format()}" for f in fs), flush=True)
+        require(not fs, f"audit cluster {tag}: {len(fs)} finding(s)")
         out[tag] = n
         del clu
         torch.cuda.empty_cache()
     return out
+
+
+# the serve example mirrors (examples/*_torch.py), each in its own process
+MIRRORS = ("serve_ess_torch.py", "stream_abort_torch.py",
+           "serve_cluster_torch.py")
+MIRROR_TIMEOUT_S = 300
+
+
+def mirrors_phase(card):
+    """The three serve mirrors on the card, started together, each its own
+    process (smoke config, graph rounds, the kernels built above); each
+    must exit 0 (its own assertions included).  Every process is waited
+    for, and killed if it outlives the time limit."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    logs = {name: tempfile.TemporaryFile(mode="w+") for name in MIRRORS}
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT,
+        stdout=logs[name], stderr=subprocess.STDOUT, text=True)
+        for name in MIRRORS}
+    try:
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, MIRROR_TIMEOUT_S
+                                      - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            logs[name].seek(0)
+            lines = logs[name].read().strip().splitlines()
+            print(f"mirror {name}: exit {proc.returncode} after "
+                  f"{time.perf_counter() - t0:.1f} s; last line: "
+                  f"{lines[-1] if lines else ''}  [{card}]", flush=True)
+            if proc.returncode != 0:
+                print("\n".join(lines[-40:]), flush=True)
+            require(proc.returncode == 0,
+                    f"mirror {name} exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs.values():
+            log.close()
 
 
 def leaves(tree):
@@ -2934,9 +3067,11 @@ def main() -> int:
     monolithic_phase(torch, dev, serve, params, args, card, counted, records)
     print(f"monolithic phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8-9. the serve sessions
+    # 8-13. the serve sessions, audited, and the cluster
     session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card)
+    # 14. the serve example mirrors
+    mirrors_phase(card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result", flush=True)
     print(card)

@@ -200,7 +200,8 @@ def install_migration(session, packet: MigrationPacket) -> int:
     else:
         session._submit_time.setdefault(req.rid, time.perf_counter())
     session.outputs[req.rid] = []
-    session._rounds_since_promote[slot] = 0
+    # a host dict, not a tensor: no copy, no wait
+    session._rounds_since_promote[slot] = 0  # esslint: disable=ESS002
     ES.admit_slot(session.state, slot, req)
     ES.promote_slot(session.state, slot, packet.t0, packet.hidden)
     if session.do_warmup and packet.tails is not None:

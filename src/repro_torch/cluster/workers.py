@@ -47,7 +47,8 @@ class PrefillSessionMixin:
     def _finish_prefill(self, slot, task, t0):
         req = task.req
         self.sched.promote(slot)
-        self._rounds_since_promote[slot] = 0
+        # a host dict, not a tensor: no copy, no wait
+        self._rounds_since_promote[slot] = 0  # esslint: disable=ESS002
         del self._prefill[slot]
         self._pending_first.append((slot, req, t0))
 

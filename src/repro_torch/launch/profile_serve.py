@@ -191,12 +191,12 @@ def main(argv=None) -> int:
     for c0 in range(0, a, C):
         caches = E.ess_prefill_chunk(params, cfg, tokens[:, c0:c0 + C],
                                      positions[:, c0:c0 + C], caches,
-                                     want_logits=False)[1]
+                                     want_logits=False, n_valid=None)[1]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         E.ess_prefill_chunk(params, cfg, tokens[:, a:b], positions[:, a:b],
-                            caches)
+                            caches, n_valid=None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"prefill chunk {args.chunk}: {C} x {B} (rows {a}..{b}):")

@@ -437,7 +437,8 @@ def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         last = c0 + ck == Sp
         lg, caches, _, _ = ess_prefill_chunk(
             params, cfg, tokens[:, c0:c0 + ck], positions[:, c0:c0 + ck],
-            caches, want_logits=not last_logits_only or (last and W == 0))
+            caches, want_logits=not last_logits_only or (last and W == 0),
+            n_valid=None)
         if lg is not None:
             parts.append(lg[:, -1:] if last_logits_only else lg)
     if W > 0:
@@ -445,7 +446,7 @@ def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             cfg, ess=dataclasses.replace(cfg.ess, max_miss_ratio=1.0))
         for w in range(Sp, S):
             o = ess_decode(params, cfg_x, tokens[:, w:w + 1],
-                           positions[:, w:w + 1], caches)
+                           positions[:, w:w + 1], caches, slot_mask=None)
             caches = o.caches
             if not last_logits_only or w == S - 1:
                 parts.append(o.logits)
@@ -505,7 +506,7 @@ def generate_batch(params: dict, cfg: ArchConfig, prompts,
     for _ in range(max_new_tokens - 1):
         t0 = time.perf_counter()
         o = ess_decode(params, cfg, tok[:, None], caches.lens[:, None], caches,
-                       fetch_stream=fetch)
+                       slot_mask=None, fetch_stream=fetch)
         caches = o.caches
         finite = finite & torch.isfinite(o.logits).all()
         tok = o.logits[:, 0].argmax(-1)
@@ -820,7 +821,10 @@ class ServeSession:
 
     def _prompt_tokens(self, req: Request) -> torch.Tensor:
         p = self._prompt_fn(req)
-        if isinstance(p, torch.Tensor) and p.device == self.device:
+        # ``self.device`` may carry no index ("cuda"), a tensor's always
+        # does ("cuda:0")
+        if isinstance(p, torch.Tensor) and p.device.type == self.device.type \
+                and self.device.index in (None, p.device.index):
             return p.reshape(1, -1).long()      # already on the device
         t = torch.as_tensor(np.asarray(p)).long()
         return upload(t.reshape(1, -1), self.device)
@@ -1006,7 +1010,7 @@ class ServeSession:
         pos = torch.arange(c0, c0 + ck, device=self.device)[None]
         lg, new, tails, hid_last = ess_prefill_chunk(
             self.params, self.cfg, toks, pos, self.caches, slot=slot,
-            want_logits=last, collect_tail=min(W, ck))
+            want_logits=last, collect_tail=min(W, ck), n_valid=None)
         self.caches.lens.copy_(new.lens)
         if W > 0:
             if task.tails is None:

@@ -17,6 +17,7 @@ same ``prompt_fn`` given to both packages (the port's session eager):
   scheduler's priority admission and abort against the reference's.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -19,6 +19,7 @@ reference's parameters carried across with ``from_jax_params`` and one
   the LRU warmup's tails shipped to and replayed on the decode side.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -1676,3 +1676,111 @@ def test_cuda_generic_decode_free_of_host_syncs(cuda):
     torch.cuda.synchronize()
     assert caches["lens"].tolist() == eager["lens"].tolist() == [305, 305]
     assert torch.equal(caches["mla"].latent, eager["mla"].latent)
+
+
+# ---------------------------------------------------------------------------
+# The runtime audits on the card (repro_torch.analysis.audit): the capture
+# budget (ESS103) needs CUDA graphs, the tier-dequant profile (ESS106) an
+# eager round of a session that otherwise replays graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["q1", "mtp2", "tbo", "pipelined"])
+def test_cuda_capture_audit_one_graph_per_key(cuda, case):
+    """The mixed workload twice through a compiled smoke session: one
+    capture per (kind, sampled) key that ran, unchanged by the second
+    pass; one fetch a round; no state dtype drift."""
+    from repro_torch.analysis import audit as A
+    kw = dict(q1={}, mtp2=dict(mtp_depth=2), tbo=dict(tbo=True, mtp_depth=2),
+              pipelined=dict(overlap=True, mtp_depth=2))[case]
+    s = A.smoke_session(device=cuda, **kw)
+    assert s.compiled
+    w = A.audit_session(s, name=case, passes=2)
+    assert w.findings() == []
+    c = w.counts()
+    assert c["captures"] == len(c["round_keys"]) >= 2     # greedy + sampled
+    assert all(n == 1 for n in c["captures_by_key"].values())
+    assert c["fetches"] == c["rounds"] > 0
+    assert s.programs.replays + s.programs.captures == c["rounds"]
+
+
+def test_cuda_capture_audit_flags_a_recapture(cuda):
+    """A session whose graphs are dropped between the passes captures each
+    key again: ESS103 flags it."""
+    from repro_torch.analysis import audit as A
+    from repro_torch.serving import engine as E
+
+    class ForgetfulSession(E.ServeSession):
+        def run(self, *a, **k):
+            # set the graphs aside (alive: they hold the shared pool)
+            self.lost = list(self.programs._graphs.values())
+            self.programs._graphs.clear()
+            return super().run(*a, **k)
+
+    w = A.audit_session(A.smoke_session(device=cuda,
+                                        session_cls=ForgetfulSession),
+                        passes=2)
+    fs = w.findings()
+    assert fs and {f.rule for f in fs} == {"ESS103"}
+    assert any("captured 2x" in f.message for f in fs)
+
+
+@pytest.mark.parametrize("tier", ["int8", "fp8"])
+def test_cuda_tier_dequant_audit_eager_round(cuda, tier):
+    """ESS106 on the card: a compiled session's first decode round run
+    eager under the profiler; no op widens the tier, while a gather that
+    dequantizes the whole (pinned) tier first is flagged."""
+    from repro_torch.analysis import audit as A
+    from repro_torch.kernels.gather_cache import ops as gops
+    w = A.audit_session(A.smoke_session(A.smoke_cfg(tier), device=cuda),
+                        name=tier, profile_decode=0)
+    assert w.profiled_ops and w.findings() == []
+    real = gops.gather_rows_dequant
+    # the sabotaged session runs eager: its whole-tier copy could not be
+    # captured into a graph at all
+
+    def dequant_then_gather(cache, scales, ids, out_dtype=torch.bfloat16,
+                            **kw):
+        wide = cache.to(ids.device, out_dtype) * scales.to(ids.device,
+                                                          out_dtype)
+        rows = wide[ids.clamp_min(0)]
+        return torch.where((ids >= 0)[..., None], rows, 0)
+
+    gops.gather_rows_dequant = dequant_then_gather
+    try:
+        w = A.audit_session(A.smoke_session(A.smoke_cfg(tier), device=cuda,
+                                            compiled=False),
+                            name=tier, profile_decode=0)
+    finally:
+        gops.gather_rows_dequant = real
+    assert {f.rule for f in w.findings()} == {"ESS106"}
+
+
+def test_cuda_migration_pack_audit(cuda):
+    """ESS107 on the card: one host wait a pack, none an install, decode
+    rounds at one fetch."""
+    from repro_torch.analysis import audit as A
+    w = A.audit_cluster(A.smoke_cluster(device=cuda))
+    assert w.findings() == []
+    c = w.counts()
+    assert c["waits_per_pack"] == [1] and c["install_waits"] == 0
+
+
+def test_cuda_engine_explicit_token_prompts(cuda):
+    """An explicit token prompt (``prompt_tensor`` puts it on "cuda:0"
+    while the session's device is "cuda") is taken as it is: the stream
+    equals the one from the same tokens given through ``prompt_fn``."""
+    import numpy as np
+    from repro_torch.analysis import audit as A
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.api import EssEngine, SamplingParams
+    cfg = A.smoke_cfg()
+    params = init_params(cfg, 0, device=cuda)
+    toks = [int(t) for t in np.random.default_rng(11).integers(0, 256, 12)]
+    outs = []
+    for explicit in (True, False):
+        eng = EssEngine(params, cfg, num_slots=2, max_seq=64, device=cuda,
+                        prompt_fn=lambda r: np.asarray([toks]))
+        [o] = eng.generate([toks] if explicit else [len(toks)],
+                           SamplingParams(max_tokens=4))
+        outs.append(o.tokens)
+    assert len(outs[0]) == 4 and outs[0] == outs[1]

@@ -7,6 +7,7 @@ Pool maps, miss buffers, block tables and ``lens`` must be **equal**;
 float outputs are fp32 at rtol/atol 1e-5.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -8,6 +8,7 @@ Inputs come from seeded numpy; ids hold duplicates, ``-1`` and ids past
 the end (``>= S``, read as the last row).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

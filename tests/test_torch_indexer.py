@@ -9,6 +9,7 @@ and differ only in the order of the sums, so they agree to rtol 1e-5; atol
 1e-4 covers cancellation in the 64-head sum of terms of magnitude ~10.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ reference's own (tests/test_kernels.py): fp32 1e-5, bf16 2e-2; gathers are
 bit-exact.  The ``test_cuda_*`` tests need a card and skip without one.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

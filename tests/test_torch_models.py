@@ -6,6 +6,7 @@ in fp32 (the reference config with ``param_dtype=float32``) and is held at
 rtol/atol 1e-5 unless a test says otherwise; index outputs are equal.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

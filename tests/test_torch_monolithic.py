@@ -27,6 +27,7 @@ Reference tests this file counts as covered:
 * ``test_kernels::test_indexer_topk_selects_valid_only``
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import functools
 import importlib.util

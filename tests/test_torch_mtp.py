@@ -17,6 +17,7 @@ reference's own parameters carried across with ``from_jax_params``).
 The speculative serve session is in ``tests/test_torch_mtp_session.py``.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -18,6 +18,7 @@ The draft, the speculative step and the Q > 1 verify step alone are in
 ``tests/test_torch_mtp.py``.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -20,6 +20,7 @@ card tests the streams).
 * the fork helper and the gathers' ``out=`` on CPU tensors.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import itertools
 

@@ -3,6 +3,7 @@ its entry points refuse to carry on on the CPU without being asked, and its
 kernel wrappers launch or raise on CUDA tensors (never the plain version).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import ast
 import pathlib
 import subprocess
@@ -45,6 +46,15 @@ def test_quickstart_mirror_imports_neither_jax_nor_reference():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
 
 
+@pytest.mark.parametrize("name", ["serve_ess_torch.py",
+                                  "stream_abort_torch.py",
+                                  "serve_cluster_torch.py",
+                                  "simulate_paper_torch.py"])
+def test_example_mirrors_import_neither_jax_nor_reference(name):
+    for mod in _imports(ROOT / "examples" / name):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
 def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None\n"
@@ -52,6 +62,8 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.launch.serve, repro_torch.kernels._build, "
             "repro_torch.serving.api, repro_torch.cluster, "
             "repro_torch.simulator.costmodel, "
+            "repro_torch.simulator.experiments, repro_torch.analysis.lint, "
+            "repro_torch.analysis.audit, repro_torch.analysis.__main__, "
             "repro_torch.models.transformer\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]\n")

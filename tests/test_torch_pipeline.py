@@ -31,6 +31,7 @@ port's sessions run eagerly (the CPU has no graphs).
   alike in both modes (``test_overlap_pipeline.py:202-329``).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -55,6 +56,12 @@ from repro_torch.serving.scheduler import Request as TReq
 
 CFG = "deepseek-v32-exp-ess-smoke"
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+# the reference's functions jitted once for the whole module (static
+# configs hash by value, so cases of one config share the compile)
+JPREFILL = jax.jit(JE.ess_prefill, static_argnums=(1, 4),
+                   static_argnames=("prefill_chunk",))
+JSTEP = jax.jit(JE.ess_decode, static_argnums=(1,))
 
 
 def configs(**ess):
@@ -108,9 +115,7 @@ def test_ess_decode_staged_teacher_forced(params, case):
     rng = np.random.default_rng(1)
     toks = rng.integers(0, 256, (B, S)).astype(np.int32)
     pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
-    prefill = jax.jit(JE.ess_prefill, static_argnums=(1, 4),
-                      static_argnames=("prefill_chunk",))
-    _, jc = prefill(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos), Smax,
+    _, jc = JPREFILL(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos), Smax,
                     prefill_chunk=8)
     tc = LC.from_jax_caches(jax.tree.map(np.asarray, jc))
     sync = LC.from_jax_caches(jax.tree.map(np.asarray, jc))
@@ -121,12 +126,11 @@ def test_ess_decode_staged_teacher_forced(params, case):
     slab = tuple(None if a is None else tt(a).clone() for a in jslab)
     keep = [t.data_ptr() for t in slab if t is not None]
     mask = np.asarray([True, True, False])
-    step = jax.jit(JE.ess_decode, static_argnums=(1,))
     tok = rng.integers(0, 256, (B, Q)).astype(np.int32)
     hits = 0
     for _ in range(4):
         jpos = np.asarray(jc.lens)[:, None] + np.arange(Q)[None]
-        jo = step(jp, jcfg, jnp.asarray(tok), jnp.asarray(jpos), jc,
+        jo = JSTEP(jp, jcfg, jnp.asarray(tok), jnp.asarray(jpos), jc,
                   slot_mask=jnp.asarray(mask), staged=jslab)
         to = TE.ess_decode(tp, tcfg, torch.tensor(tok).long(),
                            torch.tensor(jpos).long(), tc,

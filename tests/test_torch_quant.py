@@ -20,6 +20,7 @@ against the JAX package, on the CPU, at smoke size.
   keeps them in fp32 (a 1e-3 difference in the logits).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import functools
 

@@ -20,6 +20,7 @@ zero (``u`` near 1/e) the outer log's argument sits near 1, whose own
 rounding is an ulp of 1, so the noise's ulp is taken at ``max(|g|, 1)``.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

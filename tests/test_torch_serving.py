@@ -14,6 +14,7 @@ is not chunk-size invariant on every JAX version).
   interpret mode), whose attention math the port's kernels follow.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

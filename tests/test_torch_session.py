@@ -12,12 +12,13 @@ chunks of 8, the same ``prompt_fn`` given to both packages).
   reference's ``_decode_round_fn`` / ``_prefill_round_fn``: tokens equal,
   state leaves equal (floats at rtol/atol 1e-5);
 * one host fetch per decode round (the fetch monkeypatched);
-* the port's step modules hold no host sync (an AST check; the card's
-  own check, under ``torch.cuda.set_sync_debug_mode("error")``, is in
+* the port's step modules hold no host sync (ESS002 of
+  ``repro_torch.analysis.lint``, over the cluster and the API too; the
+  card's own check, under ``torch.cuda.set_sync_debug_mode("error")``, is in
   ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
-import ast
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import pathlib
 
@@ -33,6 +34,7 @@ from repro.models.params import init_params as jinit
 from repro.serving import engine as JE
 from repro.serving import step as JSP
 from repro.serving.scheduler import Request as JReq
+from repro_torch.analysis.lint import ess002_modules, host_syncs
 from repro_torch.cache import latent_cache as LC
 from repro_torch.configs import get_config as tget
 from repro_torch.core import lru_pool as LP
@@ -394,69 +396,20 @@ def test_round_functions_match_reference(model):
 
 
 # ---------------------------------------------------------------------------
-# No host sync in the step modules
+# No host sync in the step modules (ESS002, repro_torch.analysis.lint)
 # ---------------------------------------------------------------------------
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-STEP_MODULES = sorted(
-    [*PKG.glob("core/*.py"), *PKG.glob("models/*.py"),
-     *PKG.glob("kernels/*/ops.py"), PKG / "cache" / "latent_cache.py",
-     PKG / "distributed" / "compression.py", PKG / "serving" / "step.py",
-     PKG / "serving" / "state.py", PKG / "serving" / "engine.py",
-     PKG / "serving" / "mtp.py", PKG / "serving" / "prng.py",
-     PKG / "serving" / "sampling.py", PKG / "serving" / "tbo.py"])
-# host-side helpers: the pool's invariant check (tests, debugging) and the
-# fixed-batch entry point's report; the session's methods are host code
-# around the steps (its one fetch is ``device_get``)
-HOST_SIDE = {"check_consistent", "generate_batch", "ServeSession"}
-SYNC_METHODS = {"item", "tolist", "cpu"}
-
-
-def _is_scalar(node) -> bool:
-    if isinstance(node, ast.UnaryOp):
-        node = node.operand
-    return isinstance(node, ast.Constant) and \
-        isinstance(node.value, (bool, int, float))
-
-
-def host_syncs(source: str) -> list[str]:
-    """``name:line`` of each ``torch.tensor(..., device=...)``, ``.item()``,
-    ``.tolist()``, ``.cpu()`` and indexed assignment of a Python scalar
-    (``t[i] = 0`` copies the scalar from the host and waits for the card;
-    ``t[i].fill_(0)`` does not) outside the HOST_SIDE definitions."""
-    found = []
-
-    def visit(node, scope):
-        for child in ast.iter_child_nodes(node):
-            name = scope
-            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
-                                  ast.ClassDef)) and scope is None:
-                name = child.name
-            if name in HOST_SIDE:
-                continue
-            if isinstance(child, ast.Call) and \
-                    isinstance(child.func, ast.Attribute):
-                f = child.func
-                is_tensor = (f.attr == "tensor"
-                             and isinstance(f.value, ast.Name)
-                             and f.value.id == "torch"
-                             and any(k.arg == "device"
-                                     for k in child.keywords))
-                if is_tensor or f.attr in SYNC_METHODS:
-                    found.append(f"{name}:{child.lineno}")
-            if isinstance(child, ast.Assign) and _is_scalar(child.value) \
-                    and any(isinstance(t, ast.Subscript)
-                            for t in child.targets):
-                found.append(f"{name}:{child.lineno}")
-            visit(child, name)
-    visit(ast.parse(source), None)
-    return found
+# the modules a round, a prefill chunk, a pack or an install runs through
+# (the cluster and the API included); the host-side definitions
+# (check_consistent, generate_batch, ServeSession) are exempt
+STEP_MODULES = ess002_modules(PKG)
 
 
 @pytest.mark.parametrize("path", STEP_MODULES,
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_step_modules_hold_no_host_sync(path):
-    assert host_syncs(path.read_text()) == []
+    assert host_syncs(path.read_text(), str(path)) == []
 
 
 def test_host_sync_check_flags_each_form():

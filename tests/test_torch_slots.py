@@ -8,6 +8,7 @@ Maps, block tables, ``lens`` and pool state are held **equal**; float
 outputs in fp32 at rtol/atol 1e-5.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax

@@ -5,6 +5,7 @@ and the prefill's bf16 attend equal to its fp32 one bit for bit.
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ these hold the numbers and the state, the card tests the streams).
   ``test_mtp_serve.py::test_serve_mtp_tbo_stream_parity``).
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -42,6 +43,11 @@ from repro_torch.serving.scheduler import Request as TReq
 
 CFG = "deepseek-v32-exp-ess-smoke"
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+# the reference's functions jitted once for the whole module (static
+# configs hash by value, so cases of one config share the compile)
+JPREFILL = jax.jit(JE.ess_prefill, static_argnums=(1, 4),
+                   static_argnames=("prefill_chunk",))
 
 
 def configs(**ess):
@@ -95,9 +101,7 @@ def test_two_batch_step_split_merge(params, B, paged, tier):
     rng = np.random.default_rng(B)
     toks = rng.integers(0, 256, (B, S)).astype(np.int32)
     pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
-    prefill = jax.jit(JE.ess_prefill, static_argnums=(1, 4),
-                      static_argnames=("prefill_chunk",))
-    _, jc = prefill(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos), Smax,
+    _, jc = JPREFILL(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos), Smax,
                     prefill_chunk=8)
     host = jax.tree.map(np.asarray, jc)
     nxt = rng.integers(0, 256, (B, 1))

@@ -18,6 +18,7 @@ every comparison is exact, bit for bit):
   gather.
 """
 
+import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest
