@@ -1,5 +1,5 @@
-"""Architecture config dataclasses for the ESS path (own copy of the
-fields of ``repro.configs.base`` that the port uses).
+"""Architecture config dataclasses (own copy of the fields of
+``repro.configs.base`` that the port uses).
 
 ``param_dtype`` is a ``torch.dtype``.
 """
@@ -63,23 +63,50 @@ class ESSOptions:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The fields of the reference's ``ArchConfig`` that the ESS path reads."""
+    """The reference's ``ArchConfig`` fields that the port reads, with the
+    reference's defaults (its SSM / hybrid / encoder-decoder, sharding and
+    scan fields are not ported)."""
     name: str
+    family: str                        # dense | moe | vlm
     num_layers: int
     d_model: int
     num_heads: int
+    num_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: int = 128
+    attn_kind: str = "gqa"             # gqa | mla
+    # attention details
     rope_theta: float = 10000.0
+    rope_interleaved: bool = False
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    logit_softcap: Optional[float] = None
+    attn_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    query_scale: Optional[float] = None   # overrides head_dim**-0.5 (gemma)
+    # block kinds repeated, e.g. ("local", "global"); None: all "global"
+    layer_pattern: Optional[tuple[str, ...]] = None
+    post_block_norm: bool = False      # gemma2/3 post-norms
     tie_embeddings: bool = True
+    scale_embeddings: bool = False     # gemma: x *= sqrt(d_model)
     act: str = "silu"
     norm_eps: float = 1e-6
+    local_rope_theta: Optional[float] = None   # gemma3 local layers
     mla: Optional[MLAConfig] = None
     dsa: Optional[DSAConfig] = None
     moe: Optional[MoEConfig] = None
+    mrope_sections: Optional[tuple[int, ...]] = None   # qwen2-vl
     ess: ESSOptions = ESSOptions()
     param_dtype: Any = torch.bfloat16
+    # inputs are precomputed embeddings [B,S,d], not token ids (qwen2-vl)
+    embedding_inputs: bool = False
     mtp_depth: int = 0                 # multi-token-prediction modules
+
+    def pattern_at(self, layer: int) -> str:
+        if self.layer_pattern is None:
+            return "global"
+        return self.layer_pattern[layer % len(self.layer_pattern)]
 
 
 _REGISTRY: dict[str, Any] = {}

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models.mla import topk_desc
 
 
@@ -53,7 +54,9 @@ class PoolStats(NamedTuple):
 
 
 def init_pool(batch: int, pool_entries: int, max_seq: int, dim: int,
-              dtype=torch.bfloat16, device="cpu") -> PoolState:
+              dtype=torch.bfloat16, device=None) -> PoolState:
+    """An empty pool on ``device`` (the card by default)."""
+    device = resolve_device(device)
     i64 = dict(dtype=torch.int64, device=device)
     return PoolState(
         data=torch.zeros((batch, pool_entries, dim), dtype=dtype,

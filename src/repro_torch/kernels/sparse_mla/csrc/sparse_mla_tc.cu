@@ -52,6 +52,15 @@
 //   them (m = max m_i, l = sum l_i e^(m_i - m), o = sum o_i e^(m_i - m);
 //   an all-invalid split has m_i = -2e38, l_i = 0 and adds nothing).
 //   Prefill has B*Q = 1024 queries and runs one split, with no merge.
+// * The mask: one row of valid flags per row set (Z), or, beside rows
+//   shared over q, one per (b, q) (valid_per_query: the causal mask of a
+//   prefill chunk over a whole prompt's latent rows, DeepSeek-V3's dense
+//   MLA prefill).  Before the ring starts, the CTA's threads find the
+//   last valid row of its split in that mask row, and tiles past it are
+//   neither loaded nor multiplied: an all-invalid tile after the last
+//   valid one leaves m, l and o exactly as they are (its exp terms are 0
+//   and its correction exp(0) = 1), so a causal query reads only the rows
+//   up to its own position, about half the prompt on average.
 // * TMA tensor maps are encoded on the host per call by libcuda's
 //   cuTensorMapEncodeTiled, looked up at run time (no link against it).
 
@@ -257,11 +266,12 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
 }
 
 struct Params {
-  const uint8_t* valid;  // [Z, K] flags, Z as the rows' leading dimension
+  const uint8_t* valid;  // [Z, K] flags, Z as the rows' leading dimension,
+                         // or [B*Q, K] when valid_per_query
   float* o;              // [nsplit][B*Q][H][kRank]
   float* m;              // [nsplit][B*Q][H]
   float* l;              // [nsplit][B*Q][H]
-  int nq, H, K, rows_per_split, shared_rows;
+  int nq, H, K, rows_per_split, shared_rows, valid_per_query;
   float scale;
   int64_t split_rows;    // B*Q*H: stride of one split's (m, l) partials
 };
@@ -271,13 +281,13 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* q_s,
                                         uint8_t* k_s, uint64_t* q_full,
                                         uint64_t* full, uint64_t* empty,
                                         int wg, int bq, int hb, int split,
-                                        int z, int k0, int k1, int ntiles) {
+                                        int vz, int k0, int k1, int ntiles) {
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int r0 = warp * 16 + (lane >> 2);   // this thread's heads: r0, r0+8
   const int c2 = 2 * (lane & 3);            // and columns c2, c2+1 of each 8
-  const uint8_t* vrow = p.valid + static_cast<int64_t>(z) * p.K;
+  const uint8_t* vrow = p.valid + static_cast<int64_t>(vz) * p.K;
 
   float acc[128];
 #pragma unroll
@@ -429,16 +439,18 @@ sparse_mla_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
+  __shared__ int last_valid;
 
   const int hb = blockIdx.x;       // head block: the two halves run together
   const int split = blockIdx.y;
   const int bq = blockIdx.z;
   const int z = p.shared_rows ? bq / p.nq : bq;
+  const int vz = p.valid_per_query ? bq : z;
   const int k0 = split * p.rows_per_split;
-  const int k1 = min(p.K, k0 + p.rows_per_split);
-  const int ntiles = k1 > k0 ? (k1 - k0 + kBN - 1) / kBN : 0;
+  int k1 = min(p.K, k0 + p.rows_per_split);
 
   if (threadIdx.x == 0) {
+    last_valid = k0 - 1;
     mbar_init(q_full, 1);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
@@ -448,6 +460,18 @@ sparse_mla_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  {  // the split's last valid row: each thread's highest of its stride
+    const uint8_t* vrow = p.valid + static_cast<int64_t>(vz) * p.K;
+    for (int k = k1 - 1 - static_cast<int>(threadIdx.x); k >= k0;
+         k -= kThreads)
+      if (vrow[k]) {
+        atomicMax(&last_valid, k);
+        break;
+      }
+  }
+  __syncthreads();
+  k1 = last_valid + 1;
+  const int ntiles = k1 > k0 ? (k1 - k0 + kBN - 1) / kBN : 0;
 
   const int wg = threadIdx.x >> 7;
   if (wg == kConsumerWGs) {
@@ -472,7 +496,7 @@ sparse_mla_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume(p, q_s, k_s, q_full, full, empty, wg, bq, hb, split, z, k0, k1,
+    consume(p, q_s, k_s, q_full, full, empty, wg, bq, hb, split, vz, k0, k1,
             ntiles);
   }
 }
@@ -563,15 +587,16 @@ const char* ess_error_string(int err) {
 }
 
 // q [B,nq,H,576] bf16; rows [Z,K,576] bf16 with Z = B (shared_rows: one
-// row set per b, shared over q) or B*nq (per query); valid uint8 [Z,K].
+// row set per b, shared over q) or B*nq (per query); valid uint8 [Z,K], or
+// [B*nq,K] with valid_per_query (shared rows, a mask per query).
 // K split s covers rows [s*rows_per_split, min(K, (s+1)*rows_per_split)).
 // Writes fp32 o at ((s*B*nq + bq)*H + h)*512 and m, l at (s*B*nq + bq)*H
 // + h.  Requires H % 64 == 0, K >= 1, rows_per_split % 64 == 0, every
 // split non-empty, 16-byte aligned q and rows.
 int ess_sparse_mla_tc(const void* q, const void* rows, const void* valid,
                       void* o, void* m, void* l, int B, int nq, int H, int K,
-                      int shared_rows, int nsplit, int rows_per_split,
-                      float scale, void* stream) {
+                      int shared_rows, int valid_per_query, int nsplit,
+                      int rows_per_split, float scale, void* stream) {
   if (B * nq == 0 || H == 0) return 0;
   const int bq = B * nq;
   if (H % kHB || K <= 0 || nsplit <= 0 || nsplit > 65535 || bq > 65535 ||
@@ -610,6 +635,7 @@ int ess_sparse_mla_tc(const void* q, const void* rows, const void* valid,
   p.K = K;
   p.rows_per_split = rows_per_split;
   p.shared_rows = shared_rows;
+  p.valid_per_query = valid_per_query;
   p.scale = scale;
   p.split_rows = static_cast<int64_t>(bq) * H;
   const dim3 grid(H / kHB, nsplit, bq);

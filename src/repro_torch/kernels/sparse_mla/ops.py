@@ -58,7 +58,7 @@ def _tc_lib() -> ctypes.CDLL:
     lib = _build.load("sparse_mla_tc")
     if "sparse_mla_tc" not in _READY:
         lib.ess_sparse_mla_tc.argtypes = [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             ctypes.c_float, _P]
         lib.ess_sparse_mla_tc.restype = ctypes.c_int
         lib.ess_sparse_mla_merge.argtypes = [_P, _P, _P, _P, _P, _P, _I,
@@ -100,7 +100,9 @@ def tc_splits(q_comb: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
               scale: float):
     """Launch the tensor-core kernel (CUDA, :func:`tc_route` shapes) and
     return its per-split partials ``(o [S,B,Q,H,512], m [S,B,Q,H], l)``,
-    S from :func:`plan_splits`; :func:`merge_splits` combines them."""
+    S from :func:`plan_splits`; :func:`merge_splits` combines them.
+    Rows shared over Q take a mask per row set ``[B,K]`` or per query
+    ``[B,Q,K]`` (the kernel's ``valid_per_query``)."""
     lib = _tc_lib()
     B, Q, H, D = q_comb.shape
     K = rows.shape[-2]
@@ -114,7 +116,9 @@ def tc_splits(q_comb: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(q_comb.shape)}")
     q_comb = q_comb.contiguous()
     rows = rows.contiguous()
-    valid = valid.expand(rows.shape[:-1]).contiguous()
+    per_query = shared and valid.dim() == 3
+    valid = valid.expand((B, Q, K) if per_query else rows.shape[:-1]
+                         ).contiguous()
     if q_comb.data_ptr() % 16 or rows.data_ptr() % 16:
         raise ValueError("partial_attend: q and rows must be 16-byte aligned")
     dev = q_comb.device
@@ -127,8 +131,8 @@ def tc_splits(q_comb: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
     _build.check(lib, lib.ess_sparse_mla_tc(
         _P(q_comb.data_ptr()), _P(rows.data_ptr()), _P(valid.data_ptr()),
         _P(o.data_ptr()), _P(m.data_ptr()), _P(l.data_ptr()), B, Q, H, K,
-        int(shared), nsplit, per, float(scale), _build.stream_ptr(o)),
-        "sparse_mla_tc")
+        int(shared), int(per_query), nsplit, per, float(scale),
+        _build.stream_ptr(o)), "sparse_mla_tc")
     partial_attend.launches_tc += 1
     return o, m, l
 
@@ -165,7 +169,9 @@ def partial_attend(q_comb: torch.Tensor, rows: torch.Tensor,
     """Batched flash partials.
 
     q_comb [B,Q,H,D]; rows [B,K,D] (shared over Q) or [B,Q,K,D]; valid
-    [B,K] / [B,Q,K] bool.  Returns ``Partial(o [B,Q,H,rank], m [B,Q,H],
+    [B,K] / [B,Q,K] bool (a mask per query also beside shared rows: the
+    causal mask of a prefill chunk over the prompt's rows).  Returns
+    ``Partial(o [B,Q,H,rank], m [B,Q,H],
     l [B,Q,H])`` in fp32, for :func:`repro_torch.models.mla.merge_partials`.
     On CUDA, :func:`tc_route` picks the kernel.
     """
@@ -174,6 +180,7 @@ def partial_attend(q_comb: torch.Tensor, rows: torch.Tensor,
     if q_comb.device.type == "cpu":
         if rows.dim() == 3:
             rows = rows[:, None].expand(B, Q, *rows.shape[1:])
+        if valid.dim() == 2:
             valid = valid[:, None].expand(B, Q, valid.shape[-1])
         return Partial(*ref.sparse_mla_partial_ref(q_comb, rows, valid,
                                                    scale, rank))
@@ -214,8 +221,12 @@ def general_attend(q_comb: torch.Tensor, rows: torch.Tensor,
                          "16-byte aligned")
     if rows.dim() == 3:
         rb, rq = K * D, 0
-        valid = valid.expand(B, K).contiguous()
-        vb, vq = K, 0
+        if valid.dim() == 3:
+            valid = valid.expand(B, Q, K).contiguous()
+            vb, vq = Q * K, K
+        else:
+            valid = valid.expand(B, K).contiguous()
+            vb, vq = K, 0
     else:
         if rows.shape[:2] != (B, Q):
             raise ValueError(f"partial_attend: rows {tuple(rows.shape)} "

@@ -15,7 +15,9 @@ The monolithic (all-in-HBM) attention of the model's three modes:
 * :func:`mla_prefill_attend` — prefill: the reference's two-pass chunked
   flash with the exact top-k mask, or the same function by ids in query
   chunks (indexer, top-k, row gather, sparse-MLA partial), the route the
-  card takes;
+  card takes; without the indexer (DeepSeek-V3) the chunked causal flash,
+  or on the card the sparse-MLA partial over the prompt's rows with a
+  causal mask per query;
 * :func:`mla_train_attend` — dense masked attention (plain torch).
 
 ``use_kernel`` picks the kernel wrappers or the plain version; by default
@@ -264,8 +266,9 @@ def mla_prefill_attend(p: dict, pi: dict | None, cfg: ArchConfig,
                        use_kernel: bool | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor,
                                   torch.Tensor | None]:
-    """MLA prefill with the DSA selection.  Returns (out [B,S,d], latent
-    rows [B,S,D], indexer keys [B,S,Di] or None without an indexer).
+    """MLA prefill, with the DSA selection where there is an indexer.
+    Returns (out [B,S,d], latent rows [B,S,D], indexer keys [B,S,Di] or
+    None without an indexer).
 
     The plain version (the default on the CPU) is the reference's
     algorithm: a streaming top-k threshold over ``kv_block`` key blocks,
@@ -278,9 +281,14 @@ def mla_prefill_attend(p: dict, pi: dict | None, cfg: ArchConfig,
     (:func:`topk_select`), then :func:`sparse_mla_gather_attend` on the
     selected rows; with
     ``index_topk >= S`` that selects every causal position, as the plain
-    version's causal attention does.  A ``[B,H,S,kv_block]`` fp32 score
-    block of the plain version is 17 GB at full width (B = 4, S = 8192),
-    the kernel route's rows 2.4 GB a chunk.
+    version's causal attention does.  Without an indexer the kernel route
+    (:func:`_prefill_causal`) attends each chunk's queries to the whole
+    prompt's latent rows, shared, with a causal mask per query (the
+    tensor-core kernel skips each query's tiles past its position); the
+    ids route would copy ``[B, C, S, 576]`` rows, 9.7 GB a chunk at
+    C = 256, S = 8192.  A ``[B,H,S,kv_block]`` fp32 score block of the
+    plain version is 17 GB at full width (B = 4, S = 8192), the ids
+    route's rows 2.4 GB a chunk.
 
     The reference returns no indexer keys when ``index_topk >= S``; the
     port always returns them when there is an indexer (a decode step
@@ -289,7 +297,7 @@ def mla_prefill_attend(p: dict, pi: dict | None, cfg: ArchConfig,
     ikeys = indexer_keys(pi, x) if pi is not None else None
     if _use_kernel(use_kernel, x):
         if ikeys is None:
-            raise ValueError("the kernel route needs the DSA indexer")
+            return _prefill_causal(p, cfg, x, positions, lat), lat, None
         return _prefill_ids(p, pi, cfg, x, positions, lat, ikeys), lat, \
             ikeys
     return _prefill_dense(p, pi, cfg, x, positions, lat, ikeys,
@@ -309,6 +317,23 @@ def _prefill_ids(p, pi, cfg, x, positions, lat, ikeys):
         o_lat = sk_ops.sparse_mla_gather_attend(
             q_comb, lat, ids, causal, mla_scale(cfg), cfg.mla.kv_lora_rank)
         outs.append(output_proj(p, cfg, o_lat.to(x.dtype)))
+    return torch.cat(outs, dim=1)
+
+
+def _prefill_causal(p, cfg, x, positions, lat):
+    """The no-DSA prefill on the kernel: per chunk of
+    ``PREFILL_QUERY_CHUNK`` queries, one partial over the prompt's latent
+    rows ``lat`` [B,S,D] shared by the chunk, masked per query
+    (``valid [B,C,S]``: keys at or before the query's position)."""
+    S, C = x.shape[1], PREFILL_QUERY_CHUNK
+    outs = []
+    for c0 in range(0, S, C):
+        xs, ps = x[:, c0:c0 + C], positions[:, c0:c0 + C]
+        causal = positions[:, None, :] <= ps[:, :, None]        # [B,C,S]
+        part = sk_ops.partial_attend(absorbed_query(p, cfg, xs, ps), lat,
+                                     causal, mla_scale(cfg),
+                                     cfg.mla.kv_lora_rank)
+        outs.append(output_proj(p, cfg, finalize_partial(part, x.dtype)))
     return torch.cat(outs, dim=1)
 
 

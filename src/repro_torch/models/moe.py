@@ -39,9 +39,35 @@ def router_probs(p: dict, cfg: ArchConfig, x2: torch.Tensor):
     return probs, probs
 
 
+# elements of one [E, C, max(d, d_expert)] dispatch buffer above which a
+# MoE whose capacity cannot bind runs its tokens in chunks
+DISPATCH_ELEMS = 1 << 30
+
+
 def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
               train: bool = False):
-    """x [B,S,d] -> y [B,S,d], or ``(y, MoEAux)`` when ``train``."""
+    """x [B,S,d] -> y [B,S,d], or ``(y, MoEAux)`` when ``train``.
+
+    Where the capacity cannot bind (``top_k * capacity_factor >= E``: the
+    capacity is every token, none drops) each token's output is its own,
+    and a batch whose ``[E, T, width]`` buffers would pass
+    ``DISPATCH_ELEMS`` runs in chunks of tokens: the same function, in
+    memory a prefill can hold (DeepSeek-V3's 256 experts at 32K tokens
+    would need 120 GB)."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, width = mo.num_experts, max(d, mo.d_expert)
+    if not train and mo.top_k * mo.capacity_factor >= E \
+            and E * B * S * width > DISPATCH_ELEMS:
+        n = max(1, DISPATCH_ELEMS // (E * width))
+        x1 = x.reshape(1, B * S, d)
+        return torch.cat([_moe_apply(p, cfg, x1[:, i:i + n])
+                          for i in range(0, B * S, n)], 1).view(B, S, d)
+    return _moe_apply(p, cfg, x, train=train)
+
+
+def _moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+               train: bool = False):
     mo = cfg.moe
     B, S, d = x.shape
     T, E, K = B * S, mo.num_experts, mo.top_k

@@ -1,10 +1,13 @@
-"""Parameter trees for the MLA/DSA/MoE decoder (counterpart of
+"""Parameter trees of the decoder stacks (counterpart of
 ``repro.models.params`` + the tree layout of ``repro.models.transformer
-.model_def`` / ``repro.models.blocks.mla_block_def``).
+.model_def`` and the block definitions of ``repro.models.blocks``: the MLA
+block with or without the DSA indexer, the GQA block of
+:func:`repro_torch.models.attention.attn_def`).
 
 A parameter tree is a nested ``dict`` of tensors with the reference's key
-names and shapes: ``embed``, ``unembed``, ``final_norm``, ``dense_layers``
-and ``layers`` (each leaf stacked on a leading layer axis) and ``mtp``.
+names and shapes: ``embed`` (absent under ``embedding_inputs``),
+``unembed`` (untied configs), ``final_norm``, ``dense_layers`` and
+``layers`` (each leaf stacked on a leading layer axis) and ``mtp``.
 
 * :func:`from_jax_params` carries the reference's own parameters across
   (handed over as nested dicts of numpy arrays), bit for bit.
@@ -90,10 +93,19 @@ def _moe_def(cfg: ArchConfig) -> dict:
 
 def _block_def(cfg: ArchConfig, *, moe: bool, dense_ff: int | None = None
                ) -> dict:
+    """One layer's definitions: the MLA block (``attn_kind == "mla"``,
+    the indexer with DSA) or the GQA block (gemma's post-norms)."""
     dt, d = cfg.param_dtype, cfg.d_model
-    p = {"ln1": _norm(d, dt), "mla": _mla_def(cfg), "ln2": _norm(d, dt)}
-    if cfg.dsa is not None:
-        p["indexer"] = _indexer_def(cfg)
+    if cfg.attn_kind == "mla":
+        p = {"ln1": _norm(d, dt), "mla": _mla_def(cfg), "ln2": _norm(d, dt)}
+        if cfg.dsa is not None:
+            p["indexer"] = _indexer_def(cfg)
+    else:
+        from repro_torch.models.attention import attn_def
+        p = {"ln1": _norm(d, dt), "attn": attn_def(cfg), "ln2": _norm(d, dt)}
+        if cfg.post_block_norm:
+            p["ln1_post"] = _norm(d, dt)
+            p["ln2_post"] = _norm(d, dt)
     p["ffn"] = _moe_def(cfg) if moe else _mlp_def(d, dense_ff or cfg.d_ff, dt)
     return p
 
@@ -107,9 +119,9 @@ def _stack(defs: dict, n: int) -> dict:
 def model_def(cfg: ArchConfig) -> dict:
     """Definition tree of the whole decoder (the reference's layout)."""
     dt = cfg.param_dtype
-    defs: dict[str, Any] = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed"),
-        "final_norm": _norm(cfg.d_model, dt)}
+    defs: dict[str, Any] = {"final_norm": _norm(cfg.d_model, dt)}
+    if not cfg.embedding_inputs:
+        defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
     nd = cfg.moe.first_dense_layers if cfg.moe else 0
@@ -126,6 +138,13 @@ def model_def(cfg: ArchConfig) -> dict:
             "block": _block_def(cfg, moe=cfg.moe is not None)},
             cfg.mtp_depth)
     return defs
+
+
+def count_params(defs: dict) -> int:
+    """Elements of a definition tree, none materialized."""
+    if isinstance(defs, dict):
+        return sum(count_params(v) for v in defs.values())
+    return int(np.prod(defs.shape))
 
 
 # ---------------------------------------------------------------------------

@@ -67,30 +67,43 @@ class DecodeOut(NamedTuple):
 # Generic path
 # ---------------------------------------------------------------------------
 
+def _on(t: torch.Tensor | None, dev: torch.device):
+    return None if t is None else t.to(dev)
+
+
 def generic_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                    positions: torch.Tensor, *, device=None, **kw
+                    positions: torch.Tensor, *, device=None,
+                    mrope_positions: torch.Tensor | None = None, **kw
                     ) -> T.ForwardOut:
-    """The monolithic prefill (``forward(mode="prefill")``) on ``device``
-    (the card unless ``device="cpu"``): on CUDA the kernel route, by ids
-    in query chunks.  ``kw`` goes to ``forward`` (``want_logits``,
+    """The monolithic prefill (``forward(mode="prefill")``) of any ported
+    architecture on ``device`` (the card unless ``device="cpu"``): MLA on
+    CUDA takes the kernel route (by ids with DSA, else the causal partial
+    over the prompt's rows).  ``tokens`` are token ids, or embeddings
+    ``[B,S,d]`` under ``embedding_inputs``; ``mrope_positions [B,S,3]``
+    for M-RoPE.  ``kw`` goes to ``forward`` (``want_logits``,
     ``use_kernel``)."""
     dev = resolve_device(device)
     return T.forward(params, cfg, tokens.to(dev), positions.to(dev),
-                     mode="prefill", **kw)
+                     mode="prefill", mrope_positions=_on(mrope_positions,
+                                                         dev), **kw)
 
 
 def generic_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, caches: dict, *, device=None,
+                   mrope_positions: torch.Tensor | None = None,
                    **kw) -> DecodeOut:
-    """One monolithic decode step: tokens [B,Q] at ``caches["lens"]``.
+    """One monolithic decode step: tokens [B,Q] (or embeddings [B,Q,d])
+    at ``caches["lens"]``.
 
     Updates ``caches`` in place, ``lens`` included, and returns them: no
     host sync and no rebinding, so a CUDA graph captured over one call
-    replays the next steps (the indexer top-k, the row gather and the
-    sparse-MLA partial on the card)."""
+    replays the next steps (V3.2: the indexer top-k, the row gather and
+    the sparse-MLA partial; V3: the partial over the whole latent cache;
+    GQA: the grouped attention over the KV cache)."""
     dev = resolve_device(device)
     out = T.forward(params, cfg, tokens.to(dev), positions.to(dev),
-                    mode="decode", caches=caches, **kw)
+                    mode="decode", caches=caches,
+                    mrope_positions=_on(mrope_positions, dev), **kw)
     caches["lens"].copy_(out.caches["lens"])
     return DecodeOut(out.logits, caches, {})
 

@@ -71,6 +71,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import counters
 from repro_torch.serving import mtp as MTP
@@ -245,14 +246,14 @@ class StepPrograms:
     in place.  ``depth`` is the session's MTP draft depth (0: no spec
     round); ``tbo`` composes Two-Batch Overlap into both round kinds.
     The side streams (:class:`repro_torch.serving.tbo.Streams`) are made
-    here, for ``device``, before any capture."""
+    here, for ``device`` (the card by default), before any capture."""
 
     def __init__(self, cfg: ArchConfig, depth: int = 0, *,
-                 tbo: bool = False, device="cpu"):
+                 tbo: bool = False, device=None):
         self._cfg = cfg
         self.depth = depth
         self.tbo = tbo
-        self.streams = TBO.make_streams(device)
+        self.streams = TBO.make_streams(resolve_device(device))
         self._raw = _make_raw_step(tbo, self.streams)
         self._rounds: dict[tuple[bool, bool], Callable] = {}
         self._prefill: dict[tuple[int, bool, bool], Callable] = {}

@@ -375,6 +375,33 @@ def test_cuda_sparse_mla_tc_all_invalid_query(cuda, K):
     assert torch.all(l[1, 0] == 0) and torch.all(o[1, 0] == 0)
 
 
+@pytest.mark.parametrize("K", [300, 2048, 8224])
+def test_cuda_sparse_mla_tc_query_mask_shared_rows(cuda, K):
+    """Rows shared over Q with a mask per query (``valid [B,Q,K]``): a
+    causal prefix per query (DeepSeek-V3's prefill chunk, the kernel
+    skipping each query's tiles past its last valid row) with holes, one
+    query with no valid row, one with every row; and the general route
+    (fp32) on the same case."""
+    g = torch.Generator().manual_seed(31)
+    B, Q = 2, 5
+    q, rows, _ = _mla_bf16(g, B, Q, K, True)
+    last = torch.randint(0, K, (B, Q), generator=g)
+    valid = torch.arange(K)[None, None] <= last[..., None]
+    valid &= torch.rand((B, Q, K), generator=g) < 0.95
+    valid[0, 1] = False
+    valid[1, 2] = True
+    o, m, l = _tc_vs_plain(cuda, q, rows, valid)
+    assert torch.all(m[0, 1] == -2.0e38) and torch.all(l[0, 1] == 0)
+    assert torch.all(o[0, 1] == 0)
+    want = sops.partial_attend(q.float(), rows.float(), valid, 0.07, 512)
+    n_gen = sops.partial_attend.launches_general
+    got = sops.partial_attend(q.float().to(cuda), rows.float().to(cuda),
+                              valid.to(cuda), 0.07, 512)
+    assert sops.partial_attend.launches_general == n_gen + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
 def test_cuda_sparse_mla_routes(cuda):
     """bf16 at MLA's widths takes the tensor-core kernel; fp32, other
     widths and head counts that are not a multiple of 64 the general one."""
@@ -1784,3 +1811,194 @@ def test_cuda_engine_explicit_token_prompts(cuda):
                            SamplingParams(max_tokens=4))
         outs.append(o.tokens)
     assert len(outs[0]) == 4 and outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's dense MLA, the GQA family, Quest and the paged cache
+# ---------------------------------------------------------------------------
+
+def _v3_mini_cfg():
+    """deepseek-v3-671b's attention widths (128 heads x 576: the
+    tensor-core route) without the indexer, under a narrow model: 2
+    layers (1 dense + 1 MoE of 16 experts), d_model 512, vocab 1024."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, num_layers=2, d_model=512, d_ff=1024, vocab_size=1024,
+        mtp_depth=0,
+        moe=dataclasses.replace(cfg.moe, num_experts=16, d_expert=128,
+                                first_dense_layers=1, dense_d_ff=1024))
+
+
+def test_cuda_v3_dense_mla_prefill_and_decode_vs_cpu(cuda):
+    """V3's kernel routes (bf16, the tensor-core partial: the prefill's
+    causal mask per query beside the prompt's shared rows, in chunks of
+    256; the decode over the whole latent cache, split and merged) against
+    the same routes' plain versions on the CPU, same weights: logits of
+    the prefill and of 3 teacher-forced ``generic_decode`` steps within
+    2e-2 of their scale, and every partial on the tensor-core route."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = _v3_mini_cfg()
+    cpu = init_params(cfg, 4, device="cpu")
+    card = _to(cpu, cuda)
+    g = torch.Generator().manual_seed(5)
+    n = 300
+    toks = torch.randint(0, cfg.vocab_size, (2, n + 3), generator=g)
+    pos = torch.arange(n + 3)[None].expand(2, n + 3)
+    runs = {}
+    n_tc = sops.partial_attend.launches_tc
+    n_gen = sops.partial_attend.launches_general
+    for name, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        pf = E.generic_prefill(params, cfg, toks[:, :n], pos[:, :n],
+                               device=dev, use_kernel=True)
+        caches = T.pad_caches(pf.caches, n + 8)
+        out = [pf.logits[:, -1].float().cpu()]
+        for r in range(3):
+            o = E.generic_decode(params, cfg, toks[:, n + r:n + r + 1],
+                                 caches["lens"][:, None], caches,
+                                 device=dev)
+            out.append(o.logits[:, -1].float().cpu())
+        runs[name] = out
+    # 2 prefill chunks and 3 decode steps a layer on the card
+    assert sops.partial_attend.launches_tc - n_tc == 2 * (2 + 3)
+    assert sops.partial_attend.launches_general == n_gen
+    for a, b in zip(runs["card"], runs["cpu"]):
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("name", ["gemma2-27b-smoke", "dbrx-132b-smoke",
+                                  "qwen2-vl-7b-smoke"])
+def test_cuda_gqa_forward_vs_cpu(cuda, name):
+    """A GQA config (fp32) on the card against the CPU, same weights:
+    prefill logits and caches, then 3 teacher-forced decode steps, at
+    1e-4 (qwen2-vl from embeddings, with M-RoPE positions)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = dataclasses.replace(get_config(name), param_dtype=torch.float32)
+    cpu = init_params(cfg, 1, device="cpu")
+    card = _to(cpu, cuda)
+    g = torch.Generator().manual_seed(3)
+    n = 40
+    if cfg.embedding_inputs:
+        ins = torch.randn((2, n + 3, cfg.d_model), generator=g)
+    else:
+        ins = torch.randint(0, cfg.vocab_size, (2, n + 3), generator=g)
+    pos = torch.arange(n + 3)[None].expand(2, n + 3)
+    mr = pos[..., None].expand(2, n + 3, 3) if cfg.mrope_sections else None
+    tol = dict(rtol=1e-4, atol=1e-4)
+    runs = {}
+    for which, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        pf = E.generic_prefill(params, cfg, ins[:, :n], pos[:, :n],
+                               device=dev, mrope_positions=None if mr is None
+                               else mr[:, :n])
+        caches = T.pad_caches(pf.caches, n + 8)
+        out = [pf.logits.cpu()]
+        for r in range(3):
+            o = E.generic_decode(params, cfg, ins[:, n + r:n + r + 1],
+                                 caches["lens"][:, None], caches, device=dev)
+            out.append(o.logits.cpu())
+        runs[which] = (out, caches)
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(runs["card"][1]["kv"], runs["cpu"][1]["kv"]):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+def test_cuda_gqa_generic_decode_graph_replay_sync_free(cuda):
+    """gemma2's pattern at bf16 (a local and a global layer, soft caps):
+    a prefill past the window, two ``generic_decode`` steps under
+    sync-debug "error", then a CUDA graph captured over a third step
+    replays the next ones with the logits of eager steps from a copy of
+    the caches, bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = dataclasses.replace(get_config("gemma2-27b-smoke"), num_layers=2)
+    params = init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                         device=cuda)
+    pos = torch.arange(40, device=cuda)[None].expand(2, 40)
+    pf = E.generic_prefill(params, cfg, toks, pos, device=cuda)
+    caches = T.pad_caches(pf.caches, 64)
+    tok = pf.logits[:, -1].argmax(-1)[:, None]
+    with _SyncFree():
+        for _ in range(2):
+            o = E.generic_decode(params, cfg, tok, caches["lens"][:, None],
+                                 caches, device=cuda)
+            tok = o.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == [42, 42]
+    eager = dict(caches)
+    eager["kv"] = T.B.GQACache(*(a.clone() for a in caches["kv"]))
+    eager["lens"] = caches["lens"].clone()
+    static_tok = tok.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="relaxed")
+        out = E.generic_decode(params, cfg, static_tok,
+                               caches["lens"][:, None], caches, device=cuda)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    et = tok.clone()
+    for _ in range(3):
+        graph.replay()
+        e = E.generic_decode(params, cfg, et, eager["lens"][:, None], eager,
+                             device=cuda)
+        torch.testing.assert_close(out.logits, e.logits, rtol=0, atol=0)
+        static_tok.copy_(out.logits[:, -1].argmax(-1)[:, None])
+        et = e.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == eager["lens"].tolist() == [45, 45]
+    assert torch.equal(caches["kv"].k, eager["kv"].k)
+
+
+def test_cuda_quest_and_paged_cache_vs_cpu(cuda):
+    """Quest's meta, scores, top blocks (exact), the sparse attention and
+    recall (1e-5), the meta update in place, and the paged cache's
+    append / gather / release on CUDA tensors against the CPU."""
+    from repro_torch.cache import kv_cache as KV
+    from repro_torch.core import quest as Q
+    g = torch.Generator().manual_seed(2)
+    B, S, KVh, H, D, block = 2, 128, 2, 8, 16, 8
+    k = torch.randn((B, S, KVh, D), generator=g)
+    v = torch.randn((B, S, KVh, D), generator=g)
+    q = torch.randn((B, H, D), generator=g)
+    lens = torch.tensor([128, 77])
+    res = {}
+    for dev in ("cpu", cuda):
+        meta = Q.build_block_meta(k.to(dev), block)
+        ids, bv = Q.quest_topk_blocks(q.to(dev), meta, lens.to(dev), block, 6)
+        out = Q.gqa_sparse_attention(q.to(dev), k.to(dev), v.to(dev), ids,
+                                     bv, lens.to(dev), block, 0.25)
+        rec = Q.attention_recall(q.to(dev), k.to(dev), lens.to(dev), ids, bv,
+                                 block, 0.25)
+        Q.update_block_meta(meta, k[:, 5].to(dev) * 3, lens.to(dev) - 1,
+                            block)
+        res[str(dev)] = [x.cpu() for x in (meta.kmin, meta.kmax, ids, bv,
+                                           out, rec)]
+    for i, (a, b) in enumerate(zip(res[str(cuda)], res["cpu"])):
+        if i in (2, 3):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    pk = {}
+    for dev in ("cpu", cuda):
+        kv = KV.init_paged(16, 4, KVh, D, B, 4, torch.float32, device=dev)
+        for t in range(7):
+            KV.append_token(kv, k[:, t].to(dev), v[:, t].to(dev))
+        kk, vv, valid = KV.gather_kv(kv, 8)
+        KV.release_sequence(kv, 1)
+        pk[str(dev)] = [x.cpu() for x in (*kv, kk, vv, valid)]
+    for a, b in zip(pk[str(cuda)], pk["cpu"]):
+        assert torch.equal(a, b)

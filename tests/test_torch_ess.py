@@ -64,7 +64,7 @@ def test_lookup_admit_tick_sequence_matches_reference(dedup, M):
     B, P, S, D, K = 3, 7, 24, 4, 6
     rng = np.random.default_rng(M + 10 * dedup)
     jp = JLP.init_pool(B, P, S, D, jnp.float32)
-    tp = LP.init_pool(B, P, S, D, torch.float32)
+    tp = LP.init_pool(B, P, S, D, torch.float32, "cpu")
     mask = np.array([True, True, False])
     for step in range(12):
         ids, valid = _requests(rng, B, K, S, dup=dedup)
@@ -96,7 +96,7 @@ def test_pool_tie_order_equal_stamps_and_empty_slots():
     # eviction must pick the lowest slot among equal stamps, as lax.top_k
     B, P, S, D = 2, 5, 30, 2
     jp = JLP.init_pool(B, P, S, D, jnp.float32)
-    tp = LP.init_pool(B, P, S, D, torch.float32)
+    tp = LP.init_pool(B, P, S, D, torch.float32, "cpu")
     batches = [[[1, 2, 3], [4, 5, -1]], [[6, 7, 8], [9, 1, 2]],
                [[1, 10, 11], [4, 12, 13]], [[14, 15, 16], [17, 18, 19]]]
     for req in batches:
@@ -118,7 +118,7 @@ def test_pool_tie_order_equal_stamps_and_empty_slots():
 
 def test_protected_slots_and_pool_size():
     jp = JLP.init_pool(1, 4, 16, 2, jnp.float32)
-    tp = LP.init_pool(1, 4, 16, 2, torch.float32)
+    tp = LP.init_pool(1, 4, 16, 2, torch.float32, "cpu")
     ids = np.array([[0, 1, 2, 3]])
     rows = np.ones((1, 4, 2), np.float32)
     jp = JLP.tick(JLP.admit(jp, jnp.asarray(ids), jnp.asarray(rows),
@@ -265,7 +265,8 @@ def test_ess_sparse_attention_matches_reference(attn_setup, mode, zero_keys):
     jst = JOV.ESSLayerState(JLP.init_pool(B, P, S, lat.shape[-1],
                                           jnp.float32), jnp.asarray(lat))
     tst = OV.ESSLayerState(LP.init_pool(B, P, S, lat.shape[-1],
-                                        torch.float32), torch.tensor(lat))
+                                        torch.float32, "cpu"),
+                           torch.tensor(lat))
     lens = np.array([ctx, ctx - 7, 9])
     pos = (lens - 1)[:, None]
     mask = np.array([True, True, False])
@@ -298,7 +299,8 @@ def test_ess_sparse_attention_q2_draft_verify_matches_reference(attn_setup):
     jst = JOV.ESSLayerState(JLP.init_pool(B, P, S, lat.shape[-1],
                                           jnp.float32), jnp.asarray(lat))
     tst = OV.ESSLayerState(LP.init_pool(B, P, S, lat.shape[-1],
-                                        torch.float32), torch.tensor(lat))
+                                        torch.float32, "cpu"),
+                           torch.tensor(lat))
     jo, jst, js = JOV.ess_sparse_attention(
         jp["mla"], jp["indexer"], jcfg, jnp.asarray(x2), jnp.asarray(pos),
         jst, jnp.asarray(ikeys), jnp.asarray(lens), overlap="da")

@@ -110,7 +110,7 @@ def _run_steps(layer_params, dt, mode, B, Q, seed=0, steps=3):
     P = 16
     jst = JOV.ESSLayerState(JLP.init_pool(B, P, S, D, jdt),
                             jnp.asarray(lat, jdt))
-    tst = OV.ESSLayerState(LP.init_pool(B, P, S, D, tdt),
+    tst = OV.ESSLayerState(LP.init_pool(B, P, S, D, tdt, "cpu"),
                            torch.tensor(lat).to(tdt))
     for step in range(steps):
         lens = ctx + step

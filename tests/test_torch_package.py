@@ -64,7 +64,9 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.simulator.costmodel, "
             "repro_torch.simulator.experiments, repro_torch.analysis.lint, "
             "repro_torch.analysis.audit, repro_torch.analysis.__main__, "
-            "repro_torch.models.transformer\n"
+            "repro_torch.models.transformer, repro_torch.models.attention, "
+            "repro_torch.core.quest, repro_torch.core.similarity, "
+            "repro_torch.cache.kv_cache, repro_torch.configs\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,13 +80,17 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch import resolve_device
+    from repro_torch.cache.kv_cache import init_paged
     from repro_torch.cache.latent_cache import init_ess_caches
     from repro_torch.configs import get_config
+    from repro_torch.core.lru_pool import init_pool
     from repro_torch.models.params import init_params
     from repro_torch.models.transformer import cache_spec
     from repro_torch.serving.engine import (generate_batch, generic_decode,
                                             generic_prefill)
+    from repro_torch.serving.step import StepPrograms
     cfg = get_config("deepseek-v32-exp-ess-smoke")
+    gqa = get_config("gemma2-27b-smoke")
     toks = torch.zeros((1, 4), dtype=torch.long)
     for call in (lambda: resolve_device(None),
                  lambda: init_params(cfg, 0),
@@ -92,7 +98,13 @@ def test_entry_points_raise_without_cuda():
                  lambda: generate_batch({}, cfg, np.zeros((1, 4)), 1, 8),
                  lambda: cache_spec(cfg, 1, 8),
                  lambda: generic_prefill({}, cfg, toks, toks),
-                 lambda: generic_decode({}, cfg, toks, toks, {})):
+                 lambda: generic_decode({}, cfg, toks, toks, {}),
+                 lambda: init_pool(1, 4, 8, 16),
+                 lambda: StepPrograms(cfg),
+                 lambda: cache_spec(gqa, 1, 8),
+                 lambda: generic_prefill({}, gqa, toks, toks),
+                 lambda: init_params(gqa, 0),
+                 lambda: init_paged(4, 2, 1, 8, 1, 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -138,6 +150,10 @@ def _fake_cuda_calls():
             torch.zeros((1, 1, 64, 576), dtype=torch.bfloat16, device=dev),
             torch.zeros((1, 6, 576), dtype=torch.bfloat16, device=dev),
             torch.ones((1, 6), dtype=torch.bool, device=dev), 0.1, 512),
+        "partial_attend_tc_query_mask": lambda: s.partial_attend(
+            torch.zeros((1, 3, 64, 576), dtype=torch.bfloat16, device=dev),
+            torch.zeros((1, 6, 576), dtype=torch.bfloat16, device=dev),
+            torch.ones((1, 3, 6), dtype=torch.bool, device=dev), 0.1, 512),
         "topk_select": lambda: i.topk_select(
             torch.zeros((1, 1, 2, 16), device=dev),
             torch.zeros((1, 1, 2), device=dev),
@@ -158,6 +174,7 @@ def _fake_cuda_calls():
                                   "put_pages", "gather_pages_dequant",
                                   "indexer_scores",
                                   "partial_attend", "partial_attend_tc",
+                                  "partial_attend_tc_query_mask",
                                   "merge_splits", "topk_select",
                                   "sparse_mla_gather_attend"])
 def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):

@@ -358,7 +358,7 @@ def test_round_functions_match_reference(model):
     for _ in range(3):
         js.step()
     progs = JSP.get_programs(jcfg, NUM_SLOTS, MAX_SEQ, False, False, 0)
-    tprogs = TE.SP.StepPrograms(tcfg)
+    tprogs = TE.SP.StepPrograms(tcfg, device="cpu")
 
     # a decode round: slot 0 live, slot 1 mid-prefill (frozen); the
     # reference's compiled program (already built by the runs above)

@@ -152,7 +152,7 @@ def test_invalidate_beyond_matches_reference(lens):
     _entries``, on pools filled by random lookups and admissions."""
     B, P, S, D = 2, 8, 40, 4
     jp = JLP.init_pool(B, P, S, D, jnp.float32)
-    tp = LP.init_pool(B, P, S, D, torch.float32)
+    tp = LP.init_pool(B, P, S, D, torch.float32, "cpu")
     jc = JLC.ESSCaches(jnp.zeros((B,), jnp.int32), None, (), (jp,))
     tc = LC.ESSCaches(torch.zeros(B, dtype=torch.long), None, [], [tp])
     jc = _fill_pools(np.random.default_rng(1), jc, tc, rounds=4)
@@ -263,7 +263,7 @@ def test_lru_warmup_pool_matches_reference(model, tier):
         else jnp.asarray(jc.host_scales))
     lp, _ = TE._layer_params(tp, tcfg, layer)
     tpool = WU.lru_warmup(
-        LP.init_pool(1, P, S, D, torch.float32), tc.host_latent,
+        LP.init_pool(1, P, S, D, torch.float32, "cpu"), tc.host_latent,
         array_to_torch(x_tail), lp["indexer"], tc.ikeys[layer][slot:slot + 1],
         torch.tensor([n]), tcfg, slot_mask=None, layer=layer,
         batch_offset=slot, block_table=tc.block_tables,
