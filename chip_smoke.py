@@ -140,15 +140,18 @@ the script exits non-zero without a result line):
    of the same requests at Q = 1 rounds (the last session);
 15. archs — after the sessions, with the serve's weights freed: the
    generic path on qwen3-0.6b, gemma2-27b, gemma3-27b, qwen1.5-110b,
-   dbrx-132b, qwen2-vl-7b and deepseek-v3-671b at their published widths,
-   depth cut as ``ARCHS`` lists, random bf16 weights from the serve's
-   seed: 4 x 8192-token prompts (qwen2-vl: seeded embeddings, M-RoPE),
+   dbrx-132b, qwen2-vl-7b, deepseek-v3-671b, mamba2-780m, zamba2-7b and
+   whisper-large-v3 at their published widths, depth cut as ``ARCHS``
+   lists (the last three whole), random bf16 weights from the serve's
+   seed: 4 x 8192-token prompts (qwen2-vl: seeded embeddings, M-RoPE;
+   whisper: 416-token prompts over 4 x 1500 seeded frame embeddings),
    ``generic_prefill``, 32 ``generic_decode`` rounds (1-4 eager under
    sync-debug "error", then a CUDA graph, its first replay bit-equal to an
    eager round from the same state), rounds 1 and 32 within the
-   reference's consistency bound of a prefill over the whole stream; V3's
-   partials all on the tensor-core route, at the launches per shape the
-   run gives; Quest on qwen3-0.6b's cache (:func:`archs_phase`,
+   reference's consistency bound of a prefill over the whole stream (the
+   SSM-backbone rows: their bf16 errors printed, held against a second
+   run in fp32, :func:`ssm_witness`); V3's partials all on the
+   tensor-core route, at the launches per shape the run gives; Quest on qwen3-0.6b's cache (:func:`archs_phase`,
    :func:`quest_check`).  The monolithic phase prints Eq. 1 (the
    intra-layer similarity of two consecutive rounds' top-2048 sets);
 14. mirrors — ``examples/serve_ess_torch.py``, ``stream_abort_torch.py``
@@ -2910,7 +2913,12 @@ ARCHS = (("qwen3-0.6b", 28, "whole, 28 layers"),
          ("dbrx-132b", 2, "40 -> 2 layers, MoE 16 experts top-4"),
          ("qwen2-vl-7b", 2, "28 -> 2 layers, embedding inputs"),
          ("deepseek-v3-671b", 4, "61 -> 4 layers (3 dense + 1 MoE), "
-                                 "mtp_depth 1 -> 0"))
+                                 "mtp_depth 1 -> 0"),
+         ("mamba2-780m", 48, "whole, 48 Mamba2 layers"),
+         ("zamba2-7b", 81, "whole, 81 Mamba2 layers: 13 groups of 6, each "
+                           "followed by one of 2 shared attention blocks in "
+                           "turn, 3 remainder layers"),
+         ("whisper-large-v3", 32, "whole, 32 encoder + 32 decoder layers"))
 ARCH_EAGER_ROUNDS = 4       # decode rounds 1-4 eager, then a CUDA graph
 ARCH_PROFILED = 2           # the last graph rounds, profiled
 QUEST_BLOCK, QUEST_TOPB = 32, 64     # 2048 positions, DSA's top-2048
@@ -2921,6 +2929,44 @@ def consistency(got, ref) -> tuple[float, float]:
     ``test_prefill_decode_consistent_with_train``."""
     return (float((got - ref).abs().max()),
             2e-2 + 2e-2 * float(ref.abs().max()))
+
+
+def to_fp32(tree):
+    """A parameter tree's leaves cast to fp32 (bf16 widens exactly: the
+    same function in exact arithmetic)."""
+    return {k: to_fp32(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def ssm_witness(name, new, dec_b, pre_b, dec_f, pre_f, secs, card):
+    """An SSM-backbone row (mamba2, zamba2) held against its own fp32
+    run: the bf16 weights widened to fp32, the rounds fed the bf16 run's
+    stream.  Each argument holds the logits at rounds 1 and ``new``
+    ``[B, 2, V]``: the bf16 decode and prefill over the stream, the fp32
+    ones.  Printed: the fp32 decode against the fp32 prefill, the bf16
+    prefill against the fp32 prefill (how far bf16 rounding alone moves
+    the stack's output: its floor) and the bf16 decode against the fp32
+    decode.  Required: the fp32 decode within the reference's bound of
+    the fp32 prefill, and the bf16 decode within its floor plus that
+    bound of the fp32 decode (a decode that rounds worse than the
+    prefill does fails)."""
+    fp = [consistency(dec_f[:, i], pre_f[:, i]) for i in (0, 1)]
+    floor = [consistency(pre_b[:, i], pre_f[:, i])[0] for i in (0, 1)]
+    dec = [consistency(dec_b[:, i], dec_f[:, i]) for i in (0, 1)]
+
+    def pair(e):
+        return (f"round 1 {e[0][0]:.4g} (bound {e[0][1]:.4g}), round "
+                f"{new} {e[1][0]:.4g} (bound {e[1][1]:.4g})")
+    print(f"  {name} witness (fp32: the bf16 weights widened, the rounds "
+          f"fed the bf16 stream): fp32 decode vs fp32 prefill {pair(fp)}; "
+          f"bf16 prefill vs fp32 prefill (the floor) round 1 "
+          f"{floor[0]:.4g}, round {new} {floor[1]:.4g}; bf16 decode vs "
+          f"fp32 decode {pair(dec)}; {secs:.1f} s  [{card}]", flush=True)
+    require(all(e <= b for e, b in fp),
+            f"{name}: fp32 decode vs prefill logits {pair(fp)}")
+    require(all(e <= f + b for (e, b), f in zip(dec, floor)),
+            f"{name}: bf16 decode vs fp32 decode {pair(dec)}, past the "
+            f"floor {floor[0]:.4g} / {floor[1]:.4g} plus the bound")
 
 
 def quest_check(torch, dev, cfg, caches, card):
@@ -2993,25 +3039,31 @@ def quest_check(torch, dev, cfg, caches, card):
 
 
 def archs_phase(torch, dev, args, card, counted, records):
-    """Phase 15, the generic path on the GQA family and DeepSeek-V3's
-    dense-MLA branch (``ARCHS``): per configuration, random bf16 weights
-    from the serve's seed at the published widths, depth cut as listed;
-    4 prompts of 8192 tokens from the serve's seed (qwen2-vl: seeded
-    embeddings, M-RoPE positions t = h = w = position), ``generic_prefill``,
-    then 32 ``generic_decode`` rounds to ``max_seq`` 8224 (greedy; qwen2-vl
+    """Phase 15, the generic path on the GQA family, DeepSeek-V3's
+    dense-MLA branch, and the SSM, hybrid and encoder-decoder stacks
+    (``ARCHS``): per configuration, random bf16 weights from the serve's
+    seed at the published widths, depth cut as listed; 4 prompts of 8192
+    tokens from the serve's seed (qwen2-vl: seeded embeddings, M-RoPE
+    positions t = h = w = position; whisper: 416-token decoder prompts and
+    4 x 1500 seeded frame embeddings, the stubbed front end's output),
+    ``generic_prefill``, then 32 ``generic_decode`` rounds to ``max_seq``
+    8224 (whisper: 448, its text context; greedy; qwen2-vl
     teacher-forced), rounds 1-4 eager under sync-debug "error" and the rest
     replays of a CUDA graph captured over one round; before the first
-    replay an eager round from a copy of the state must give the replay's
-    logits bit for bit.  Then one prefill over the whole stream (8224
-    positions): its logits at position 8192 (the prompt plus the first
+    replay an eager round from a copy of the state (every cache entry, the
+    SSM state included) must give the replay's logits bit for bit.  Then
+    one prefill over the whole stream (8224 positions; whisper: 448, the
+    same frames): its logits at position 8192 (the prompt plus the first
     fed token: causal, the same function as a prefill of 8193) and 8223
     must meet the reference's consistency bound against rounds 1 and 32.
-    The MoE configs (dbrx, V3) run with their capacity unbound
-    (``capacity_factor = E / top_k``): at the published 1.25 a 4-token
-    decode round and a 32K-token prefill drop different tokens, so the
-    two compute different functions (dbrx's round 1 missed the bound by
-    2.5x so), and the reference's own test holds only where nothing
-    drops, as in its smoke configs.  V3's sparse-MLA launches must all
+    The SSM-backbone rows (mamba2, zamba2) print their bf16 errors and
+    run again in fp32 on the same stream, held by :func:`ssm_witness`
+    (PERF.md §6 has why).  The MoE configs (dbrx, V3) run with
+    their capacity unbound (``capacity_factor = E / top_k``): at the
+    published 1.25 a 4-token decode round and a 32K-token prefill drop
+    different tokens, so the two compute different functions (dbrx's
+    round 1 missed the bound by 2.5x so), and the reference's own test
+    holds only where nothing drops, as in its smoke configs.  V3's sparse-MLA launches must all
     take the tensor-core route.  Quest runs on qwen3-0.6b's cache
     (:func:`quest_check`)."""
     import contextlib
@@ -3022,6 +3074,7 @@ def archs_phase(torch, dev, args, card, counted, records):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import cut_depth, get_config
+    from repro_torch.configs.whisper_large_v3 import TEXT_CTX
     from repro_torch.kernels import counters
     from repro_torch.kernels.sparse_mla import ops as sops
     from repro_torch.models import transformer as T
@@ -3029,11 +3082,14 @@ def archs_phase(torch, dev, args, card, counted, records):
     from repro_torch.models.params import count_params, init_params, model_def
     from repro_torch.serving import engine as E
 
-    B, S, new = args.requests, args.prompt_len, args.new_tokens
-    max_seq = S + new
+    B, new = args.requests, args.new_tokens
     for name, layers, cut in ARCHS:
         t_cfg = time.perf_counter()
         full = get_config(name)
+        # the encoder-decoder's decoder prompt: its text context less the
+        # rounds; the other rows take the serve's prompt length
+        S = TEXT_CTX - new if full.encdec is not None else args.prompt_len
+        max_seq = S + new
         cfg = cut_depth(full, layers) if full.attn_kind == "mla" else \
             dataclasses.replace(full, num_layers=layers)
         if cfg.moe is not None:
@@ -3061,14 +3117,20 @@ def archs_phase(torch, dev, args, card, counted, records):
             stream = torch.zeros((B, max_seq), dtype=torch.int64, device=dev)
             stream[:, :S] = torch.as_tensor(np.random.default_rng(
                 args.seed).integers(0, cfg.vocab_size, (B, S)), device=dev)
+        frames = None
+        if cfg.encdec is not None:
+            frames = torch.randn((B, cfg.encdec.encoder_seq, cfg.d_model),
+                                 generator=g, device=dev).to(cfg.param_dtype)
 
-        def run():
+        def run(params, cfg, forced):
+            """Prefill, then the rounds: greedy, or fed the stream
+            (``forced``: the rounds a first run recorded there)."""
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pf = E.generic_prefill(
                 params, cfg, stream[:, :S], pos[:, :S], device=dev,
                 mrope_positions=None if mrope is None else mrope[:, :S],
-                want_logits=False)
+                enc_inputs=frames, want_logits=False)
             first = T._unembed(params, cfg, pf.hidden[:, -1])    # [B,V]
             caches = T.pad_caches(pf.caches, max_seq)
             del pf
@@ -3076,7 +3138,7 @@ def archs_phase(torch, dev, args, card, counted, records):
             prefill_s = time.perf_counter() - t0
             at_prefill = counters.snapshot()
             x = stream[:, S:S + 1].clone()          # the round's input
-            if not cfg.embedding_inputs:
+            if not (cfg.embedding_inputs or forced):
                 x.copy_(first.argmax(-1)[:, None])
             logits, eager_ms, graph_ms_ = [], [], []
 
@@ -3086,9 +3148,9 @@ def archs_phase(torch, dev, args, card, counted, records):
                                         device=dev)
 
             def feed(r, lg):
-                """Round r's logits -> the next round's input (greedy, or
-                the stream's next embedding), recorded in the stream."""
-                if cfg.embedding_inputs:
+                """Round r's logits -> the next round's input (greedy,
+                recorded in the stream; or the stream's next entry)."""
+                if cfg.embedding_inputs or forced:
                     if r + 1 < new:
                         x.copy_(stream[:, S + r + 1:S + r + 2])
                 else:
@@ -3111,10 +3173,9 @@ def archs_phase(torch, dev, args, card, counted, records):
                 torch, lambda: box.update(out=step()))
             # the first replay against an eager round from a copy of the
             # state, the same input (a check: its launches are not counted)
-            key = "mla" if cfg.attn_kind == "mla" else "kv"
-            copy = {**caches, "lens": caches["lens"].clone(),
-                    key: type(caches[key])(*(a.clone()
-                                             for a in caches[key]))}
+            copy = {k: v.clone() if torch.is_tensor(v)
+                    else type(v)(*(a.clone() for a in v))
+                    for k, v in caches.items()}
             before = counters.snapshot()
             want = E.generic_decode(params, cfg, x, copy["lens"][:, None],
                                     copy, device=dev).logits.clone()
@@ -3150,31 +3211,41 @@ def archs_phase(torch, dev, args, card, counted, records):
                         eager_ms=eager_ms, graph_ms=graph_ms_,
                         bitwise=bitwise, prof_ms=prof_ms, kernels=kern)
 
-        out, n = counted(run)
-        caches = out.pop("caches")
-        cache_bytes = sum(a.numel() * a.element_size()
-                          for k, v in caches.items() if k != "lens"
-                          for a in v)
-        require(int(caches["lens"].min()) == max_seq,
-                f"{name}: lens {caches['lens'].tolist()}")
-        if name.startswith("qwen3-0.6b"):
-            quest_check(torch, dev, cfg, caches, card)
-        del caches
-        torch.cuda.empty_cache()
-        # one prefill over the whole stream: positions S (round 1's) and
-        # max_seq - 1 (round 32's)
-        ck = E.generic_prefill(
-            params, cfg, stream, pos, device=dev,
-            mrope_positions=mrope, want_logits=False)
-        ref = T._unembed(params, cfg, ck.hidden[:, [S, max_seq - 1]])
-        del ck
-        lg = out["logits"]
+        def drive(params, cfg, forced=False):
+            """:func:`run` counted, its cache checked and freed, then one
+            prefill over the whole stream: its logits at rounds 1 and
+            ``new`` (``out["ref"]``)."""
+            out, n = counted(lambda: run(params, cfg, forced))
+            caches = out.pop("caches")
+            out["cache_bytes"] = sum(a.numel() * a.element_size()
+                                     for k, v in caches.items()
+                                     if k != "lens" for a in v)
+            require(int(caches["lens"].min()) == max_seq,
+                    f"{name}: lens {caches['lens'].tolist()}")
+            if name.startswith("qwen3-0.6b"):
+                quest_check(torch, dev, cfg, caches, card)
+            del caches
+            torch.cuda.empty_cache()
+            # positions S (round 1's) and max_seq - 1 (round 32's)
+            ck = E.generic_prefill(
+                params, cfg, stream, pos, device=dev,
+                mrope_positions=mrope, enc_inputs=frames, want_logits=False)
+            out["ref"] = T._unembed(params, cfg,
+                                    ck.hidden[:, [S, max_seq - 1]])
+            require(bool(torch.isfinite(out["logits"]).all()),
+                    f"{name}: non-finite logits")
+            require(out["bitwise"], f"{name}: a graph round's logits "
+                    f"differ from an eager round's from the same state")
+            return out, n
+
+        out, n = drive(params, cfg)
+        ref, lg = out.pop("ref"), out["logits"]
+        cache_bytes = out["cache_bytes"]
         e1, b1 = consistency(lg[:, 0], ref[:, 0])
         e2, b2 = consistency(lg[:, -1], ref[:, 1])
-        require(bool(torch.isfinite(lg).all()), f"{name}: non-finite logits")
-        require(out["bitwise"], f"{name}: a graph round's logits differ "
-                f"from an eager round's from the same state")
-        require(e1 <= b1 and e2 <= b2,
+        # an SSM-backbone row's bf16 errors are printed, and the row is
+        # held by ssm_witness below
+        require(cfg.ssm is not None or (e1 <= b1 and e2 <= b2),
                 f"{name}: decode vs prefill logits {e1:.4g} (round 1, bound "
                 f"{b1:.4g}), {e2:.4g} (round {new}, bound {b2:.4g})")
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3194,7 +3265,8 @@ def archs_phase(torch, dev, args, card, counted, records):
               f"{new - ARCH_PROFILED}), "
               f"{row['eager_ms']:.2f} eager (rounds 2-{ARCH_EAGER_ROUNDS}; "
               f"round 1 {row['eager_first']:.2f}); cache on the card "
-              f"{row['cache_mb']:.2f} MB; decode vs prefill logits: round 1 "
+              f"{row['cache_mb']:.2f} MB; decode vs prefill logits"
+              f"{' (bf16, printed)' if cfg.ssm else ''}: round 1 "
               f"{e1:.4g} (bound {b1:.4g}), round {new} {e2:.4g} (bound "
               f"{b2:.4g}); graph round == eager round bit for bit; peak "
               f"{peak:.1f} GiB; {row['s']:.1f} s  [{card}]", flush=True)
@@ -3224,7 +3296,20 @@ def archs_phase(torch, dev, args, card, counted, records):
                 eg[(1, max_seq)]
             records["sparse_mla_partial[v3-prefill]"]["launches"] = \
                 by[(C, S)]
-        del params, out, stream, ref, lg
+        if cfg.ssm is not None:
+            t32 = time.perf_counter()
+            lg, ref = lg[:, [0, -1]].float(), ref.float()
+            p32 = to_fp32(params)
+            del params, out
+            torch.cuda.empty_cache()
+            o32, _ = drive(p32, dataclasses.replace(
+                cfg, param_dtype=torch.float32), forced=True)
+            ssm_witness(name, new, lg, ref, o32["logits"][:, [0, -1]],
+                        o32["ref"], time.perf_counter() - t32, card)
+            del p32, o32
+        else:
+            del params, out
+        del ref, lg, stream, frames
         torch.cuda.empty_cache()
 
 

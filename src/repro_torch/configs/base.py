@@ -48,6 +48,37 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD."""
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    ngroups: int = 1
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def nheads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: SSM backbone + shared attention block every N layers."""
+    attn_every: int = 6
+    num_shared_attn: int = 2        # alternating shared transformer blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    encoder_layers: int = 32
+    encoder_seq: int = 1500         # whisper frame count after conv stub
+    cross_kv_heads: int = 20
+
+
+@dataclasses.dataclass(frozen=True)
 class ESSOptions:
     """Paper technique switches (see repro_torch.core)."""
     sparse_memory_ratio: float = 0.3   # pool entries / context entries
@@ -64,10 +95,10 @@ class ESSOptions:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig`` fields that the port reads, with the
-    reference's defaults (its SSM / hybrid / encoder-decoder, sharding and
-    scan fields are not ported)."""
+    reference's defaults (its sharding and scan fields are not ported: the
+    port runs every stack unrolled on one card)."""
     name: str
-    family: str                        # dense | moe | vlm
+    family: str                        # dense | moe | ssm | hybrid | encdec | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -75,7 +106,7 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
-    attn_kind: str = "gqa"             # gqa | mla
+    attn_kind: str = "gqa"             # gqa | mla | none
     # attention details
     rope_theta: float = 10000.0
     rope_interleaved: bool = False
@@ -96,6 +127,9 @@ class ArchConfig:
     mla: Optional[MLAConfig] = None
     dsa: Optional[DSAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
     mrope_sections: Optional[tuple[int, ...]] = None   # qwen2-vl
     ess: ESSOptions = ESSOptions()
     param_dtype: Any = torch.bfloat16

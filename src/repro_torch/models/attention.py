@@ -10,7 +10,10 @@ Three paths, by mode, each the reference's math in torch ops:
   padded key positions ``2**30`` (never attended);
 * :func:`decode_attend` — decode: Q new queries against a ``[B,S,KV,hd]``
   cache (:func:`repro_torch.models.blocks.gqa_block` writes the cache
-  first).
+  first);
+
+and the encoder-decoder's :func:`cross_attention` over the encoder's
+k / v (:func:`cross_kv`, once a request).
 
 Where the reference multiplies bf16 operands with fp32 accumulation
 (``preferred_element_type=f32``) the port takes fp32 products of the
@@ -42,7 +45,10 @@ SCORE_BLOCK_ELEMS = 1 << 28
 
 def attn_def(cfg: ArchConfig) -> dict:
     """The attention's parameter definitions (wq / wk / wv / wo, the qkv
-    biases and the qk norms where the config has them)."""
+    biases and the qk norms where the config has them).  A decoder's
+    cross-attention has the same tree (the reference's ``cross=True``
+    changes nothing): :func:`cross_kv` reads wk / wv (bk / bv) over the
+    encoder's output, :func:`cross_attention` wq (bq) and wo."""
     dt = cfg.param_dtype
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {"wq": ParamDef((d, H, hd), dt), "wk": ParamDef((d, KV, hd), dt),
@@ -264,3 +270,27 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
     else:
         raise ValueError(f"mode={mode!r}: train | prefill | decode")
     return AttnOutput(torch.einsum("bqhk,hkd->bqd", o, p["wo"]), k, v)
+
+
+def cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """The decoder's cross-attention over the encoder's k / v [B,Se,KV,hd]
+    (whisper): unmasked, scores and softmax in fp32 (products of the
+    stored operands), the fp32 output rounded to x's dtype before ``wo``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    s = scores(q, enc_k) * _scale(cfg)
+    w = torch.softmax(s, dim=-1)
+    o = weighted(w, enc_v).transpose(1, 2).to(x.dtype)
+    return torch.einsum("bqhk,hkd->bqd", o, p["wo"])
+
+
+def cross_kv(p: dict, cfg: ArchConfig, enc_out: torch.Tensor):
+    """The encoder's k / v [B,Se,KV,hd] for one decoder layer (computed
+    once a request, at prefill)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v

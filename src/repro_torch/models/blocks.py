@@ -1,10 +1,11 @@
-"""The transformer blocks of the monolithic model (counterpart of
-``repro.models.blocks``): the GQA block (attention, then the dense MLP or
-the MoE; gemma's post-block norms) and the MLA block (MLA attention, with
-or without the DSA indexer, then the FFN), pre-norms and residuals.
+"""The blocks of the model stacks (counterpart of ``repro.models.blocks``):
+the GQA block (attention, a decoder's cross-attention over the encoder's
+k / v, then the dense MLP or the MoE; gemma's post-block norms), the MLA
+block (MLA attention, with or without the DSA indexer, then the FFN) and
+the SSM block (a Mamba2 mixer), pre-norms and residuals.
 
 The cache of one layer is a :class:`GQACache` or an :class:`MLACache` of
-``[B,S,...]`` planes.  A decode step appends its tokens' rows **in place**
+``[B,S,...]`` planes, or an :class:`~repro_torch.models.ssm.SSMState`.  A decode step appends its tokens' rows **in place**
 (a view of the model's stacked ``[L,B,S,...]`` cache is written through),
 with no host sync, so the step can be replayed as a CUDA graph; a
 prefill returns new planes.
@@ -23,6 +24,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
 from repro_torch.models import moe as MoE
+from repro_torch.models import ssm as SSM
+from repro_torch.models.params import _norm
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +64,7 @@ def gqa_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
               cache_positions: torch.Tensor | None = None,
               rope_theta: float | None = None,
               mrope_positions: torch.Tensor | None = None,
+              enc_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
               window_override: int | None = None, moe: bool = False,
               train: bool = False):
     """Returns ``(y, new_cache, moe_aux | None)``.
@@ -68,7 +72,9 @@ def gqa_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     ``"decode"`` writes the new tokens into ``cache`` first (in place), so
     they attend to themselves and, causally, to each other, then attends
     over the cache (:func:`~repro_torch.models.attention.decode_attend`);
-    ``"prefill"`` returns a new cache of the prompt's k / v."""
+    ``"prefill"`` returns a new cache of the prompt's k / v.  With
+    ``enc_kv`` (a decoder layer's encoder k / v) the cross-attention runs
+    after the self-attention, on its own pre-norm (``ln_cross``)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         q, k, v = A.project_qkv(p["attn"], cfg, h, positions,
@@ -96,6 +102,9 @@ def gqa_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.post_block_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, cfg.norm_eps)
     x = x + attn_out
+    if enc_kv is not None:
+        hc = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        x = x + A.cross_attention(p["cross"], cfg, hc, *enc_kv)
     f, aux = ffn(p, cfg, x, moe, train)
     if cfg.post_block_norm:
         f = L.rmsnorm(p["ln2_post"], f, cfg.norm_eps)
@@ -190,6 +199,26 @@ def mla_dense_decode(p: dict, cfg: ArchConfig, h: torch.Tensor,
     else:
         part = M.partial_sparse_attend(q, cache.latent, valid, cfg)
     return M.output_proj(p["mla"], cfg, M.finalize_partial(part, h.dtype))
+
+
+# ---------------------------------------------------------------------------
+# SSM (Mamba2) block
+# ---------------------------------------------------------------------------
+
+def ssm_block_def(cfg: ArchConfig) -> dict:
+    """One SSM layer's definitions: its pre-norm and a Mamba2 mixer."""
+    return {"ln": _norm(cfg.d_model, cfg.param_dtype),
+            "ssm": SSM.ssm_def(cfg)}
+
+
+def ssm_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
+              state: SSM.SSMState | None = None):
+    """``x + mixer(rmsnorm(x))``: returns ``(y, state)``
+    (:func:`~repro_torch.models.ssm.ssm_forward`; a decode updates
+    ``state`` in place)."""
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, st = SSM.ssm_forward(p["ssm"], cfg, h, state, mode=mode)
+    return x + y, st
 
 
 def ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, moe: bool,

@@ -1,5 +1,5 @@
-"""Common layers (counterpart of ``repro.models.layers``): rmsnorm, soft
-capping, rotary embeddings (half-split and interleaved, M-RoPE), the gated
+"""Common layers (counterpart of ``repro.models.layers``): rmsnorm,
+layernorm, soft capping, rotary embeddings (half-split and interleaved, M-RoPE), the gated
 and plain MLPs and their activations, embed / unembed.
 
 Where the reference multiplies an array by a Python constant, JAX first
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.params import ParamDef
+
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
             zero_centered: bool = True) -> torch.Tensor:
@@ -19,6 +21,24 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
     xf = xf * torch.rsqrt(var + eps)
     scale = (1.0 + w.float()) if zero_centered else w.float()
     return (xf * scale).to(dt)
+
+
+def layernorm_def(dim: int, dtype=torch.float32) -> dict:
+    """Scale ``w`` (ones) and bias ``b`` (zeros) of :func:`layernorm`."""
+    return {"w": ParamDef((dim,), dtype, "ones"),
+            "b": ParamDef((dim,), dtype, "zeros")}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) / sqrt(var + eps) * w + b`` over the last axis, in
+    fp32 (the variance of the centred values, as ``jnp.var``), returned in
+    x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["w"].float() + p["b"].float()).to(dt)
 
 
 def const(v: float, dtype: torch.dtype) -> float:

@@ -1,13 +1,16 @@
-"""Parameter trees of the decoder stacks (counterpart of
+"""Parameter trees of the model stacks (counterpart of
 ``repro.models.params`` + the tree layout of ``repro.models.transformer
 .model_def`` and the block definitions of ``repro.models.blocks``: the MLA
 block with or without the DSA indexer, the GQA block of
-:func:`repro_torch.models.attention.attn_def`).
+:func:`repro_torch.models.attention.attn_def` (with a decoder's
+cross-attention), the SSM block of :func:`repro_torch.models.ssm.ssm_def`).
 
 A parameter tree is a nested ``dict`` of tensors with the reference's key
 names and shapes: ``embed`` (absent under ``embedding_inputs``),
-``unembed`` (untied configs), ``final_norm``, ``dense_layers`` and
-``layers`` (each leaf stacked on a leading layer axis) and ``mtp``.
+``unembed`` (untied configs), ``final_norm``, and per stack kind
+(:func:`model_def`) ``dense_layers`` / ``layers`` / ``mtp``, or
+``layers`` / ``shared_attn``, or ``encoder`` / ``decoder`` / ``enc_norm``
+(each leaf stacked on a leading axis).
 
 * :func:`from_jax_params` carries the reference's own parameters across
   (handed over as nested dicts of numpy arrays), bit for bit.
@@ -33,7 +36,8 @@ from repro_torch.configs.base import ArchConfig
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """One leaf: shape, dtype and init family (normal | zeros | embed)."""
+    """One leaf: shape, dtype and init family (normal | zeros | ones |
+    embed)."""
     shape: tuple[int, ...]
     dtype: Any
     init: str = "normal"
@@ -91,10 +95,11 @@ def _moe_def(cfg: ArchConfig) -> dict:
     return p
 
 
-def _block_def(cfg: ArchConfig, *, moe: bool, dense_ff: int | None = None
-               ) -> dict:
+def _block_def(cfg: ArchConfig, *, moe: bool, dense_ff: int | None = None,
+               cross: bool = False) -> dict:
     """One layer's definitions: the MLA block (``attn_kind == "mla"``,
-    the indexer with DSA) or the GQA block (gemma's post-norms)."""
+    the indexer with DSA) or the GQA block (gemma's post-norms; a
+    decoder's cross-attention and its norm with ``cross``)."""
     dt, d = cfg.param_dtype, cfg.d_model
     if cfg.attn_kind == "mla":
         p = {"ln1": _norm(d, dt), "mla": _mla_def(cfg), "ln2": _norm(d, dt)}
@@ -106,6 +111,9 @@ def _block_def(cfg: ArchConfig, *, moe: bool, dense_ff: int | None = None
         if cfg.post_block_norm:
             p["ln1_post"] = _norm(d, dt)
             p["ln2_post"] = _norm(d, dt)
+        if cross:
+            p["ln_cross"] = _norm(d, dt)
+            p["cross"] = attn_def(cfg)
     p["ffn"] = _moe_def(cfg) if moe else _mlp_def(d, dense_ff or cfg.d_ff, dt)
     return p
 
@@ -117,13 +125,35 @@ def _stack(defs: dict, n: int) -> dict:
 
 
 def model_def(cfg: ArchConfig) -> dict:
-    """Definition tree of the whole decoder (the reference's layout)."""
+    """Definition tree of the whole model (the reference's layout): the
+    ``lm`` stack's ``dense_layers`` / ``layers`` / ``mtp``; the SSM stack's
+    ``layers``; the hybrid's ``layers`` and its ``shared_attn`` blocks
+    (stacked on an axis of ``num_shared_attn``); the encoder-decoder's
+    ``encoder``, ``decoder`` (with cross-attention) and ``enc_norm``."""
+    from repro_torch.models.blocks import ssm_block_def
+    from repro_torch.models.transformer import stack_plan
     dt = cfg.param_dtype
+    kind = stack_plan(cfg).kind
     defs: dict[str, Any] = {"final_norm": _norm(cfg.d_model, dt)}
-    if not cfg.embedding_inputs:
+    if not cfg.embedding_inputs or kind == "encdec":
         defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
+    if kind == "ssm":
+        defs["layers"] = _stack(ssm_block_def(cfg), cfg.num_layers)
+        return defs
+    if kind == "hybrid":
+        defs["layers"] = _stack(ssm_block_def(cfg), cfg.num_layers)
+        defs["shared_attn"] = _stack(_block_def(cfg, moe=False),
+                                     cfg.hybrid.num_shared_attn)
+        return defs
+    if kind == "encdec":
+        defs["encoder"] = _stack(_block_def(cfg, moe=False),
+                                 cfg.encdec.encoder_layers)
+        defs["decoder"] = _stack(_block_def(cfg, moe=False, cross=True),
+                                 cfg.num_layers)
+        defs["enc_norm"] = _norm(cfg.d_model, dt)
+        return defs
     nd = cfg.moe.first_dense_layers if cfg.moe else 0
     if nd:
         defs["dense_layers"] = _stack(
@@ -159,6 +189,8 @@ _CHUNK_ELEMS = 1 << 28
 def _materialize(d: ParamDef, g: torch.Generator, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
     if d.init == "embed":
         std = d.scale if d.scale is not None else 0.02
     else:

@@ -73,19 +73,22 @@ def _on(t: torch.Tensor | None, dev: torch.device):
 
 def generic_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, *, device=None,
-                    mrope_positions: torch.Tensor | None = None, **kw
+                    mrope_positions: torch.Tensor | None = None,
+                    enc_inputs: torch.Tensor | None = None, **kw
                     ) -> T.ForwardOut:
     """The monolithic prefill (``forward(mode="prefill")``) of any ported
     architecture on ``device`` (the card unless ``device="cpu"``): MLA on
     CUDA takes the kernel route (by ids with DSA, else the causal partial
     over the prompt's rows).  ``tokens`` are token ids, or embeddings
     ``[B,S,d]`` under ``embedding_inputs``; ``mrope_positions [B,S,3]``
-    for M-RoPE.  ``kw`` goes to ``forward`` (``want_logits``,
+    for M-RoPE; ``enc_inputs [B,Se,d]``, the encoder-decoder's frame
+    embeddings.  ``kw`` goes to ``forward`` (``want_logits``,
     ``use_kernel``)."""
     dev = resolve_device(device)
     return T.forward(params, cfg, tokens.to(dev), positions.to(dev),
-                     mode="prefill", mrope_positions=_on(mrope_positions,
-                                                         dev), **kw)
+                     mode="prefill",
+                     mrope_positions=_on(mrope_positions, dev),
+                     enc_inputs=_on(enc_inputs, dev), **kw)
 
 
 def generic_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -99,7 +102,8 @@ def generic_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     host sync and no rebinding, so a CUDA graph captured over one call
     replays the next steps (V3.2: the indexer top-k, the row gather and
     the sparse-MLA partial; V3: the partial over the whole latent cache;
-    GQA: the grouped attention over the KV cache)."""
+    GQA: the grouped attention over the KV cache; SSM: the recurrence on
+    the state; encdec: the cross-attention over ``caches["enc_kv"]``)."""
     dev = resolve_device(device)
     out = T.forward(params, cfg, tokens.to(dev), positions.to(dev),
                     mode="decode", caches=caches,

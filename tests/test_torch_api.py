@@ -17,7 +17,6 @@ same ``prompt_fn`` given to both packages (the port's session eager):
   scheduler's priority admission and abort against the reference's.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -35,6 +34,8 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models.params import from_jax_params
 from repro_torch.serving import api as TA
 from repro_torch.serving import scheduler as TS
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 MAX_SEQ = 32

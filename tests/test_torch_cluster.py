@@ -19,7 +19,6 @@ reference's parameters carried across with ``from_jax_params`` and one
   the LRU warmup's tails shipped to and replayed on the decode side.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -46,6 +45,8 @@ from repro_torch.models.params import from_jax_params
 from repro_torch.serving import api as TA
 from repro_torch.serving import scheduler as TS
 from repro_torch.simulator import costmodel as TCM
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 MAX_SEQ = 32

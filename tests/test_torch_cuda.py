@@ -2002,3 +2002,144 @@ def test_cuda_quest_and_paged_cache_vs_cpu(cuda):
         pk[str(dev)] = [x.cpu() for x in (*kv, kk, vv, valid)]
     for a, b in zip(pk[str(cuda)], pk["cpu"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid and encoder-decoder stacks (plain torch on the card: the
+# reference has no Pallas kernel there)
+# ---------------------------------------------------------------------------
+
+STACK_SMOKES = ["mamba2-780m-smoke", "zamba2-7b-smoke",
+                "whisper-large-v3-smoke"]
+
+
+def _clone_caches(caches):
+    return {k: v.clone() if torch.is_tensor(v)
+            else type(v)(*(a.clone() for a in v)) for k, v in caches.items()}
+
+
+def _stack_inputs(cfg, n, dev, seed=3):
+    """Token ids [2, n] and, for the encoder-decoder, frame embeddings
+    [2, Se, d] (the stubbed front end's output), from a CPU generator."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=g)
+    enc = None
+    if cfg.encdec is not None:
+        enc = torch.randn((2, cfg.encdec.encoder_seq, cfg.d_model),
+                          generator=g).to(cfg.param_dtype).to(dev)
+    return toks.to(dev), enc
+
+
+def test_cuda_ssd_chunked_vs_cpu(cuda):
+    """The SSD scan at mamba2-780m's mixer widths (48 heads of 64, state
+    128, chunks of 256) over 1000 tokens padded to 1024, from an h0: the
+    card against the CPU within 1e-4 of the outputs' scale."""
+    from repro_torch.models import ssm as SSM
+    g = torch.Generator().manual_seed(4)
+    b, s, h, p, n = 2, 1024, 48, 64, 128
+    x = torch.randn((b, s, h, p), generator=g)
+    a = -torch.randn((b, s, h), generator=g).abs() * 0.1
+    a[:, 1000:] = 0                       # the zero-padded tail
+    Bm = torch.randn((b, s, 1, n), generator=g)
+    Cm = torch.randn((b, s, 1, n), generator=g)
+    h0 = torch.randn((b, h, p, n), generator=g)
+    want = SSM.ssd_chunked(x, a, Bm, Cm, 256, h0)
+    got = SSM.ssd_chunked(*(t.to(cuda) for t in (x, a, Bm, Cm)), 256,
+                          h0.to(cuda))
+    for t, w in zip(got, want):
+        assert float((t.cpu() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("name", STACK_SMOKES)
+def test_cuda_stack_forward_vs_cpu(cuda, name):
+    """A stack (fp32) on the card against the CPU, same weights: train
+    logits, prefill logits and every cache entry, then 3 teacher-forced
+    decode steps and the caches after them, at 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = dataclasses.replace(get_config(name), param_dtype=torch.float32)
+    cpu = init_params(cfg, 1, device="cpu")
+    card = _to(cpu, cuda)
+    n = 40
+    toks, enc = _stack_inputs(cfg, n + 3, "cpu")
+    pos = torch.arange(n + 3)[None].expand(2, n + 3)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    runs = {}
+    for which, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        e = None if enc is None else enc.to(dev)
+        out = [T.forward(params, cfg, toks.to(dev), pos.to(dev),
+                         mode="train", enc_inputs=e).logits.cpu()]
+        pf = E.generic_prefill(params, cfg, toks[:, :n], pos[:, :n],
+                               device=dev, enc_inputs=e)
+        out.append(pf.logits.cpu())
+        caches = T.pad_caches(pf.caches, n + 8)
+        pre = _clone_caches(caches)
+        for r in range(3):
+            o = E.generic_decode(params, cfg, toks[:, n + r:n + r + 1],
+                                 caches["lens"][:, None], caches, device=dev)
+            out.append(o.logits.cpu())
+        runs[which] = (out, pre, caches)
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, **tol)
+    for i in (1, 2):
+        for k, v in runs["cpu"][i].items():
+            for a, b in zip(runs["card"][i][k], v):
+                torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+@pytest.mark.parametrize("name", STACK_SMOKES)
+def test_cuda_stack_generic_decode_graph_replay_sync_free(cuda, name):
+    """bf16: a prefill, two ``generic_decode`` steps under sync-debug
+    "error", then a CUDA graph captured over a third step replays the
+    next ones with the logits of eager steps from a copy of the caches,
+    bit for bit; the state / caches end equal too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_config(name)
+    params = init_params(cfg, 0, device=cuda)
+    toks, enc = _stack_inputs(cfg, 40, cuda)
+    pos = torch.arange(40, device=cuda)[None].expand(2, 40)
+    pf = E.generic_prefill(params, cfg, toks, pos, device=cuda,
+                           enc_inputs=enc)
+    caches = T.pad_caches(pf.caches, 64)
+    dtypes = {k: [a.dtype for a in v] for k, v in caches.items()
+              if k != "lens"}
+    tok = pf.logits[:, -1].argmax(-1)[:, None]
+    with _SyncFree():
+        for _ in range(2):
+            o = E.generic_decode(params, cfg, tok, caches["lens"][:, None],
+                                 caches, device=cuda)
+            tok = o.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == [42, 42]
+    eager = _clone_caches(caches)
+    static_tok = tok.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="relaxed")
+        out = E.generic_decode(params, cfg, static_tok,
+                               caches["lens"][:, None], caches, device=cuda)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    et = tok.clone()
+    for _ in range(3):
+        graph.replay()
+        e = E.generic_decode(params, cfg, et, eager["lens"][:, None], eager,
+                             device=cuda)
+        torch.testing.assert_close(out.logits, e.logits, rtol=0, atol=0)
+        static_tok.copy_(out.logits[:, -1].argmax(-1)[:, None])
+        et = e.logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert caches["lens"].tolist() == eager["lens"].tolist() == [45, 45]
+    for k, v in eager.items():
+        if k != "lens":
+            assert [a.dtype for a in caches[k]] == dtypes[k], k
+            assert all(torch.equal(a, b) for a, b in zip(caches[k], v)), k

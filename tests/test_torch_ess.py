@@ -7,7 +7,6 @@ Pool maps, miss buffers, block tables and ``lens`` must be **equal**;
 float outputs are fp32 at rtol/atol 1e-5.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -29,6 +28,8 @@ from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload as OF
 from repro_torch.core import overlap as OV
 from repro_torch.models.params import from_jax_params
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -8,7 +8,6 @@ Inputs come from seeded numpy; ids hold duplicates, ``-1`` and ids past
 the end (``>= S``, read as the last row).
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +20,8 @@ from repro_torch.distributed.compression import dequantize_rows
 from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.kernels.gather_cache import ref as gref
 from repro_torch.models.params import array_to_torch
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 QDT = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
 OUT = {"bf16": (jnp.bfloat16, torch.bfloat16),

@@ -9,7 +9,6 @@ and differ only in the order of the sums, so they agree to rtol 1e-5; atol
 1e-4 covers cancellation in the 64-head sum of terms of magnitude ~10.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +17,8 @@ import torch
 
 from repro.kernels.indexer.indexer import indexer_scores_kernel
 from repro_torch.kernels.indexer import ops as iops
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 NEG = -2.0e38
 

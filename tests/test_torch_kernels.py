@@ -7,7 +7,6 @@ reference's own (tests/test_kernels.py): fp32 1e-5, bf16 2e-2; gathers are
 bit-exact.  The ``test_cuda_*`` tests need a card and skip without one.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +19,8 @@ from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.kernels.indexer import ops as iops
 from repro_torch.kernels.sparse_mla import ops as sops
 from repro_torch.models.params import array_to_torch
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 DTYPES = ["f32", "bf16"]
 NP_DT = {"f32": np.float32, "bf16": jnp.bfloat16}

@@ -6,7 +6,6 @@ in fp32 (the reference config with ``param_dtype=float32``) and is held at
 rtol/atol 1e-5 unless a test says otherwise; index outputs are equal.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -26,6 +25,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import params as P
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -27,7 +27,6 @@ Reference tests this file counts as covered:
 * ``test_kernels::test_indexer_topk_selects_valid_only``
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import functools
 import importlib.util
@@ -52,6 +51,8 @@ from repro_torch.models import moe as MoE
 from repro_torch.models import transformer as T
 from repro_torch.models.params import from_jax_params
 from repro_torch.serving import engine as E
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 ARCH = "deepseek-v32-exp-ess-smoke"
 TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=2e-2, atol=2e-2)}

@@ -17,7 +17,6 @@ reference's own parameters carried across with ``from_jax_params``).
 The speculative serve session is in ``tests/test_torch_mtp_session.py``.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -39,6 +38,8 @@ from repro_torch.core import lru_pool as LP
 from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving import mtp as TMTP
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 DEPTH = 2

@@ -18,7 +18,6 @@ The draft, the speculative step and the Q > 1 verify step alone are in
 ``tests/test_torch_mtp.py``.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -36,6 +35,8 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models.params import from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving.scheduler import Request as TReq
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 DEPTH = 2

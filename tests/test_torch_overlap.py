@@ -20,7 +20,6 @@ card tests the streams).
 * the fork helper and the gathers' ``out=`` on CPU tensors.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import itertools
 
@@ -47,6 +46,8 @@ from repro_torch.core import policy as POL
 from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.models.params import from_jax_params
 from repro_torch.serving import engine as TE
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

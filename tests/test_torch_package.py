@@ -65,6 +65,7 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.simulator.experiments, repro_torch.analysis.lint, "
             "repro_torch.analysis.audit, repro_torch.analysis.__main__, "
             "repro_torch.models.transformer, repro_torch.models.attention, "
+            "repro_torch.models.ssm, "
             "repro_torch.core.quest, repro_torch.core.similarity, "
             "repro_torch.cache.kv_cache, repro_torch.configs\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
@@ -85,12 +86,15 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.configs import get_config
     from repro_torch.core.lru_pool import init_pool
     from repro_torch.models.params import init_params
+    from repro_torch.models.ssm import init_state
     from repro_torch.models.transformer import cache_spec
     from repro_torch.serving.engine import (generate_batch, generic_decode,
                                             generic_prefill)
     from repro_torch.serving.step import StepPrograms
     cfg = get_config("deepseek-v32-exp-ess-smoke")
     gqa = get_config("gemma2-27b-smoke")
+    ssm, audio = get_config("zamba2-7b-smoke"), get_config(
+        "whisper-large-v3-smoke")
     toks = torch.zeros((1, 4), dtype=torch.long)
     for call in (lambda: resolve_device(None),
                  lambda: init_params(cfg, 0),
@@ -104,7 +108,12 @@ def test_entry_points_raise_without_cuda():
                  lambda: cache_spec(gqa, 1, 8),
                  lambda: generic_prefill({}, gqa, toks, toks),
                  lambda: init_params(gqa, 0),
-                 lambda: init_paged(4, 2, 1, 8, 1, 2)):
+                 lambda: init_paged(4, 2, 1, 8, 1, 2),
+                 lambda: cache_spec(ssm, 1, 8),
+                 lambda: init_state(ssm, 1),
+                 lambda: init_params(ssm, 0),
+                 lambda: generic_prefill({}, audio, toks, toks,
+                                         enc_inputs=torch.zeros((1, 2, 4)))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"

@@ -31,7 +31,6 @@ port's sessions run eagerly (the CPU has no graphs).
   alike in both modes (``test_overlap_pipeline.py:202-329``).
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -53,6 +52,8 @@ from repro_torch.core import transfer as TTR
 from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving.scheduler import Request as TReq
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -20,7 +20,6 @@ against the JAX package, on the CPU, at smoke size.
   keeps them in fp32 (a 1e-3 difference in the logits).
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import functools
 
@@ -45,6 +44,8 @@ from repro_torch.distributed import compression as TC
 from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 QNAMES = ["int8", "fp8"]

@@ -18,7 +18,6 @@ Reference tests this file counts as covered:
 * ``test_serving::test_paged_kv_append_and_gather``
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +32,8 @@ from repro_torch.cache import kv_cache as KV
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import quest as Q
 from repro_torch.core import similarity as SIM
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 
 def _mk(B=2, S=64, KV_=2, H=4, D=16, seed=0):

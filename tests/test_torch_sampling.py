@@ -20,7 +20,6 @@ zero (``u`` near 1/e) the outer log's argument sits near 1, whose own
 rounding is an ulp of 1, so the noise's ulp is taken at ``max(|g|, 1)``.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +29,8 @@ import torch
 from repro.serving import sampling as JS
 from repro_torch.serving import prng
 from repro_torch.serving import sampling as TS
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 SEEDS = [0, 1, 123, 2**31 - 1]
 INDICES = [0, 1, 2**20]

@@ -14,7 +14,6 @@ is not chunk-size invariant on every JAX version).
   interpret mode), whose attention math the port's kernels follow.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -32,6 +31,8 @@ from repro_torch.configs import get_config as tget
 from repro_torch.launch import serve as SV
 from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 B, S, MAX_SEQ, CHUNK, STEPS = 2, 20, 32, 8, 3
 CFG = "deepseek-v32-exp-ess-smoke"

@@ -18,7 +18,6 @@ chunks of 8, the same ``prompt_fn`` given to both packages).
   ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import pathlib
 
@@ -42,6 +41,8 @@ from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving import state as TES
 from repro_torch.serving.scheduler import Request as TReq
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 NUM_SLOTS, MAX_SEQ, CHUNK = 2, 32, 8

@@ -8,7 +8,6 @@ Maps, block tables, ``lens`` and pool state are held **equal**; float
 outputs in fp32 at rtol/atol 1e-5.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -34,6 +33,8 @@ from repro_torch.models.params import array_to_torch, from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving import scheduler as TS
 from repro_torch.serving import step as TSP
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = "deepseek-v32-exp-ess-smoke"

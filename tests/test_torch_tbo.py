@@ -19,7 +19,6 @@ these hold the numbers and the state, the card tests the streams).
   ``test_mtp_serve.py::test_serve_mtp_tbo_stream_parity``).
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 
 import jax
@@ -40,6 +39,8 @@ from repro_torch.models.params import from_jax_params
 from repro_torch.serving import engine as TE
 from repro_torch.serving import tbo as TTBO
 from repro_torch.serving.scheduler import Request as TReq
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 CFG = "deepseek-v32-exp-ess-smoke"
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -18,7 +18,6 @@ every comparison is exact, bit for bit):
   gather.
 """
 
-import _torch_cpu  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +30,8 @@ from repro_torch.core import transfer as TTR
 from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.models.params import array_to_torch
 from repro_torch.serving.engine import ServeReport
+
+pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
 
 
 def eq(t, j):
