@@ -154,8 +154,24 @@ the script exits non-zero without a result line):
    tensor-core route, at the launches per shape the run gives; Quest on qwen3-0.6b's cache (:func:`archs_phase`,
    :func:`quest_check`).  The monolithic phase prints Eq. 1 (the
    intra-layer similarity of two consecutive rounds' top-2048 sets);
+16. train — after the archs phase (:func:`train_phase`), fp32 products
+   (TF32 off): T1, qwen3-0.6b whole at published widths, fp32 params,
+   remat "dots", 4 donated steps of micro-batch 2 x accumulation 4 x 4096
+   tokens (finite losses and grad norms; step ms, train tokens/s, peak
+   memory), then an accumulation check at seq 1024 (the loss and
+   gradients at micro 1 x accum 2 against micro 2 x accum 1) and "dots"
+   against "none" gradients; T2,
+   DeepSeek-V3.2 cut to its first (dense) layer, MTP cut, fp32, batch 1 x
+   3072 tokens (past index_topk: the DSA mask live), 2 steps counted: the
+   mask's indexer scores must launch the kernel (row 2-tr of the kernels
+   line), the indexer's leaves get exactly zero gradient, and the keep
+   mask from the kernel's scores equals the plain version's but at keys
+   within the score error of the top-k threshold; T3, one step of each
+   plan's smoke config on the card against the CPU (:func:`step_vs_cpu`);
+   the loop's resume on the card (:func:`resume_check`);
 14. mirrors — ``examples/serve_ess_torch.py``, ``stream_abort_torch.py``
-   and ``serve_cluster_torch.py`` on the card, started together, each in
+   and ``serve_cluster_torch.py`` on the card, and
+   ``examples/train_small_torch.py --steps 50``, started together, each in
    its own process: each must exit 0 (:func:`mirrors_phase`).
 
 The audits (``repro_torch.analysis.audit``; :func:`audit_run` in the
@@ -193,8 +209,9 @@ merge), session B's eager run's (the gather-dequant routes), session C's
 eager run's (the verify shapes), the grafts' (the page gathers), the
 monolithic run's prefill (the HBM gather at the prefill shape) and eager
 decode rounds (the HBM gather at the decode shape, ``topk_select``'s
-indexer, the mono-decode partial) and the
-cluster runs' (the pack's page gather and the install's page write); every
+indexer, the mono-decode partial), the
+cluster runs' (the pack's page gather and the install's page write) and
+T2's steps (the train mask's indexer); every
 kernel of the line must have one: counted where the wrappers launch, not derived
 from a graph's replays, which the graph runs' equal counts then confirm.
 
@@ -212,9 +229,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 / fp32-TC ops/s
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 / fp32-TC ops/s,
+# and float32 outside the tensor cores (the general indexer kernel's fp32)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 495e12}
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 495e12, "fp32_simt": 67e12}
 # the host link, PCIe Gen5 x16 (data sheet: 128 GB/s both ways), each way
 LINK_BYTES_S = 64e9
 # the copy engine's pinned <-> device rates, measured by copy_rates()
@@ -2898,9 +2916,13 @@ def cluster_phase(torch, dev, serve, args, qargs, params, counted, card):
     return out
 
 
-# the serve example mirrors (examples/*_torch.py), each in its own process
-MIRRORS = ("serve_ess_torch.py", "stream_abort_torch.py",
-           "serve_cluster_torch.py")
+# the example mirrors (examples/*_torch.py) and their arguments, each in
+# its own process; CKPT_DIR stands for a fresh temporary directory
+CKPT_DIR = "{ckpt}"
+MIRRORS = (("serve_ess_torch.py", ()), ("stream_abort_torch.py", ()),
+           ("serve_cluster_torch.py", ()),
+           ("train_small_torch.py",
+            ("--steps", "50", "--ckpt-dir", CKPT_DIR)))
 MIRROR_TIMEOUT_S = 300
 
 
@@ -3314,18 +3336,22 @@ def archs_phase(torch, dev, args, card, counted, records):
 
 
 def mirrors_phase(card):
-    """The three serve mirrors on the card, started together, each its own
-    process (smoke config, graph rounds, the kernels built above); each
-    must exit 0 (its own assertions included).  Every process is waited
-    for, and killed if it outlives the time limit."""
+    """The three serve mirrors and the train mirror (the ~100M qwen3-family
+    model, 50 steps, checkpoints in a temporary directory) on the card,
+    started together, each its own process (the kernels built above);
+    each must exit 0 (its own assertions included).  Every process is
+    waited for, and killed if it outlives the time limit."""
     import tempfile
 
     t0 = time.perf_counter()
-    logs = {name: tempfile.TemporaryFile(mode="w+") for name in MIRRORS}
-    procs = {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT,
-        stdout=logs[name], stderr=subprocess.STDOUT, text=True)
-        for name in MIRRORS}
+    logs = {name: tempfile.TemporaryFile(mode="w+") for name, _ in MIRRORS}
+    ckpt = tempfile.TemporaryDirectory()
+    procs = {}
+    for name, extra in MIRRORS:
+        argv = [ckpt.name if a == CKPT_DIR else a for a in extra]
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / name), *argv], cwd=ROOT,
+            stdout=logs[name], stderr=subprocess.STDOUT, text=True)
     try:
         for name, proc in procs.items():
             try:
@@ -3337,10 +3363,10 @@ def mirrors_phase(card):
             logs[name].seek(0)
             lines = logs[name].read().strip().splitlines()
             print(f"mirror {name}: exit {proc.returncode} after "
-                  f"{time.perf_counter() - t0:.1f} s; last line: "
-                  f"{lines[-1] if lines else ''}  [{card}]", flush=True)
-            if proc.returncode != 0:
-                print("\n".join(lines[-40:]), flush=True)
+                  f"{time.perf_counter() - t0:.1f} s; the last lines of its "
+                  f"output:  [{card}]", flush=True)
+            print("\n".join(f"  {line}" for line in lines[-40:]),
+                  flush=True)
             require(proc.returncode == 0,
                     f"mirror {name} exited {proc.returncode}")
     finally:
@@ -3350,6 +3376,434 @@ def mirrors_phase(card):
                 proc.wait()
         for log in logs.values():
             log.close()
+        ckpt.cleanup()
+
+
+# the train phase (16): the optimizer's schedule for every run of it
+TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=10)
+# T1: qwen3-0.6b whole at published widths, the reference's train_4k
+# length; micro-batch 2 x accumulation 4 (8 sequences a step)
+T1_SEQ, T1_MICRO, T1_ACCUM, T1_STEPS = 4096, 2, 4, 4
+T1_PREDICTED_GB = 46.0
+# T2: DeepSeek-V3.2 cut to its first (dense) layer, MTP cut; 3072 tokens
+# is past index_topk 2048, so the DSA mask is live
+T2_SEQ, T2_STEPS = 3072, 2
+T2_PREDICTED_GB = 63.0
+# T3: one step of each plan's smoke config, card against CPU
+TRAIN_SMOKES = ("qwen3-0.6b-smoke", "deepseek-v32-exp-ess-smoke",
+                "mamba2-780m-smoke", "zamba2-7b-smoke",
+                "whisper-large-v3-smoke")
+def amax(t) -> float:
+    """max |t|, 0 for an empty tensor."""
+    return float(t.abs().max()) if t.numel() else 0.0
+
+
+# a first AdamW step moves an element by lr * c g / (|c g| + eps), about
+# lr times the sign of the clipped gradient c g: where |c g| is near eps a
+# gradient difference at fp32 rounding moves it by up to lr, from
+# WELL_POSED * eps on by under 1e-8 (tests/test_torch_training.py)
+WELL_POSED = 100
+
+
+def step_vs_cpu(torch, dev, name, tol=1e-5):
+    """One train step of the smoke config ``name`` (fp32, remat "dots")
+    on the card against the same step on the CPU, the same parameters and
+    batch (2 x 32): the loss within ``tol`` relative, each leaf's gradient
+    within 1e-4 of its largest entry, and the parameters and moments after
+    the AdamW step within ``tol`` of each leaf's scale of the CPU's AdamW
+    on the card's own gradients (every element) and of the CPU's step
+    wherever that is well posed (at least 95 % of the elements).  Returns
+    (the loss relative error, the largest step error where well posed,
+    the share of elements left out, the indexer's launches, the card's
+    step ms and its peak GB)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.indexer import ops as iops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(name), param_dtype=torch.float32)
+    opt = AdamWConfig(**TRAIN_OPT)
+    cpu = init_params(cfg, 1, device="cpu")
+    batch = make_batch(DataConfig(cfg.vocab_size, 2, 32), 0)
+    if cfg.encdec is not None:
+        batch["enc_inputs"] = torch.as_tensor(np.random.default_rng(
+            5).standard_normal((2, cfg.encdec.encoder_seq, cfg.d_model)),
+            dtype=torch.float32)
+    out = {}
+    n0 = iops.indexer_scores.launches
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        p = tree_map(lambda t: t.to(d), cpu)
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, g = loss_and_grads(p, cfg, b)
+        o = init_opt_state(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p2, o2, m = make_train_step(cfg, opt)(p, o, b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() * 1e-9
+        out[where] = (float(loss), tree_map(lambda t: t.cpu(), g),
+                      tree_map(lambda t: t.cpu(), (p2, o2.m, o2.v)), m)
+    launches = iops.indexer_scores.launches - n0
+    (l_c, g_c, s_c, m_c), (l_d, g_d, s_d, m_d) = out["cpu"], out["card"]
+    lerr = abs(l_d - l_c) / abs(l_c)
+    require(lerr <= tol and abs(float(m_d["loss"]) - float(m_c["loss"]))
+            <= tol * abs(float(m_c["loss"])),
+            f"train {name}: card loss {l_d} vs CPU {l_c}")
+    gmax = max(amax(a) for a in leaves(g_c))
+    for a, b in zip(leaves(g_d), leaves(g_c)):
+        top = amax(b)
+        if top < 1e-7 * gmax:       # zero in exact arithmetic: noise
+            require(amax(a) < 1e-7 * gmax,
+                    f"train {name}: a noise gradient grew on the card")
+            continue
+        require(float((a - b).abs().max()) <= 1e-4 * top,
+                f"train {name}: card gradient off by "
+                f"{float((a - b).abs().max()):.3g} (max {top:.3g})")
+    # the card's AdamW against the CPU's on the same (the card's) grads
+    p_cpu = tree_map(lambda t: t.clone(), cpu)
+    ref = adamw_update(opt, p_cpu, g_d, init_opt_state(p_cpu))
+    for a, b in zip(leaves(s_d), leaves((ref[0], ref[1].m, ref[1].v))):
+        require(amax(a - b) <= tol * max(1.0, amax(b)), f"train {name}: "
+                f"AdamW on the card differs from the CPU's on the same "
+                f"gradients")
+    scale = min(1.0, opt.grad_clip / float(m_c["grad_norm"]))
+    left = total = 0
+    worst = 0.0
+    for a, b, g, gd in zip(leaves(s_d[0]), leaves(s_c[0]), leaves(g_c),
+                           leaves(g_d)):
+        well = ((scale * g).abs() >= WELL_POSED * opt.eps) | (
+            (g == 0) & (gd == 0))
+        left += int((~well).sum())
+        total += g.numel()
+        worst = max(worst, amax((a - b)[well]) / max(1.0, amax(b)))
+    require(worst <= tol and left <= 0.05 * total,
+            f"train {name}: parameters after the step off by {worst:.3g} "
+            f"of their scale ({left} of {total} elements ill posed)")
+    return lerr, worst, left / total, launches, ms, peak
+
+
+def keep_mask_vs_plain(torch, q, w, keys, valid, k):
+    """The DSA keep mask (top-``k``) from the indexer kernel's scores
+    against the plain version's on the same inputs: they may differ only
+    at keys whose plain score lies within twice the kernel-vs-plain score
+    error of their row's k-th plain score (where the k-th and (k+1)-th
+    scores are that close).  Returns (the kernel's scores, the score
+    error, the keys and the rows that differ); raises otherwise."""
+    from repro_torch.kernels.indexer import ops as iops
+    from repro_torch.kernels.indexer import ref as iref
+    from repro_torch.models import mla as M
+
+    sc = iops.indexer_scores(q, w, keys, valid)
+    want = iref.indexer_scores_ref(q, w, keys, valid)
+    err = float((sc - want).abs().max())
+    diff = M.dsa_keep_mask(sc, k, valid) ^ M.dsa_keep_mask(want, k, valid)
+    thr = torch.sort(torch.where(valid, want, M.NEG_INF), dim=-1,
+                     descending=True).values[..., k - 1:k]
+    require(bool((~diff | ((want - thr).abs() <= 2 * err)).all()),
+            "the keep mask from the indexer kernel's scores differs from "
+            "the plain version's away from the top-k threshold")
+    return sc, err, int(diff.sum()), int(diff.any(-1).sum())
+
+
+def t1_qwen3(torch, dev, card):
+    """T1: qwen3-0.6b (28 of 28 layers, published widths), fp32 params,
+    remat "dots", micro-batch ``T1_MICRO`` x accumulation ``T1_ACCUM`` at
+    ``T1_SEQ`` tokens, ``T1_STEPS`` donated steps (the launcher's step):
+    finite losses and grad norms; step ms, tokens/s, peak memory.  Then at
+    seq 1024: the loss and gradients at micro 1 x accum 2 against micro 2
+    x accum 1 on the same two sequences (loss within 1e-5 relative, each
+    leaf's gradient within 1e-4 of its largest entry: a missing division
+    by the accumulation, or a dropped microbatch, fails it), and "dots"
+    against "none" gradients at micro 1 (within 1e-6 of each leaf's
+    largest entry)."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.params import count_params, init_params, model_def
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config("qwen3-0.6b", param_dtype=torch.float32, remat="dots")
+    opt = AdamWConfig(**TRAIN_OPT)
+    gb = 1e-9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device=dev)
+    state = init_opt_state(params)
+    bsz = T1_MICRO * T1_ACCUM
+    dc = DataConfig(cfg.vocab_size, bsz, T1_SEQ, seed=0)
+    step = make_train_step(cfg, opt, accum_steps=T1_ACCUM, donate=True)
+    rows = []
+    for i in range(T1_STEPS):
+        batch = make_batch(dc, i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        rows.append((loss, gn, time.perf_counter() - t0))
+        require(math.isfinite(loss) and math.isfinite(gn),
+                f"T1 step {i + 1}: loss {loss}, grad norm {gn}")
+    peak = torch.cuda.max_memory_allocated() * gb
+    warm = [r[2] for r in rows[1:]]
+    ms = 1e3 * sum(warm) / len(warm)
+    print(f"train T1 qwen3-0.6b (28 of 28 layers, "
+          f"{count_params(model_def(cfg)) / 1e9:.3f}B params fp32, remat "
+          f"dots; micro {T1_MICRO} x accum {T1_ACCUM} x seq {T1_SEQ} = "
+          f"{bsz * T1_SEQ} tokens a step): step {ms:.1f} ms (steps 2-"
+          f"{T1_STEPS}; step 1 {1e3 * rows[0][2]:.1f}), "
+          f"{bsz * T1_SEQ / (ms / 1e3):.0f} train tokens/s; peak "
+          f"{peak:.2f} GB (predicted about {T1_PREDICTED_GB:.0f}); losses "
+          + ", ".join(f"{r[0]:.4f}" for r in rows) + "; grad norms "
+          + ", ".join(f"{r[1]:.4f}" for r in rows) + f"  [{card}]",
+          flush=True)
+    del state, batch, m
+    torch.cuda.empty_cache()
+
+    b = make_batch(DataConfig(cfg.vocab_size, 2, 1024, seed=1), 0,
+                   device=dev)
+    la, ga = loss_and_grads(params, cfg, b, accum_steps=2)
+    lb, gb_ = loss_and_grads(params, cfg, b, accum_steps=1)
+    lrel = abs(float(la) - float(lb)) / abs(float(lb))
+    aerr = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(leaves(ga), leaves(gb_)))
+    print(f"train T1 accumulation at seq 1024: micro 1 x accum 2 vs micro "
+          f"2 x accum 1: loss rel diff {lrel:.3g} (limit 1e-5), gradients' "
+          f"largest error {aerr:.3g} of the leaf's max (limit 1e-4)  "
+          f"[{card}]", flush=True)
+    require(lrel <= 1e-5 and aerr <= 1e-4, "T1 accumulation check failed")
+    del ga, gb_, la, lb
+    torch.cuda.empty_cache()
+
+    b1 = {k: v[:1] for k, v in b.items()}
+    grads, peaks = {}, {}
+    for r in ("dots", "none"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads[r] = loss_and_grads(params, dataclasses.replace(cfg, remat=r),
+                                  b1)[1]
+        torch.cuda.synchronize()
+        peaks[r] = (torch.cuda.max_memory_allocated() - base) * gb
+    rerr = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(leaves(grads["dots"]), leaves(grads["none"])))
+    print(f"train T1 remat at micro 1 x seq 1024: dots vs none gradients, "
+          f"largest error {rerr:.3g} of the leaf's max (limit 1e-6); peak "
+          f"above the weights: dots {peaks['dots']:.2f} GB, none "
+          f"{peaks['none']:.2f} GB  [{card}]", flush=True)
+    require(rerr <= 1e-6, "T1 remat check failed")
+    del grads, params
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def t2_dsa(torch, dev, card, counted, records):
+    """T2: DeepSeek-V3.2 at published widths cut to its first (dense)
+    layer, MTP cut, fp32 params, remat "dots", batch 1 x ``T2_SEQ``,
+    ``T2_STEPS`` donated steps counted: the DSA mask's indexer scores must
+    launch the kernel; finite losses; the indexer's leaves must get
+    exactly zero gradient (their moments stay 0).  Then the keep mask
+    from the kernel's scores against the plain version's on the layer's
+    own inputs: they may differ only at keys whose plain score lies
+    within twice the kernel-vs-plain score error of that row's k-th
+    score.  Times the kernel at this shape (row 2-tr)."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.kernels.indexer import ops as iops
+    from repro_torch.kernels.indexer import ref as iref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import count_params, init_params, model_def
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.tree import flatten
+
+    full = get_config("deepseek-v32-exp-ess", param_dtype=torch.float32,
+                      remat="dots")
+    cfg = dataclasses.replace(cut_depth(full, 1), moe=dataclasses.replace(
+        full.moe, first_dense_layers=1))
+    k = cfg.dsa.index_topk
+    gb = 1e-9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device=dev)
+    state = init_opt_state(params)
+    dc = DataConfig(cfg.vocab_size, 1, T2_SEQ, seed=0)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), donate=True)
+    rows = []
+
+    def run():
+        nonlocal params, state
+        for i in range(T2_STEPS):
+            batch = make_batch(dc, i, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         time.perf_counter() - t0))
+    _, n = counted(run)
+    peak = torch.cuda.max_memory_allocated() * gb
+    for loss, gn, _ in rows:
+        require(math.isfinite(loss) and math.isfinite(gn),
+                f"T2: loss {loss}, grad norm {gn}")
+    launches = n["indexer_scores"]
+    require(launches > 0, "T2: the indexer kernel was not launched")
+    idx = [t for p, t in flatten(state.m) + flatten(state.v)
+           if "indexer" in p]
+    require(any(t.numel() for t in idx) and all(amax(t) == 0.0
+                                                for t in idx),
+            "T2: the indexer's leaves got a gradient")
+    ms = 1e3 * sum(r[2] for r in rows[1:]) / max(1, len(rows) - 1)
+    print(f"train T2 deepseek-v32-exp-ess (61 -> 1 layer, dense; mtp_depth "
+          f"1 -> 0; {count_params(model_def(cfg)) / 1e9:.3f}B params fp32, "
+          f"remat dots; batch 1 x seq {T2_SEQ}, DSA top-{k}): step "
+          f"{ms:.1f} ms (steps 2-{T2_STEPS}; step 1 {1e3 * rows[0][2]:.1f}), "
+          f"{T2_SEQ / (ms / 1e3):.0f} train tokens/s; peak {peak:.2f} GB "
+          f"(predicted about {T2_PREDICTED_GB:.0f}); losses "
+          + ", ".join(f"{r[0]:.4f}" for r in rows) + f"; indexer launches "
+          f"{launches} (general {n['indexer_general']}, tc "
+          f"{n['indexer_tc']}); indexer leaves' gradients exactly 0  "
+          f"[{card}]", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # the keep mask: kernel scores against the plain version's
+    batch = make_batch(dc, 0, device=dev)
+    with torch.no_grad():
+        x = T._embed_in(params, cfg, batch["inputs"])
+        lp, _ = T.layer_params(params, cfg, 0)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        iq = M.indexer_query(lp["indexer"], h)
+        keys = M.indexer_keys(lp["indexer"], h)
+        pos = batch["positions"]
+        valid = (pos[:, None, :, None] >= pos[:, None, None, :])[:, 0]
+        del x, h, lp
+    params.clear()
+    torch.cuda.empty_cache()
+    q, w = iq.q.contiguous(), iq.w.contiguous()
+    sc, err, n_diff, n_rows = keep_mask_vs_plain(torch, q, w, keys, valid,
+                                                 k)
+    print(f"train T2 keep mask (2-tr): kernel vs plain scores max |diff| "
+          f"{err:.3g}; the masks differ at {n_diff} keys in {n_rows} of "
+          f"{T2_SEQ} rows (allowed only within 2x that of a row's k-th "
+          f"score)  [{card}]", flush=True)
+    nvalid = int(valid.sum())
+    Hi, Di = q.shape[2], q.shape[3]
+    nbytes = (q.numel() + w.numel() + keys.numel()) * 4 + valid.numel() \
+        + sc.numel() * 4
+    bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "fp32_simt")
+    records["indexer_scores[train]"] = dict(
+        name="indexer_scores[train]", route="cuda",
+        source="src/repro_torch/kernels/indexer/csrc/indexer.cu",
+        replaces="src/repro/kernels/indexer/indexer.py:41",
+        launches=launches, max_abs_err=err,
+        ms=timed_ms(torch, lambda: iops.indexer_scores(q, w, keys, valid),
+                    iters=5, warmup=1),
+        device_ms=graph_ms(torch, lambda: iops.indexer_scores(
+            q, w, keys, valid), iters=5),
+        sort_ms=timed_ms(torch, lambda: M.dsa_keep_mask(sc, k, valid),
+                         iters=5, warmup=1),
+        plain_ms=timed_ms(torch, lambda: iref.indexer_scores_ref(
+            q, w, keys, valid), iters=3, warmup=1),
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=f"DSA train mask: q [1, {T2_SEQ}, {Hi}, {Di}], keys [1, "
+              f"{T2_SEQ}, {Di}] fp32 (the general route: the tc kernel "
+              f"reads bf16), causal valid [1, {T2_SEQ}, {T2_SEQ}]; "
+              f"sort_ms: the exact top-{k} keep mask from the scores")
+    del q, w, keys, valid, sc, iq
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def resume_check(torch, dev, card):
+    """``train_loop`` on the card (qwen3-0.6b-smoke, fp32): 6 steps saving
+    every 3, a fresh loop resumes to 10; the parameters within 1e-5 of a
+    straight 10-step run (the reference's
+    ``test_train_loop_resumes_from_checkpoint``)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import init_params
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import LoopConfig, train_loop
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config("qwen3-0.6b-smoke", param_dtype=torch.float32)
+    params = init_params(cfg, 0, device=dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=50,
+                                            warmup_steps=5))
+    dc = DataConfig(cfg.vocab_size, global_batch=4, seq_len=32)
+    quiet = dict(log=lambda *_: None)
+    with tempfile.TemporaryDirectory() as d:
+        _, _, st1 = train_loop(step, params, opt, dc, LoopConfig(
+            total_steps=6, ckpt_every=3, ckpt_dir=f"{d}/a", log_every=100),
+            **quiet)
+        saved = ckpt.latest_step(f"{d}/a")
+        p2, o2, st2 = train_loop(step, params, opt, dc, LoopConfig(
+            total_steps=10, ckpt_every=100, ckpt_dir=f"{d}/a",
+            log_every=100), **quiet)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        px, _, _ = train_loop(step, params, opt, dc, LoopConfig(
+            total_steps=10, ckpt_every=100, ckpt_dir=f"{d}/x",
+            log_every=100), **quiet)
+        ms = 1e3 * (time.perf_counter() - t0) / 10
+        peak = torch.cuda.max_memory_allocated() * 1e-9
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(leaves(p2), leaves(px)))
+    on_card = all(t.is_cuda for t in leaves(p2))
+    print(f"train resume: 6 steps (checkpoint at {saved}), resumed to "
+          f"{st2.step}, against 10 straight: max |diff| {err:.3g} (limit "
+          f"1e-5); resumed leaves on the card: {on_card}; the straight run "
+          f"{ms:.1f} ms a step with the loop's data and final save (4 x 32 "
+          f"tokens: {128 / (ms / 1e3):.0f} tokens/s), peak {peak:.3f} GB  "
+          f"[{card}]", flush=True)
+    require(st1.step == 6 and saved == 6 and st2.step == 10
+            and int(o2.step) == 10 and err < 1e-5 and on_card,
+            "train resume check failed")
+
+
+def train_phase(torch, dev, card, counted, records):
+    """Phase 16, training: T1, T2, T3 (:func:`step_vs_cpu` on each of
+    ``TRAIN_SMOKES``) and the loop's resume on the card."""
+    t1_qwen3(torch, dev, card)
+    t2_dsa(torch, dev, card, counted, records)
+    for name in TRAIN_SMOKES:
+        t0 = time.perf_counter()
+        lerr, worst, left, launches, ms, peak = step_vs_cpu(torch, dev,
+                                                            name)
+        print(f"train T3 {name}: one step card vs CPU, loss rel diff "
+              f"{lerr:.3g}, parameters after AdamW {worst:.3g} of their "
+              f"scale where well posed ({100 * left:.2f} % of elements "
+              f"ill posed); indexer launches {launches}; card step "
+              f"{ms:.1f} ms (2 x 32 tokens, eager, first call: "
+              f"{64 / (ms / 1e3):.0f} tokens/s), peak {peak:.3f} GB; "
+              f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+        if "v32" in name:
+            require(launches > 0, "T3: the V3.2 smoke's train step did not "
+                    "launch the indexer kernel on the card")
+    resume_check(torch, dev, card)
 
 
 def leaves(tree):
@@ -3652,7 +4106,15 @@ def main() -> int:
     archs_phase(torch, dev, args, card, counted, records)
     print(f"archs phase: {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
-    # 14. the serve example mirrors
+    # 16. training: T1 qwen3-0.6b, T2 DeepSeek-V3.2's DSA mask on the
+    #     indexer kernel, T3 the smokes card vs CPU, the loop's resume
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_phase(torch, dev, card, counted, records)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s  [{card}]",
+          flush=True)
+    # 14. the serve example mirrors and the train mirror
     mirrors_phase(card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result", flush=True)

@@ -96,7 +96,9 @@ class ESSOptions:
 class ArchConfig:
     """The reference's ``ArchConfig`` fields that the port reads, with the
     reference's defaults (its sharding and scan fields are not ported: the
-    port runs every stack unrolled on one card)."""
+    port runs every stack unrolled on one card).  ``remat`` is the
+    activation checkpointing of each layer body in train mode
+    (:func:`repro_torch.models.transformer.maybe_remat`)."""
     name: str
     family: str                        # dense | moe | ssm | hybrid | encdec | vlm | audio
     num_layers: int
@@ -132,6 +134,7 @@ class ArchConfig:
     encdec: Optional[EncDecConfig] = None
     mrope_sections: Optional[tuple[int, ...]] = None   # qwen2-vl
     ess: ESSOptions = ESSOptions()
+    remat: str = "dots"                # none | full | dots  (train-time)
     param_dtype: Any = torch.bfloat16
     # inputs are precomputed embeddings [B,S,d], not token ids (qwen2-vl)
     embedding_inputs: bool = False

@@ -68,9 +68,9 @@ def project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 rope_theta: float | None = None,
                 mrope_positions: torch.Tensor | None = None):
     """x [B,S,d] -> q [B,S,H,hd], k, v [B,S,KV,hd] (roped, normed)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = L.proj(x, p["wq"])
+    k = L.proj(x, p["wk"])
+    v = L.proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -269,7 +269,7 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
                       scale, cfg.attn_softcap)
     else:
         raise ValueError(f"mode={mode!r}: train | prefill | decode")
-    return AttnOutput(torch.einsum("bqhk,hkd->bqd", o, p["wo"]), k, v)
+    return AttnOutput(L.proj(o, p["wo"], 2), k, v)
 
 
 def cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -277,20 +277,20 @@ def cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """The decoder's cross-attention over the encoder's k / v [B,Se,KV,hd]
     (whisper): unmasked, scores and softmax in fp32 (products of the
     stored operands), the fp32 output rounded to x's dtype before ``wo``."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = L.proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     s = scores(q, enc_k) * _scale(cfg)
     w = torch.softmax(s, dim=-1)
     o = weighted(w, enc_v).transpose(1, 2).to(x.dtype)
-    return torch.einsum("bqhk,hkd->bqd", o, p["wo"])
+    return L.proj(o, p["wo"], 2)
 
 
 def cross_kv(p: dict, cfg: ArchConfig, enc_out: torch.Tensor):
     """The encoder's k / v [B,Se,KV,hd] for one decoder layer (computed
     once a request, at prefill)."""
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    k = L.proj(enc_out, p["wk"])
+    v = L.proj(enc_out, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     return k, v

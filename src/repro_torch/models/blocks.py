@@ -87,8 +87,7 @@ def gqa_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                                   cache_positions[:, None, :], window)
         o = A.decode_attend(q, cache.k, cache.v, bias, A._scale(cfg),
                             cfg.attn_softcap, cache.v.dtype)
-        attn_out = torch.einsum("bqhk,hkd->bqd", o.to(x.dtype),
-                                p["attn"]["wo"])
+        attn_out = L.proj(o.to(x.dtype), p["attn"]["wo"], 2)
     elif mode in ("prefill", "train"):
         ao = A.attention(p["attn"], cfg, h, positions, kind=kind, mode=mode,
                          rope_theta=rope_theta,
@@ -148,9 +147,9 @@ def mla_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     returns a new cache (:func:`~repro_torch.models.mla
     .mla_prefill_attend`; without an indexer its ``ikeys`` plane is
     ``[B,S,1]`` zeros, as the reference's); ``"train"`` attends densely.
-    ``use_kernel`` picks the kernels or the plain version of decode and
-    prefill (default: the kernels on CUDA).  The MoE statistics come back
-    with ``train``."""
+    ``use_kernel`` picks the kernels or the plain version of decode,
+    prefill and the train mode's DSA mask (default: the kernels on CUDA).
+    The MoE statistics come back with ``train``."""
     pi = p.get("indexer")
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mode == "decode":
@@ -171,7 +170,8 @@ def mla_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
             ikeys = lat.new_zeros(lat.shape[:2] + (1,))
         cache = MLACache(lat, ikeys)
     elif mode == "train":
-        attn_out = M.mla_train_attend(p["mla"], pi, cfg, h, positions)
+        attn_out = M.mla_train_attend(p["mla"], pi, cfg, h, positions,
+                                      use_kernel=use_kernel)
     else:
         raise ValueError(f"mode={mode!r}: train | prefill | decode")
     x = x + attn_out

@@ -53,6 +53,20 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
 
 
+def proj(x: torch.Tensor, w: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """``x``'s last ``n`` axes contracted with ``w``'s first ``n`` (the
+    reference's projection einsums ``"bsd,dhk->bshk"``,
+    ``"bqhk,hkd->bqd"``) as one ``aten.mm``: a product without batch
+    dims, the kind remat ``"dots"`` keeps.  ``einsum`` would run it as a
+    ``bmm`` over a batch of 1, which at batch 1 looks the same as
+    attention's scores."""
+    k = 1
+    for s in w.shape[:n]:
+        k *= s
+    out = x.reshape(-1, k) @ w.reshape(k, -1)
+    return out.view(*x.shape[:x.dim() - n], *w.shape[n:])
+
+
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (batched) in fp32: the products of the stored operands,
     summed in fp32 (the reference's ``preferred_element_type=f32``).  On

@@ -18,7 +18,8 @@ The monolithic (all-in-HBM) attention of the model's three modes:
   card takes; without the indexer (DeepSeek-V3) the chunked causal flash,
   or on the card the sparse-MLA partial over the prompt's rows with a
   causal mask per query;
-* :func:`mla_train_attend` — dense masked attention (plain torch).
+* :func:`mla_train_attend` — dense masked attention (plain torch), its
+  DSA mask from the indexer kernel on the card.
 
 ``use_kernel`` picks the kernel wrappers or the plain version; by default
 the kernels on CUDA tensors and the plain version on the CPU.
@@ -62,7 +63,7 @@ def absorbed_query(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """x [B,Q,d] -> MQA query over the latent space [B,Q,H,latent_dim]."""
     m = cfg.mla
     cq = L.rmsnorm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
-    q = torch.einsum("bql,lhk->bqhk", cq, p["w_uq"])    # [B,Q,H,nope+rope]
+    q = L.proj(cq, p["w_uq"])    # [B,Q,H,nope+rope]
     q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     cos, sin = L.rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
     q_pe = L.apply_rope(q_pe, cos[:, :, None, :], sin[:, :, None, :])
@@ -75,7 +76,7 @@ def output_proj(p: dict, cfg: ArchConfig, o_lat: torch.Tensor
                 ) -> torch.Tensor:
     """o_lat [B,Q,H,kv_lora_rank] -> [B,Q,d] (absorbed W_uv then W_o)."""
     o = torch.einsum("bqhl,lhv->bqhv", o_lat, p["w_uv"])
-    return torch.einsum("bqhv,hvd->bqd", o, p["wo"])
+    return L.proj(o, p["wo"], 2)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +94,7 @@ class IndexerQuery(NamedTuple):
 
 
 def indexer_query(pi: dict, x: torch.Tensor) -> IndexerQuery:
-    return IndexerQuery(torch.einsum("bqd,dhk->bqhk", x, pi["w_iq"]),
+    return IndexerQuery(L.proj(x, pi["w_iq"]),
                         x @ pi["w_iw"])
 
 
@@ -231,11 +232,33 @@ def dsa_keep_mask(sc: torch.Tensor, k: int, valid: torch.Tensor
     return keep & valid
 
 
+def dsa_train_keep(pi: dict, cfg: ArchConfig, x: torch.Tensor,
+                   valid: torch.Tensor, use_kernel: bool | None = None
+                   ) -> torch.Tensor:
+    """The DSA keep mask of a train step ``[B,S,S]``: the indexer's scores
+    of every query over its ``valid`` (causal) keys, through the indexer
+    kernel (:func:`indexer_scores`; the default on CUDA tensors) or the
+    plain version, then the exact top-k membership
+    (:func:`dsa_keep_mask`).  Boolean, so no gradient flows through it, as
+    in the reference: it is computed with autograd off, and the indexer's
+    leaves get zero gradient in both packages."""
+    with torch.no_grad():
+        iq = indexer_query(pi, x)
+        keys = indexer_keys(pi, x)
+        if _use_kernel(use_kernel, x):
+            sc = indexer_scores(iq, keys, valid)
+        else:
+            sc = idx_ref.indexer_scores_ref(iq.q, iq.w, keys, valid)
+        return dsa_keep_mask(sc, cfg.dsa.index_topk, valid)
+
+
 def mla_train_attend(p: dict, pi: dict | None, cfg: ArchConfig,
-                     x: torch.Tensor, positions: torch.Tensor
-                     ) -> torch.Tensor:
-    """Dense MLA with the DSA top-k mask (plain torch on every device;
-    ``[B,H,S,S]`` fp32 scores, so short sequences only)."""
+                     x: torch.Tensor, positions: torch.Tensor, *,
+                     use_kernel: bool | None = None) -> torch.Tensor:
+    """Dense MLA with the DSA top-k mask: ``[B,H,S,S]`` fp32 scores in
+    plain torch on every device, as the reference's XLA einsums (it has no
+    backward kernel); the mask's indexer scores through the kernel on CUDA
+    (:func:`dsa_train_keep`, ``use_kernel``)."""
     m = cfg.mla
     S = x.shape[1]
     lat = latent_entries(p, cfg, x, positions)                  # [B,S,D]
@@ -245,9 +268,7 @@ def mla_train_attend(p: dict, pi: dict | None, cfg: ArchConfig,
     causal = positions[:, None, :, None] >= positions[:, None, None, :]
     bias = torch.where(causal, 0.0, NEG_INF)
     if pi is not None and cfg.dsa is not None and cfg.dsa.index_topk < S:
-        iq = indexer_query(pi, x)
-        sc = idx_ref.indexer_scores_ref(iq.q, iq.w, indexer_keys(pi, x))
-        keep = dsa_keep_mask(sc, cfg.dsa.index_topk, causal[:, 0])
+        keep = dsa_train_keep(pi, cfg, x, causal[:, 0], use_kernel)
         bias = bias + torch.where(keep[:, None], 0.0, NEG_INF)
     w = torch.softmax(s + bias, dim=-1)
     o_lat = torch.einsum("bhqk,bkv->bqhv", w,

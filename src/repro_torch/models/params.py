@@ -264,7 +264,7 @@ def init_mtp_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 # numpy dtypes torch.from_numpy refuses (ml_dtypes), by name -> the integer
 # view that crosses and the torch dtype it is reinterpreted as
-_VIEW_DTYPES = {
+VIEW_DTYPES = {
     "bfloat16": (np.uint16, torch.bfloat16),
     "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
     "float8_e5m2": (np.uint8, torch.float8_e5m2),
@@ -275,8 +275,8 @@ def array_to_torch(a, device="cpu") -> torch.Tensor:
     """One numpy array (ml_dtypes included) -> tensor, bit for bit."""
     a = np.ascontiguousarray(np.asarray(a))
     name = a.dtype.name
-    if name in _VIEW_DTYPES:
-        view, tdt = _VIEW_DTYPES[name]
+    if name in VIEW_DTYPES:
+        view, tdt = VIEW_DTYPES[name]
         t = torch.from_numpy(a.view(view).copy()).view(tdt)
     else:
         t = torch.from_numpy(a.copy())

@@ -36,10 +36,13 @@ a CUDA graph (:func:`repro_torch.serving.engine.generic_decode` keeps
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -127,6 +130,45 @@ def pad_caches(caches: dict, max_seq: int) -> dict:
         if key in caches:
             out[key] = type(caches[key])(*(pad(a) for a in caches[key]))
     return out
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the outputs of the products without batch dims
+    (``mm`` / ``addmm``: the projections, which run through
+    :func:`~repro_torch.models.layers.proj` or ``@`` on a weight), and
+    recompute everything else (batched products at any batch, attention's
+    at batch 1 too, softmax, elementwise)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
+def maybe_remat(fn, cfg: ArchConfig, mode: str):
+    """Activation checkpointing of a train-mode layer body, as the
+    reference's ``maybe_remat`` (``cfg.remat``): ``"full"`` keeps the
+    body's inputs alone and recomputes the rest in the backward,
+    ``"dots"`` (the counterpart of ``dots_with_no_batch_dims_saveable``)
+    also keeps the outputs of its products without batch dims
+    (:func:`_dots_policy`), ``"none"`` keeps everything autograd saves.
+    The values are the same under each.  Outside train mode, or with
+    autograd off, the body runs as it is."""
+    if mode != "train" or cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: none | full | dots")
+    kw = {"context_fn": _DOTS_CONTEXT} if cfg.remat == "dots" else {}
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw, **kwargs)
+    return run
 
 
 def layer_meta(cfg: ArchConfig, n: int, offset: int = 0):
@@ -233,10 +275,12 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
       (and advances the SSM state in place) and returns the caches with
       ``lens + Q``.
 
-    ``use_kernel`` picks the kernel route of MLA's prefill and decode
-    (default: on CUDA tensors) or the plain version; GQA attention and the
-    SSM are plain torch on every device (the reference has no kernel
-    there).  Logits are fp32."""
+    ``use_kernel`` picks the kernel route of MLA's prefill and decode and
+    of the train mode's DSA mask (default: on CUDA tensors) or the plain
+    version; GQA attention, the train mode's attention and the SSM are
+    plain torch on every device (the reference has no kernel there).
+    In train mode each layer body runs under ``cfg.remat``
+    (:func:`maybe_remat`).  Logits are fp32."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode={mode!r}: train | prefill | decode")
     plan = stack_plan(cfg)
@@ -269,26 +313,32 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor,
     return ForwardOut(logits, x, new_caches, aux)
 
 
+def _lm_layer(lp, cfg, x, positions, mode, csl, lens, is_moe, loc, theta,
+              mrope_positions, use_kernel):
+    """One layer of the ``lm`` stack: MLA or GQA, then its FFN."""
+    if cfg.attn_kind == "mla":
+        return B.mla_block(lp, cfg, x, positions, mode=mode, cache=csl,
+                           lens=lens, moe=is_moe, train=mode == "train",
+                           use_kernel=use_kernel)
+    return _gqa_traced(lp, cfg, x, positions, mode, csl, lens, loc, theta,
+                       mrope_positions, is_moe)
+
+
 def _forward_lm(params, cfg, x, positions, mode, caches, mrope_positions,
                 use_kernel, aux):
     """The ``lm`` stack: the leading dense layers, then the main group.
     Returns (x, the prefill's new cache planes, aux)."""
     lens = caches["lens"] if caches is not None else None
     key = _cache_key(cfg)
-    train = mode == "train"
     is_local, theta = layer_meta(cfg, cfg.num_layers)
+    run = maybe_remat(_lm_layer, cfg, mode)
     planes, mas = [], []
     for layer in range(cfg.num_layers):
         lp, is_moe = layer_params(params, cfg, layer)
         csl = _layer_cache(caches[key], layer) if mode == "decode" else None
-        if key == "mla":
-            x, nc, ma = B.mla_block(lp, cfg, x, positions, mode=mode,
-                                    cache=csl, lens=lens, moe=is_moe,
-                                    train=train, use_kernel=use_kernel)
-        else:
-            x, nc, ma = _gqa_traced(lp, cfg, x, positions, mode, csl, lens,
-                                    is_local[layer], theta[layer],
-                                    mrope_positions, is_moe)
+        x, nc, ma = run(lp, cfg, x, positions, mode, csl, lens, is_moe,
+                        is_local[layer], theta[layer], mrope_positions,
+                        use_kernel)
         if mode == "prefill":
             planes.append(nc)
         if ma is not None:
@@ -331,13 +381,14 @@ def _forward_hybrid(params, cfg, plan, x, positions, mode, caches):
     g = cfg.hybrid.attn_every
     lens = caches["lens"] if caches is not None else None
     st = caches["ssm"] if caches is not None else None
+    shared = maybe_remat(B.gqa_block, cfg, mode)
     states, kvs = [], []
     for gi in range(plan.hybrid_groups):
         x = _ssm_layers(params, cfg, x, mode, st, range(gi * g, gi * g + g),
                         states)
         csl = _layer_cache(caches["shared_kv"], gi) if mode == "decode" \
             else None
-        x, kv_new, _ = B.gqa_block(
+        x, kv_new, _ = shared(
             pick(params["shared_attn"], gi % cfg.hybrid.num_shared_attn),
             cfg, x, positions, mode=mode, kind="global", cache=csl,
             lens=lens, cache_positions=_cache_positions(csl))
@@ -349,7 +400,17 @@ def _forward_hybrid(params, cfg, plan, x, positions, mode, caches):
     return x, {"ssm": _stacked(states), "shared_kv": _stacked(kvs)}
 
 
-def _encode(params, cfg, enc_inputs, dtype):
+def _enc_layer(lp, cfg, e, epos, zero):
+    """One encoder layer: dense unmasked attention, then the MLP."""
+    h = L.rmsnorm(lp["ln1"], e, cfg.norm_eps)
+    q, k, v = A.project_qkv(lp["attn"], cfg, h, epos)
+    o = A.mha_dense(q, k, v, zero, cfg.head_dim ** -0.5, None)
+    e = e + L.proj(o, lp["attn"]["wo"], 2)
+    return e + L.mlp(lp["ffn"], L.rmsnorm(lp["ln2"], e, cfg.norm_eps),
+                     cfg.act)
+
+
+def _encode(params, cfg, enc_inputs, dtype, mode):
     """Whisper's encoder over the frame embeddings ``[B,Se,d]``: dense
     unmasked attention (RoPE on the frame positions, the reference's stub),
     the MLP, then ``enc_norm``."""
@@ -357,14 +418,9 @@ def _encode(params, cfg, enc_inputs, dtype):
     epos = torch.arange(e.shape[1], device=e.device)[None].expand(
         e.shape[:2])
     zero = torch.zeros((), dtype=torch.float32, device=e.device)
+    run = maybe_remat(_enc_layer, cfg, mode)
     for i in range(cfg.encdec.encoder_layers):
-        lp = pick(params["encoder"], i)
-        h = L.rmsnorm(lp["ln1"], e, cfg.norm_eps)
-        q, k, v = A.project_qkv(lp["attn"], cfg, h, epos)
-        o = A.mha_dense(q, k, v, zero, cfg.head_dim ** -0.5, None)
-        e = e + torch.einsum("bqhk,hkd->bqd", o, lp["attn"]["wo"])
-        e = e + L.mlp(lp["ffn"], L.rmsnorm(lp["ln2"], e, cfg.norm_eps),
-                      cfg.act)
+        e = run(pick(params["encoder"], i), cfg, e, epos, zero)
     return L.rmsnorm(params["enc_norm"], e, cfg.norm_eps)
 
 
@@ -379,15 +435,16 @@ def _forward_encdec(params, cfg, x, positions, mode, caches, enc_inputs):
     else:
         if enc_inputs is None:
             raise ValueError(f"{cfg.name}: {mode} needs enc_inputs")
-        e = _encode(params, cfg, enc_inputs, x.dtype)
+        e = _encode(params, cfg, enc_inputs, x.dtype, mode)
         enc_kv = _stacked([B.GQACache(*A.cross_kv(
             pick(params["decoder"], i)["cross"], cfg, e))
             for i in range(cfg.num_layers)])
         del e
+    run = maybe_remat(B.gqa_block, cfg, mode)
     kvs = []
     for i in range(cfg.num_layers):
         csl = _layer_cache(caches["kv"], i) if mode == "decode" else None
-        x, kv_new, _ = B.gqa_block(
+        x, kv_new, _ = run(
             pick(params["decoder"], i), cfg, x, positions, mode=mode,
             kind="global", cache=csl, lens=lens,
             cache_positions=_cache_positions(csl),

@@ -17,6 +17,8 @@ exact in fp32, summation order only); the row and page gathers
 and the quantize-and-write path are bit-exact.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -2143,3 +2145,71 @@ def test_cuda_stack_generic_decode_graph_replay_sync_free(cuda, name):
         if k != "lens":
             assert [a.dtype for a in caches[k]] == dtypes[k], k
             assert all(torch.equal(a, b) for a, b in zip(caches[k], v)), k
+
+
+# ---------------------------------------------------------------------------
+# training: a step on the card against the CPU, the DSA train mask
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its import runs nothing): the train
+    phase's checks and configs."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", _chip_smoke().TRAIN_SMOKES)
+def test_cuda_train_step_vs_cpu(cuda, name):
+    """One train step (fp32, remat "dots") on the card against the CPU on
+    the same parameters and batch (``chip_smoke.step_vs_cpu``, the train
+    phase's T3): the loss within 1e-5 relative; each leaf's gradient
+    within 1e-4 of its largest entry; the parameters and moments within
+    1e-5 of the CPU's AdamW on the card's gradients, and of the CPU's
+    step wherever a first AdamW step is well posed.  V3.2's DSA mask
+    launches the indexer kernel."""
+    lerr, worst, left, launches, _, _ = _chip_smoke().step_vs_cpu(
+        torch, cuda, name)
+    assert lerr <= 1e-5 and worst <= 1e-5 and left <= 0.05
+    assert (launches > 0) == ("v32" in name)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cuda_dsa_train_mask_vs_plain(cuda, dt):
+    """``mla.dsa_train_keep`` (the train step's DSA mask, row 2-tr) on the
+    card at the indexer's widths (64 heads x 128), 600 causal positions,
+    top-256: one launch of the indexer kernel (fp32: the general route;
+    bf16: the tensor-core route), the mask it builds equal to the mask of
+    the kernel's scores, and that mask equal to the plain version's except
+    at keys within twice the score error of their row's k-th score
+    (``chip_smoke.keep_mask_vs_plain``)."""
+    import dataclasses
+
+    from repro_torch.configs.base import DSAConfig
+    from repro_torch.models import mla as M
+    cfg = dataclasses.replace(_mono_cfg(TORCH_DT[dt]), dsa=DSAConfig(
+        index_heads=64, index_dim=128, index_topk=256))
+    g = torch.Generator().manual_seed(8)
+    d, S = 256, 600
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g) * d ** -0.5).to(
+            TORCH_DT[dt]).to(cuda)
+    pi = {"w_iq": rnd(d, 64, 128), "w_ik": rnd(d, 128), "w_iw": rnd(d, 64)}
+    x = rnd(2, S, d) * d ** 0.5
+    pos = torch.arange(S, device=cuda)[None].expand(2, S)
+    valid = (pos[:, None, :, None] >= pos[:, None, None, :])[:, 0]
+    n0, tc0 = iops.indexer_scores.launches, iops.indexer_scores.launches_tc
+    keep = M.dsa_train_keep(pi, cfg, x, valid)
+    assert iops.indexer_scores.launches == n0 + 1
+    assert iops.indexer_scores.launches_tc == tc0 + (dt == "bf16")
+    iq = M.indexer_query(pi, x)
+    sc, _, _, _ = _chip_smoke().keep_mask_vs_plain(
+        torch, iq.q, iq.w, M.indexer_keys(pi, x), valid, 256)
+    assert torch.equal(keep, M.dsa_keep_mask(sc, 256, valid))
+    assert int(keep.sum(-1).max()) == 256

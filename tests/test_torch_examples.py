@@ -5,7 +5,9 @@ included (the page gate engaged, speculative rounds, the preempted
 request replayed; stream / abort / stop / priority; the cluster's
 streams equal the single engine's bit for bit, its channel built from
 ``internode_model(H800_EP32)``), and without a card each stops unless
-given ``--device cpu``.  The card runs them from ``chip_smoke.py``.
+given ``--device cpu``.  The train mirror (``train_small_torch.py``) runs
+``--tiny`` for 6 steps, then resumes from its checkpoint.  The card runs
+them from ``chip_smoke.py``.
 """
 
 import _torch_cpu  # noqa: F401  (one torch thread: see the module)
@@ -39,7 +41,21 @@ def test_serve_mirror_runs_on_cpu(name):
         in out
 
 
-@pytest.mark.parametrize("name", MIRRORS)
+def test_train_mirror_runs_on_cpu(tmp_path):
+    """``--tiny --device cpu --steps 6``: 6 steps and a final checkpoint;
+    the same command again resumes at step 6 and runs none."""
+    args = ["--tiny", "--device", "cpu", "--steps", "6", "--ckpt-dir",
+            str(tmp_path)]
+    for expect in ("[ckpt] final checkpoint at step 6", "[resume] restored "
+                   "step 6"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _main("train_small_torch.py")(args)
+        out = buf.getvalue()
+        assert expect in out and "done at step 6" in out, out
+
+
+@pytest.mark.parametrize("name", MIRRORS + ["train_small_torch.py"])
 def test_serve_mirror_needs_a_card_or_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -49,7 +49,8 @@ def test_quickstart_mirror_imports_neither_jax_nor_reference():
 @pytest.mark.parametrize("name", ["serve_ess_torch.py",
                                   "stream_abort_torch.py",
                                   "serve_cluster_torch.py",
-                                  "simulate_paper_torch.py"])
+                                  "simulate_paper_torch.py",
+                                  "train_small_torch.py"])
 def test_example_mirrors_import_neither_jax_nor_reference(name):
     for mod in _imports(ROOT / "examples" / name):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
@@ -67,7 +68,11 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.models.transformer, repro_torch.models.attention, "
             "repro_torch.models.ssm, "
             "repro_torch.core.quest, repro_torch.core.similarity, "
-            "repro_torch.cache.kv_cache, repro_torch.configs\n"
+            "repro_torch.cache.kv_cache, repro_torch.configs, "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.training.checkpoint, repro_torch.training.data, "
+            "repro_torch.training.optimizer, repro_torch.training.train_loop, "
+            "repro_torch.distributed.compression\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,6 +90,7 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.cache.latent_cache import init_ess_caches
     from repro_torch.configs import get_config
     from repro_torch.core.lru_pool import init_pool
+    from repro_torch.launch import train
     from repro_torch.models.params import init_params
     from repro_torch.models.ssm import init_state
     from repro_torch.models.transformer import cache_spec
@@ -113,7 +119,8 @@ def test_entry_points_raise_without_cuda():
                  lambda: init_state(ssm, 1),
                  lambda: init_params(ssm, 0),
                  lambda: generic_prefill({}, audio, toks, toks,
-                                         enc_inputs=torch.zeros((1, 2, 4)))):
+                                         enc_inputs=torch.zeros((1, 2, 4))),
+                 lambda: train.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu").type == "cpu"
