@@ -173,6 +173,16 @@ the script exits non-zero without a result line):
    and ``serve_cluster_torch.py`` on the card, and
    ``examples/train_small_torch.py --steps 50``, started together, each in
    its own process: each must exit 0 (:func:`mirrors_phase`).
+17. sharding — last (:func:`sharding_phase`): an NCCL process group of
+   one rank (an in-process store) and the host mesh over it;
+   ``sharded_flash_decode``, ``pipeline_apply`` (one stage) and the
+   compressed gradient all-reduce on CUDA tensors against their plain
+   oracles on the card; the ESS decode at published widths as session A
+   runs it (4 requests, graph rounds) without and then inside
+   ``use_sharding(make_host_mesh(), PROFILES[cfg.sharding_profile]
+   (False))``: equal greedy streams, the rounds replayed from CUDA
+   graphs, the gather, indexer and sparse-MLA kernels launched; the
+   checks that need several ranks are printed as CPU-only.
 
 The audits (``repro_torch.analysis.audit``; :func:`audit_run` in the
 session phases).  Every session run of ``graph_and_eager`` (A, B, E, C, F)
@@ -3335,6 +3345,161 @@ def archs_phase(torch, dev, args, card, counted, records):
         torch.cuda.empty_cache()
 
 
+# the sharding phase (17): a world of one on the card
+SHARD_PROMPTS = (4096, 2048, 3000, 1000)
+SHARD_NEW = 16
+
+
+def sharding_phase(torch, dev, serve, args, card, counted):
+    """Phase 17: ``repro_torch.distributed`` on the card, a world of one.
+
+    An NCCL process group of one rank from an in-process store
+    (``HashStore``: no network), the host mesh over it
+    (``make_host_mesh``: data 1 x model 1).  On CUDA tensors, each against
+    its plain oracle on the card: ``sharded_flash_decode`` (the merge's
+    MAX and SUM all-reduces over the data group) against a softmax over
+    every key; ``pipeline_apply`` over one stage against the layer loop;
+    the compressed gradient all-reduce against the dequantized gradients
+    (exact: the mean of one rank) and the true ones (0.02).  Then the ESS
+    decode at published widths (the serve's 4 layers, new weights from
+    the serve's seed) as session A runs it, graph rounds, 4 requests
+    through 4 slots, without a context and then inside
+    ``use_sharding(host mesh, PROFILES[cfg.sharding_profile](False))``:
+    the greedy streams must be equal, the context run's rounds replayed
+    from CUDA graphs, and its gather, indexer and sparse-MLA launches
+    above 0.  The multi-rank checks run only on the CPU (8 gloo ranks,
+    the 512-rank fake group), printed as such."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import sharded_flash_decode
+    from repro_torch.distributed.compression import (allreduce_compressed,
+                                                     compress_grads,
+                                                     decompress_grads,
+                                                     init_ef)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.scheduler import Request
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        print(f"sharding: NCCL world {dist.get_world_size()}, host mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}",
+              flush=True)
+        g = torch.Generator(device=dev).manual_seed(0)
+        # the flash merge at the serve's decode widths: 4 sequences, 128
+        # heads, 576-dim rows, 8192 keys, ragged valid lengths
+        B, H, S, D = 4, 128, 8192, 576
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        k = torch.randn((B, S, D), generator=g, device=dev)
+        v = torch.randn((B, S, D), generator=g, device=dev)
+        valid = torch.arange(S, device=dev)[None] < torch.tensor(
+            [8192, 6000, 1, 4097], device=dev)[:, None]
+        scale = D ** -0.5
+        got = sharded_flash_decode(mesh, "data", q, k, v, valid, scale)
+        s = torch.einsum("bhd,bsd->bhs", q, k) * scale
+        w = torch.softmax(torch.where(valid[:, None], s, -2.0e38), -1)
+        want = torch.einsum("bhs,bsd->bhd", w, v)
+        err = float((got - want).abs().max())
+        print(f"sharding: sharded_flash_decode [{B},{H},{S},{D}] vs softmax "
+              f"on the card, max err {err:.3g} (tol 1e-5 x max|ref| "
+              f"{float(want.abs().max()):.3g})", flush=True)
+        require(got.is_cuda and err <= 1e-5 * max(1.0, float(
+            want.abs().max())), f"sharded_flash_decode off by {err}")
+        # GPipe over one stage: 8 layers, 4 microbatches
+        pm = make_mesh((1, 1), ("pod", "model"), "cuda")
+        wl = torch.randn((8, 1024, 1024), generator=g, device=dev) * 0.03
+        x = torch.randn((64, 1024), generator=g, device=dev)
+        got = pipeline_apply(lambda lw, h: torch.tanh(h @ lw), wl, x, pm,
+                             axis="pod", microbatches=4)
+        want = x
+        for i in range(wl.shape[0]):
+            want = torch.tanh(want @ wl[i])
+        err = float((got - want).abs().max())
+        print(f"sharding: pipeline_apply 1 stage x 8 layers [64,1024] vs "
+              f"the layer loop, max err {err:.3g}", flush=True)
+        require(got.is_cuda and err <= 1e-6, f"pipeline_apply off by {err}")
+        # the compressed all-reduce of gradients
+        grads = {"w": torch.randn((4096, 1024), generator=g, device=dev),
+                 "b": torch.randn((1024,), generator=g, device=dev)}
+        mean, _ = allreduce_compressed(grads, init_ef(grads),
+                                       mesh.get_group("data"))
+        deq = decompress_grads(*compress_grads(grads, init_ef(grads))[:2])
+        exact = all(torch.equal(mean[n], deq[n]) for n in grads)
+        err = max(float((mean[n] - grads[n]).abs().max()) for n in grads)
+        print(f"sharding: compressed all-reduce, equal to the dequantized "
+              f"gradients {exact}, max err vs the gradients {err:.3g} "
+              f"(tol 0.02 x max|g|)", flush=True)
+        require(exact and err <= 0.02 * max(float(t.abs().max())
+                                            for t in grads.values()),
+                "the compressed all-reduce is off")
+        print("sharding: ran on the CPU only (this card is a world of "
+              "one): pipeline_apply over 4 stages, sharded_flash_decode "
+              "over 8 shards and the compressed all-reduce over 8 ranks "
+              "(tests/test_torch_distributed.py, 8 gloo ranks); every "
+              "cell's shard shapes on the 16x16 and 2x16x16 meshes "
+              "(tests/test_torch_sharding.py) and the dry run "
+              "(tests/test_torch_dryrun.py; 512-rank fake group)",
+              flush=True)
+        del q, k, v, s, w, want, wl, x, got, grads, mean, deq
+
+        # the ESS decode under a context of one
+        cfg = serve.config_from_args(args)
+        params = init_params(cfg, args.seed, dev)
+        rules = shd.PROFILES[cfg.sharding_profile](False)
+        reqs = lambda: [Request(rid=i, prompt_len=p, max_new_tokens=SHARD_NEW)
+                        for i, p in enumerate(SHARD_PROMPTS)]
+        runs = {}
+        for ctx in (False, True):
+            with (shd.use_sharding(mesh, rules) if ctx
+                  else contextlib.nullcontext()):
+                sess, rep, n, m = run_session(
+                    torch, dev, params, cfg, counted, compiled=True,
+                    do_warmup=False, reqs=reqs())
+            pr = sess.programs
+            dm = m["decode_ms"]
+            runs[ctx] = dict(sess.outputs)
+            tag = "under the context" if ctx else "without a context"
+            print(f"sharding: ESS decode {tag}: {rep.rounds} rounds, "
+                  f"{pr.captures} captures, {pr.replays} replays, decode "
+                  f"{sum(dm) / len(dm):.2f} ms/round (mean of {len(dm)}, "
+                  f"graph rounds), wall {m['wall_s']:.2f} s; launches "
+                  f"gather_rows {n['gather_rows']}, indexer_scores "
+                  f"{n['indexer_scores']}, sparse_mla_partial "
+                  f"{n['sparse_mla_partial']} (by shape "
+                  f"{n.get('sparse_mla_by_shape')}; indexer by Q "
+                  f"{n.get('indexer_by_q')}; gather_rows staged "
+                  f"{n.get('gather_rows_staged')}, direct "
+                  f"{n.get('gather_rows_direct')}), sparse_mla_merge "
+                  f"{n.get('sparse_mla_merge')}, scatter_rows "
+                  f"{n.get('scatter_rows')}  [{card}]", flush=True)
+            require(pr.captures > 0 and pr.replays > 0
+                    and pr.replays + pr.captures == rep.rounds,
+                    f"sharding {tag}: {pr.captures} captures, "
+                    f"{pr.replays} replays for {rep.rounds} rounds")
+            missing = [k_ for k_ in ("gather_rows", "indexer_scores",
+                                     "sparse_mla_partial") if n[k_] == 0]
+            require(not missing, f"sharding {tag}: not launched {missing}")
+            del sess
+        same = runs[False] == runs[True]
+        print(f"sharding: greedy streams under the context equal to the "
+              f"run without one: {same} "
+              f"({sum(len(v) for v in runs[True].values())} tokens)",
+              flush=True)
+        require(same, "sharding: the context changed the greedy streams")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"sharding phase: {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+
+
 def mirrors_phase(card):
     """The three serve mirrors and the train mirror (the ~100M qwen3-family
     model, 50 steps, checkpoints in a temporary directory) on the card,
@@ -4116,6 +4281,11 @@ def main() -> int:
           flush=True)
     # 14. the serve example mirrors and the train mirror
     mirrors_phase(card)
+    # 17. repro_torch.distributed on the card (a world of one), the ESS
+    #     decode under a sharding context
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding_phase(torch, dev, serve, args, card, counted)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result", flush=True)
     print(card)

@@ -29,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
 from repro_torch.distributed import compression as cmp
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.gather_cache import ops as gops
 from repro_torch.models.params import array_to_torch
 
@@ -141,6 +142,72 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                for _ in range(Lh)],
         block_tables=block_tables,
         host_scales=None if sdt is None else tier(1, sdt))
+
+
+def abstract_ess_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                        dtype=torch.bfloat16) -> ESSCaches:
+    """The dry run's :class:`ESSCaches`: ``meta`` leaves (DTensors on
+    ``meta`` under a sharding context), the host tier (and its scales)
+    tagged as host memory (:func:`~repro_torch.core.offload
+    .abstract_host`), the rest device memory.
+
+    Cache leaves are sharded over explicit mesh dimensions, batch over
+    the data dimensions (``pod``, ``data``), whatever the activation
+    profile: a weights-stationary profile unmaps the logical ``batch``,
+    but the cache tier stays batch-parallel (``launch.steps.annotate``'s
+    convention).  The paged tier's pages are laid out batch-major, so its
+    page dim takes the data dimensions (``cache_batch``)."""
+    Lh, D, Di = cfg.num_layers, cfg.mla.latent_dim, cfg.dsa.index_dim
+    P = pool_entries(cfg, max_seq)
+    qdt, sdt = host_storage_dtype(cfg, dtype)
+    ctx = shd.current()
+    on_mesh = ctx is not None and ctx.mesh is not None
+    if on_mesh:
+        data = tuple(a for a in ("pod", "data")
+                     if a in ctx.mesh.mesh_dim_names)
+        batch_entry = data if len(data) > 1 else (data[0] if data
+                                                  else None)
+
+    def dev(shape, dt, *axes):
+        if not on_mesh:
+            return shd.abstract(shape, dt)
+        spec = tuple(batch_entry if a == "batch" else None for a in axes)
+        spec = shd.prune_spec(spec, tuple(shape), ctx.mesh)
+        return shd.abstract(shape, dt, shd.NamedSharding(ctx.mesh, spec))
+
+    i64 = torch.int64
+    block_tables, host_scales = None, None
+    if uses_paged_host(cfg):
+        R, NB = cfg.ess.host_page_rows, num_blocks(cfg, max_seq)
+        lead, ax = (Lh, batch * NB, R), (None, "cache_batch", None, None)
+        block_tables = dev((batch, NB), i64, "batch", None)
+    else:
+        lead, ax = (Lh, batch, max_seq), (None, "batch", None, None)
+
+    def tier(width, dt):
+        if cfg.ess.offload_kv:
+            return offload.abstract_host(lead + (width,), dt, *ax)
+        return dev(lead + (width,), dt, None, "batch", None, None)
+    host = tier(D, qdt)
+    if sdt is not None:
+        host_scales = tier(1, sdt)
+
+    def pool():
+        return LP.PoolState(
+            data=dev((batch, P, D), dtype, "batch", None, None),
+            ids=dev((batch, P), i64, "batch", None),
+            last_use=dev((batch, P), i64, "batch", None),
+            slot_of=dev((batch, max_seq), i64, "batch", None),
+            step=dev((), i64),
+            evicted=dev((batch,), i64, "batch"))
+    return ESSCaches(
+        lens=dev((batch,), i64, "batch"),
+        host_latent=host,
+        ikeys=[dev((batch, max_seq, Di), dtype, "batch", None, None)
+               for _ in range(Lh)],
+        pools=[pool() for _ in range(Lh)],
+        block_tables=block_tables,
+        host_scales=host_scales)
 
 
 # ---------------------------------------------------------------------------

@@ -95,8 +95,10 @@ class ESSOptions:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig`` fields that the port reads, with the
-    reference's defaults (its sharding and scan fields are not ported: the
-    port runs every stack unrolled on one card).  ``remat`` is the
+    reference's defaults (its ``scan_layers`` is not ported: the port runs
+    every stack unrolled).  ``sharding_profile`` names the rule profile of
+    :data:`repro_torch.distributed.sharding.PROFILES` the launchers and
+    the dry run shard the config with.  ``remat`` is the
     activation checkpointing of each layer body in train mode
     (:func:`repro_torch.models.transformer.maybe_remat`)."""
     name: str
@@ -135,6 +137,7 @@ class ArchConfig:
     mrope_sections: Optional[tuple[int, ...]] = None   # qwen2-vl
     ess: ESSOptions = ESSOptions()
     remat: str = "dots"                # none | full | dots  (train-time)
+    sharding_profile: str = "tp"       # tp | 2d  (distributed.sharding)
     param_dtype: Any = torch.bfloat16
     # inputs are precomputed embeddings [B,S,d], not token ids (qwen2-vl)
     embedding_inputs: bool = False
@@ -144,6 +147,32 @@ class ArchConfig:
         if self.layer_pattern is None:
             return "global"
         return self.layer_pattern[layer % len(self.layer_pattern)]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): every arch carries the same 4 shape cells.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def ess_enabled(cfg: ArchConfig) -> bool:
+    """The reference's ``cfg.ess.enabled``: the port's configs carry no
+    switch, and the reference enables ESS on exactly the DSA configs."""
+    return cfg.attn_kind == "mla" and cfg.dsa is not None
 
 
 _REGISTRY: dict[str, Any] = {}

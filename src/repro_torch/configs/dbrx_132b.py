@@ -26,6 +26,7 @@ def dbrx_132b() -> ArchConfig:
         tie_embeddings=False,
         moe=MoEConfig(num_experts=16, top_k=4, d_expert=10752,
                       num_shared=0, capacity_factor=1.25, norm_topk=True),
+        sharding_profile="2d",
     )
 
 
@@ -46,4 +47,5 @@ def dbrx_132b_smoke() -> ArchConfig:
         tie_embeddings=False,
         moe=MoEConfig(num_experts=4, top_k=2, d_expert=96,
                       capacity_factor=2.0, norm_topk=True),
+        sharding_profile="2d",
     )

@@ -40,6 +40,7 @@ def _base(name: str, dsa, ess) -> ArchConfig:
                       routed_scale=2.5, norm_topk=True),
         mtp_depth=1,
         ess=ess,
+        sharding_profile="2d",
     )
 
 
@@ -80,6 +81,7 @@ def deepseek_v3_671b_smoke() -> ArchConfig:
                       capacity_factor=2.0, router_bias=True,
                       routed_scale=1.0),
         mtp_depth=1,
+        sharding_profile="2d",
     )
 
 

@@ -25,6 +25,7 @@ def qwen1_5_110b() -> ArchConfig:
         qkv_bias=True,
         rope_theta=1_000_000.0,
         tie_embeddings=False,
+        sharding_profile="2d",
     )
 
 
@@ -44,4 +45,5 @@ def qwen1_5_110b_smoke() -> ArchConfig:
         qkv_bias=True,
         rope_theta=1_000_000.0,
         tie_embeddings=False,
+        sharding_profile="2d",
     )

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import is_dtensor, put_drop_sharded
 from repro_torch.models.mla import topk_desc
 
 
@@ -78,7 +79,11 @@ def put_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     one row must be distinct and in range.  A dropped entry is redirected
     onto its row's first kept entry with that entry's value (an identical
     duplicate write), or, in a row with nothing kept, onto position 0 with
-    its current value — so no host sync and no write to a live position."""
+    its current value — so no host sync and no write to a live position.
+    A DTensor ``dst`` (the dry run) is written shard by shard
+    (:func:`~repro_torch.distributed.sharding.put_drop_sharded`)."""
+    if is_dtensor(dst):
+        return put_drop_sharded(dst, idx, vals, keep, put_drop)
     B, M = idx.shape
     if not isinstance(vals, torch.Tensor):
         vals = dst.new_full((1, 1) + dst.shape[2:], vals)

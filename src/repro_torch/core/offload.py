@@ -19,6 +19,14 @@ plus an f16 scale per row) moves compressed both ways:
 :func:`gather_tier_rows` is one fused gather-dequant launch that widens
 only the fetched rows, and :func:`scatter_tier_rows` quantizes at append
 width on the device before writing payload and scales.
+
+Under a sharding context (:mod:`repro_torch.distributed.sharding`) the
+tier's batch (or, paged, its batch-major pages) is sharded over the data
+dimensions, and each rank runs these same routes over its own batch rows
+of its own shard: the reference's host-side ``device_put`` branches have
+no other counterpart.  On one card that is the whole tier.
+:func:`abstract_host` and :func:`host_sharding_for` build the dry run's
+host-tier leaves (``memory_kind`` ``"pinned_host"``).
 """
 
 from __future__ import annotations
@@ -26,7 +34,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed import compression as cmp
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.gather_cache import ops as gops
+
+#: the memory kind of the host tier's abstract leaves
+HOST = "pinned_host"
+
+
+def host_sharding_for(shape, axes):
+    """Shape-aware host-tier sharding under the active context (pruning
+    axes that do not divide: a batch of 1 cannot take the data axis);
+    None outside one."""
+    ctx = shd.current()
+    if ctx is None or ctx.mesh is None:
+        return None
+    return ctx.sharding_for(tuple(shape), axes, memory_kind=HOST)
+
+
+def abstract_host(shape, dtype, *axes) -> torch.Tensor:
+    """A host-tier leaf for the dry run: a ``meta`` tensor (a DTensor on
+    ``meta`` under a context) tagged ``memory_kind == "pinned_host"``."""
+    return shd.abstract(shape, dtype, host_sharding_for(shape, axes),
+                        memory_kind=HOST)
 
 
 def _batch_slice(t: torch.Tensor, batch_offset: int, B: int) -> torch.Tensor:

@@ -6,6 +6,9 @@ Gradients: :func:`compress_grads` quantizes each leaf per tensor to int8
 after adding the residual of the round before, and keeps the new residual
 (the quantization error), so the noise does not bias the sum over rounds
 (error feedback).  The arithmetic is the reference's, op for op.
+:func:`allreduce_compressed` is the data-parallel all-reduce itself: the
+ranks' dequantized gradients averaged over a process group (the
+reference's ``pmean`` inside ``shard_map``).
 
 A quantized host tier stores each latent row as ``D`` one-byte values
 (int8 or ``float8_e4m3fn``) plus one f16 scale, so a row pins ``D + 2``
@@ -133,3 +136,21 @@ def compression_error(grads: Any, ef: EFState) -> torch.Tensor:
               for a, b in zip(leaves(grads), leaves(deq)))
     den = sum(torch.sum(a.float() ** 2) for a in leaves(grads)) + 1e-12
     return torch.sqrt(num / den)
+
+
+def allreduce_compressed(grads: Any, ef: EFState, group=None
+                         ) -> tuple[Any, EFState]:
+    """The compressed data-parallel gradient all-reduce: each rank
+    quantizes its own gradients (:func:`compress_grads`, error feedback
+    kept per rank), dequantizes them, and the ranks of ``group`` average
+    the dequantized values (``all_reduce`` SUM, divided by the group's
+    size).  Returns ``(the mean tree, this rank's new EFState)``."""
+    import torch.distributed as dist
+    q, s, ef2 = compress_grads(grads, ef)
+    deq = decompress_grads(q, s)
+    n = dist.get_world_size(group)
+
+    def mean(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x / n
+    return tree_map(mean, deq), ef2

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 from repro_torch.kernels.gather_cache import ref
 
 _P = ctypes.c_void_p
@@ -201,7 +201,7 @@ def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
     cache, ids = _flat_ids(cache, ids)
     m, s = ids.numel(), cache.shape[0]
     staged = _pick_route(route, m, s, not cache.is_cuda)
-    if ids.device.type == "cpu":
+    if ids.device.type in PLAIN_DEVICES:
         if fetched is not None:
             fetched += ref.rows_read(ids, s, staged)
         rows = ref.gather_rows_ref(cache, ids)
@@ -259,7 +259,7 @@ def gather_rows_raw(cache: torch.Tensor, scales: torch.Tensor | None,
         raise ValueError("gather_rows_raw: scales must be f16 [..., 1], one "
                          "per row of the cache")
     D = cache.shape[-1]
-    if ids.device.type == "cpu":
+    if ids.device.type in PLAIN_DEVICES:
         if fetched is not None:
             fetched += ref.rows_read(ids, cache.shape[0], False)
         rows, sc = ref.gather_rows_raw_ref(cache, scales, ids)
@@ -304,7 +304,7 @@ def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
     if rows.dtype != dst.dtype and not _is_float(dst.dtype):
         raise TypeError(f"scatter_rows: {rows.dtype} rows into a "
                         f"{dst.dtype} destination; quantize them first")
-    if rows.device.type == "cpu":
+    if rows.device.type in PLAIN_DEVICES:
         return ref.scatter_rows_ref(dst, tgt, rows)
     if rows.device.type != "cuda" or tgt.device != rows.device:
         raise ValueError("scatter_rows: rows and tgt must share a CUDA device")
@@ -349,7 +349,7 @@ def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
     the staged route widens each distinct row once."""
     _check_quant(cache, scales, out_dtype, "gather_rows_dequant")
     m, s = ids.numel(), cache.shape[0]
-    if ids.device.type == "cpu":
+    if ids.device.type in PLAIN_DEVICES:
         if fetched is not None:
             fetched += ref.rows_read(ids, s, staged_route(m, s))
         rows = ref.gather_rows_dequant_ref(cache, scales, ids, out_dtype)
@@ -473,7 +473,7 @@ def gather_pages(cache: torch.Tensor, block_ids: torch.Tensor,
     s3 = None if scales is None else _check_scales(scales, c3,
                                                    "gather_pages")
     dev = block_ids.device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         got = ref.gather_pages_ref(c3, ids, block_rows)
         got_s = None if s3 is None else ref.gather_pages_ref(s3, ids,
                                                              block_rows)
@@ -522,7 +522,7 @@ def put_pages(dst: torch.Tensor, dst_ids: torch.Tensor, src: torch.Tensor,
     nb = src.shape[1] // block_rows
     ids = dst_ids.to(torch.int64)
     ids = (ids if ids.dim() == 2 else ids[None]).expand(Lh, nb).contiguous()
-    if ids.device.type == "cpu":
+    if ids.device.type in PLAIN_DEVICES:
         ref.put_pages_ref(dst, ids, src, block_rows)
         if dst_scales is not None:
             ref.put_pages_ref(dst_scales, ids, src_scales, block_rows)
@@ -553,7 +553,7 @@ def gather_pages_dequant(cache: torch.Tensor, scales: torch.Tensor,
     c3, ids, npages = _page_args(cache, block_ids, block_rows)
     Lh, S, D = c3.shape
     s3 = scales.reshape(Lh, S, 1)
-    if block_ids.device.type == "cpu":
+    if block_ids.device.type in PLAIN_DEVICES:
         out = ref.gather_pages_dequant_ref(c3, s3, ids, block_rows,
                                            out_dtype)
     else:

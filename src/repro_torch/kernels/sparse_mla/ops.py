@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 from repro_torch.kernels.sparse_mla import ref
 
 _P = ctypes.c_void_p
@@ -140,7 +140,7 @@ def tc_splits(q_comb: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
 def merge_splits(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
     """Combine the partials of disjoint K splits stacked on dim 0 (o
     [S,...,rank], m / l [S,...] fp32) into one ``(o, m, l)``."""
-    if o.device.type == "cpu":
+    if o.device.type in PLAIN_DEVICES:
         return ref.merge_splits_ref(o, m, l)
     if o.device.type != "cuda":
         raise ValueError(f"merge_splits: unsupported device {o.device}")
@@ -177,7 +177,7 @@ def partial_attend(q_comb: torch.Tensor, rows: torch.Tensor,
     """
     from repro_torch.models.mla import Partial
     B, Q, H, D = q_comb.shape
-    if q_comb.device.type == "cpu":
+    if q_comb.device.type in PLAIN_DEVICES:
         if rows.dim() == 3:
             rows = rows[:, None].expand(B, Q, *rows.shape[1:])
         if valid.dim() == 2:

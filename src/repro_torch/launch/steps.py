@@ -8,9 +8,13 @@ mode does not run; V3.2's indexer, behind the boolean DSA mask), as
 ``jax.value_and_grad`` gives them, so AdamW decays those leaves and steps
 their moments exactly as the reference does.
 
-The reference's dry-run half (``input_specs``, ``abstract_caches``,
-``abstract_state``, ``dp_degree``, ``auto_accum``, ``make_step``) rests on
-its sharding context and is not ported yet.
+The dry-run half builds every cell's abstract arguments
+(:func:`input_specs`, :func:`abstract_caches`, :func:`abstract_state`):
+``meta`` tensors, DTensors on ``meta`` under the active sharding context
+(:mod:`repro_torch.distributed.sharding`), so nothing is allocated;
+:func:`make_step` picks the cell's step (train steps accumulate over
+:func:`auto_accum` microbatches).  Token ids, positions and ``lens`` are
+int64, the dtypes the port's steps take (the reference's are int32).
 """
 
 from __future__ import annotations
@@ -19,11 +23,126 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.cache import latent_cache as LC
+from repro_torch.configs.base import ArchConfig, ShapeCell, ess_enabled
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
+from repro_torch.models.params import abstract_params, model_def
 from repro_torch.serving import engine as E
-from repro_torch.training.optimizer import AdamWConfig, adamw_update
-from repro_torch.training.tree import leaves, unflatten
+from repro_torch.training.optimizer import (AdamWConfig, OptState,
+                                            adamw_update)
+from repro_torch.training.tree import leaves, tree_map, unflatten
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (the dry run)
+# ---------------------------------------------------------------------------
+
+def _dev(shape, dtype, *axes) -> torch.Tensor:
+    ctx = shd.current()
+    if ctx is None or ctx.mesh is None:
+        return shd.abstract(shape, dtype)
+    return shd.abstract(shape, dtype, ctx.sharding_for(tuple(shape), axes))
+
+
+def seq_axis_name(cell: ShapeCell) -> str | None:
+    """long_500k (batch 1) shards the *sequence* over the data axis (the
+    rules' ``seq_data``; :func:`abstract_caches` reads it from B)."""
+    return "seq" if cell.global_batch == 1 else None
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict[str, Any]:
+    """Abstract inputs of the cell's step (its batch dict)."""
+    B, S = cell.global_batch, cell.seq_len
+    bx = "batch" if B > 1 else None
+    i64, bf16 = torch.int64, torch.bfloat16
+    embeds = cfg.embedding_inputs and cfg.family != "audio"
+    if cell.kind in ("train", "prefill"):
+        sx = None if cell.kind == "train" else "seq"
+        specs: dict[str, Any] = {}
+        if embeds:
+            specs["inputs"] = _dev((B, S, cfg.d_model), bf16, bx, sx, None)
+        else:
+            specs["inputs"] = _dev((B, S), i64, bx, sx)
+        if cell.kind == "train":
+            specs["labels"] = _dev((B, S), i64, bx, None)
+        specs["positions"] = _dev((B, S), i64, bx, sx)
+        if cfg.family == "audio":
+            specs["enc_inputs"] = _dev((B, cfg.encdec.encoder_seq,
+                                        cfg.d_model), bf16, bx, None, None)
+        if cfg.mrope_sections is not None:
+            specs["mrope_positions"] = _dev((B, S, 3), i64, bx, None, None)
+        return specs
+    # decode: one new token against a seq_len cache
+    specs = {"caches": abstract_caches(cfg, B, S)}
+    if embeds:
+        specs["inputs"] = _dev((B, 1, cfg.d_model), bf16, bx, None, None)
+    else:
+        specs["inputs"] = _dev((B, 1), i64, bx, None)
+    specs["positions"] = _dev((B, 1), i64, bx, None)
+    return specs
+
+
+def abstract_caches(cfg: ArchConfig, B: int, S: int) -> Any:
+    """The decode cache tree as abstract leaves (:func:`~repro_torch
+    .models.transformer.cache_spec` on ``meta``), sharded under a context:
+
+    * batch over the data dimensions (``pod``, ``data``) when B > 1;
+    * KV heads over ``model`` when they divide it, else the cache's
+      *sequence* over ``model`` (flash-decoding style);
+    * B == 1 (long_500k): the sequence takes the data dimensions too;
+    * MLA's latent / indexer keys are head-shared: always sequence over
+      ``model``; with ESS the latent lives in the host tier instead
+      (:func:`~repro_torch.cache.latent_cache.abstract_ess_caches`)."""
+    if ess_enabled(cfg):
+        return LC.abstract_ess_caches(cfg, B, S)
+    concrete = T.cache_spec(cfg, B, S, device="meta")
+    ctx = shd.current()
+    if ctx is None or ctx.mesh is None:
+        return tree_map(lambda x: shd.abstract(x.shape, x.dtype), concrete)
+    names = set(ctx.mesh.mesh_dim_names)
+    sizes = shd.mesh_sizes(ctx.mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    model = "model" if "model" in names else None
+    batch_entry = data_axes if B > 1 else None
+    seq_data = data_axes if B == 1 else ()
+
+    def seq_entry(extra_model: bool):
+        ax = tuple(seq_data) + ((model,) if extra_model and model else ())
+        if not ax:
+            return None
+        return ax if len(ax) > 1 else ax[0]
+
+    def annotate(x):
+        return shd.abstract(x.shape, x.dtype, shd.NamedSharding(
+            ctx.mesh, shd.prune_spec(cache_spec_axes(x), tuple(x.shape),
+                                     ctx.mesh)))
+
+    def cache_spec_axes(x):
+        nd, shape = x.dim(), tuple(x.shape)
+        if nd == 1:                                     # lens
+            return (batch_entry,)
+        if nd == 5:
+            if shape[2] == S:                           # kv cache
+                kv_ok = model and shape[3] % sizes[model] == 0
+                return (None, batch_entry, seq_entry(not kv_ok),
+                        model if kv_ok else None, None)
+            if cfg.encdec is not None and shape[2] == cfg.encdec.encoder_seq:
+                kv_ok = model and shape[3] % sizes[model] == 0
+                return (None, batch_entry, None,
+                        model if kv_ok else None, None)
+            h_ok = model and shape[2] % sizes[model] == 0  # ssm [L,B,H,P,N]
+            return (None, batch_entry, model if h_ok else None, None, None)
+        if nd == 4:
+            if shape[2] == S:                           # latent/ikeys
+                return (None, batch_entry, seq_entry(True), None)
+            c_ok = model and shape[3] % sizes[model] == 0  # conv [L,B,W,C]
+            return (None, batch_entry, None, model if c_ok else None)
+        if nd == 3:
+            return (None, batch_entry, None)
+        return (None,) * nd
+
+    return tree_map(annotate, concrete)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -124,7 +243,7 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
     and the reference enables ESS on exactly those) through
     :func:`~repro_torch.serving.engine.ess_decode` (its ``ESSCaches``),
     the others through ``forward(mode="decode")``."""
-    if cfg.attn_kind == "mla" and cfg.dsa is not None:
+    if ess_enabled(cfg):
         def decode_step(params, batch):
             out = E.ess_decode(params, cfg, batch["inputs"],
                                batch["positions"], batch["caches"],
@@ -137,3 +256,45 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
                         mode="decode", caches=batch["caches"])
         return out.logits, out.caches
     return decode_step
+
+
+def dp_degree() -> int:
+    """Product of the mesh-dimension sizes the ``batch`` logical axis
+    maps to (1 outside a context)."""
+    return shd.logical_axis_size("batch")
+
+
+MICRO_SEQS = 4   # target sequences per device per microbatch
+
+
+def auto_accum(cell: ShapeCell) -> int:
+    b_loc = max(1, cell.global_batch // dp_degree())
+    return int(min(8, max(1, b_loc // MICRO_SEQS)))
+
+
+def make_step(cfg: ArchConfig, cell: ShapeCell) -> Callable:
+    """The cell's step: train (accumulating over :func:`auto_accum`
+    microbatches, updating in place as the reference's donated step),
+    prefill or decode."""
+    if cell.kind == "train":
+        return make_train_step(cfg, accum_steps=auto_accum(cell),
+                               donate=True)
+    if cell.kind == "prefill":
+        return make_prefill_step(cfg)
+    return make_decode_step(cfg)
+
+
+def abstract_state(cfg: ArchConfig, cell: ShapeCell):
+    """Abstract ``(params[, opt_state])`` under the active context: the
+    optimizer's moments fp32 with the parameters' shardings, its step an
+    int32 scalar."""
+    ctx = shd.current()
+    mesh = ctx.mesh if ctx else None
+    params = abstract_params(model_def(cfg), mesh, ctx.rules if ctx else {})
+    if cell.kind != "train":
+        return params, None
+    moments = [tree_map(lambda p: shd.abstract_like(p, torch.float32),
+                        params) for _ in range(2)]
+    opt = OptState(m=moments[0], v=moments[1], step=_dev((), torch.int32))
+    return params, opt
+

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import logical_axis_size, shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, _norm
 
@@ -51,15 +52,17 @@ def attn_def(cfg: ArchConfig) -> dict:
     encoder's output, :func:`cross_attention` wq (bq) and wo."""
     dt = cfg.param_dtype
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {"wq": ParamDef((d, H, hd), dt), "wk": ParamDef((d, KV, hd), dt),
-         "wv": ParamDef((d, KV, hd), dt), "wo": ParamDef((H, hd, d), dt)}
+    p = {"wq": ParamDef((d, H, hd), dt, axes=("embed", "heads", None)),
+         "wk": ParamDef((d, KV, hd), dt, axes=("embed", "kv", None)),
+         "wv": ParamDef((d, KV, hd), dt, axes=("embed", "kv", None)),
+         "wo": ParamDef((H, hd, d), dt, axes=("heads", None, "embed"))}
     if cfg.qkv_bias:
-        p["bq"] = ParamDef((H, hd), dt, "zeros")
-        p["bk"] = ParamDef((KV, hd), dt, "zeros")
-        p["bv"] = ParamDef((KV, hd), dt, "zeros")
+        p["bq"] = ParamDef((H, hd), dt, "zeros", ("heads", None))
+        p["bk"] = ParamDef((KV, hd), dt, "zeros", ("kv", None))
+        p["bv"] = ParamDef((KV, hd), dt, "zeros", ("kv", None))
     if cfg.qk_norm:
-        p["q_norm"] = _norm(hd, dt)
-        p["k_norm"] = _norm(hd, dt)
+        p["q_norm"] = _norm(hd, dt, None)
+        p["k_norm"] = _norm(hd, dt, None)
     return p
 
 
@@ -110,9 +113,20 @@ def _scale(cfg: ArchConfig) -> float:
     return cfg.query_scale or cfg.head_dim ** -0.5
 
 
+def kv_split(kv: int) -> bool:
+    """Whether ``kv`` heads split over the logical ``kv`` axis's mesh
+    dimensions (always outside a sharding context)."""
+    n = logical_axis_size("kv")
+    return kv % max(1, n) == 0 and kv >= n
+
+
 def _grouped_q(q: torch.Tensor, kv: int) -> torch.Tensor:
-    """q [B,Sq,H,hd] -> [B*KV, G*Sq, hd] (rows g-major, then queries)."""
+    """q [B,Sq,H,hd] -> [B*KV, G*Sq, hd] (rows g-major, then queries).
+    Under a sharding context the grouped view keeps the batch split and
+    the heads' where the kv heads split too (the queries' sequence merges
+    with the group dim: whole)."""
     B, Sq, H, hd = q.shape
+    q = shard(q, "batch", None, "heads" if kv_split(kv) else None, None)
     return q.reshape(B, Sq, kv, H // kv, hd).permute(0, 2, 3, 1, 4).reshape(
         B * kv, (H // kv) * Sq, hd)
 
@@ -218,7 +232,14 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     # (rows KV*hd apart), so the cache is read once and never copied
     s = torch.stack([L.bmm_f32(qg[:, j], k_cache[:, :, j].transpose(1, 2))
                      for j in range(KV)], 1)               # [B,KV,G*Q,S]
-    s = L.softcap(s.view(B, H, Q, S) * scale, attn_cap) + bias
+    s = s.view(B, H, Q, S)
+    # the scores take the cache's layout: heads where the kv heads split,
+    # else the cache's sequence (launch/steps.annotate)
+    if kv_split(KV):
+        s = shard(s, "batch", "heads", None, None)
+    else:
+        s = shard(s, "batch", None, None, "seq_sp")
+    s = L.softcap(s * scale, attn_cap) + bias
     w = torch.softmax(s, dim=-1).to(w_dtype).view(B, KV, -1, S)
     o = torch.stack([L.bmm_f32(w[:, j], v_cache[:, :, j])
                      for j in range(KV)], 1)               # [B,KV,G*Q,hd]
@@ -252,6 +273,14 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
     scale = _scale(cfg)
     q, k, v = project_qkv(p, cfg, x, positions, rope_theta=rope_theta,
                           mrope_positions=mrope_positions)
+    if cfg.num_heads % max(1, logical_axis_size("heads")) == 0:
+        q = shard(q, "batch", None, "heads", None)
+        k = shard(k, "batch", None, "kv", None)
+        v = shard(v, "batch", None, "kv", None)
+    else:
+        # heads do not divide the model axis (whisper's 20 on 16): shard
+        # the query sequence instead (k / v gathered, Megatron-SP style)
+        q = shard(q, "batch", "seq_sp", None, None)
     if mode == "decode":
         bias = causal_mask_bias(positions[:, None, :],
                                 cache_positions[:, None, :], window)
@@ -269,6 +298,7 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
                       scale, cfg.attn_softcap)
     else:
         raise ValueError(f"mode={mode!r}: train | prefill | decode")
+    o = shard(o, "batch", None, "heads", None)
     return AttnOutput(L.proj(o, p["wo"], 2), k, v)
 
 

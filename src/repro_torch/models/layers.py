@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import fit_unflatten, shard
 from repro_torch.models.params import ParamDef
 
 
@@ -25,8 +26,8 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
 
 def layernorm_def(dim: int, dtype=torch.float32) -> dict:
     """Scale ``w`` (ones) and bias ``b`` (zeros) of :func:`layernorm`."""
-    return {"w": ParamDef((dim,), dtype, "ones"),
-            "b": ParamDef((dim,), dtype, "zeros")}
+    return {"w": ParamDef((dim,), dtype, "ones", ("embed",)),
+            "b": ParamDef((dim,), dtype, "zeros", ("embed",))}
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -64,6 +65,8 @@ def proj(x: torch.Tensor, w: torch.Tensor, n: int = 1) -> torch.Tensor:
     for s in w.shape[:n]:
         k *= s
     out = x.reshape(-1, k) @ w.reshape(k, -1)
+    if w.dim() > n + 1:
+        out = fit_unflatten(out, 1, w.shape[n])
     return out.view(*x.shape[:x.dim() - n], *w.shape[n:])
 
 
@@ -171,6 +174,7 @@ def mlp(p: dict, x: torch.Tensor, act_name: str = "silu") -> torch.Tensor:
         h = act(act_name, x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         h = act(act_name, x @ p["wi"])
+    h = shard(h, "batch", None, "ff") if h.dim() == 3 else h
     return h @ p["wo"]
 
 

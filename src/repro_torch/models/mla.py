@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.indexer import ops as idx_ops
 from repro_torch.kernels.indexer import ref as idx_ref
 from repro_torch.kernels.sparse_mla import ops as sk_ops
@@ -263,6 +264,7 @@ def mla_train_attend(p: dict, pi: dict | None, cfg: ArchConfig,
     S = x.shape[1]
     lat = latent_entries(p, cfg, x, positions)                  # [B,S,D]
     q_comb = absorbed_query(p, cfg, x, positions)               # [B,S,H,D]
+    q_comb = shard(q_comb, "batch", None, "heads", None)
     s = torch.einsum("bqhd,bkd->bhqk", q_comb.float(),
                      lat.float()) * mla_scale(cfg)
     causal = positions[:, None, :, None] >= positions[:, None, None, :]
@@ -334,7 +336,8 @@ def _prefill_ids(p, pi, cfg, x, positions, lat, ikeys):
         causal = positions[:, None, :] <= ps[:, :, None]        # [B,C,S]
         iq = indexer_query(pi, xs)
         _, ids = idx_ops.topk_select(iq.q, iq.w, ikeys, causal, k)
-        q_comb = absorbed_query(p, cfg, xs, ps)
+        q_comb = shard(absorbed_query(p, cfg, xs, ps),
+                       "batch", None, "heads", None)
         o_lat = sk_ops.sparse_mla_gather_attend(
             q_comb, lat, ids, causal, mla_scale(cfg), cfg.mla.kv_lora_rank)
         outs.append(output_proj(p, cfg, o_lat.to(x.dtype)))

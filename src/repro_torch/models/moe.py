@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.mla import topk_desc
 
@@ -93,8 +94,10 @@ def _moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                        E * capacity)
     xin = x2.new_zeros((E * capacity + 1, d))
     xin[slot] = x2[:, None].expand(T, K, d).reshape(T * K, d)
-    xin = xin[:E * capacity].view(E, capacity, d)
+    xin = shard(xin[:E * capacity].view(E, capacity, d), "experts", None,
+                None)
     h = L.silu(torch.bmm(xin, p["w_gate"])) * torch.bmm(xin, p["w_up"])
+    h = shard(h, "experts", None, "ff")
     out_e = torch.bmm(h, p["w_down"]).view(E * capacity, d)
     out_e = torch.cat([out_e, out_e.new_zeros((1, d))])      # drop row -> 0
     y = (out_e[slot].view(T, K, d).float() * w[..., None]).sum(1)

@@ -14,6 +14,13 @@ names and shapes: ``embed`` (absent under ``embedding_inputs``),
 
 * :func:`from_jax_params` carries the reference's own parameters across
   (handed over as nested dicts of numpy arrays), bit for bit.
+* Every leaf carries the reference's *logical* axes (``embed``, ``ff``,
+  ``heads``, ``kv``, ``vocab``, ``experts``, ``lora``, ``idx``, the
+  stacked ``layers``; ``None`` for a dim no rule shards):
+  :func:`axes_to_pspec` / :func:`param_pspecs` map them to a mesh spec
+  under a rule profile (:mod:`repro_torch.distributed.sharding`), and
+  :func:`abstract_params` builds the tree on the ``meta`` device (as
+  DTensors on a mesh), allocating nothing.
 * :func:`init_params` builds the same tree on the card with the same
   init families (its random numbers differ from JAX's: a
   ``torch.Generator`` is not a JAX key).  The MTP modules draw from a
@@ -36,25 +43,95 @@ from repro_torch.configs.base import ArchConfig
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """One leaf: shape, dtype and init family (normal | zeros | ones |
-    embed)."""
+    """One leaf: shape, dtype, init family (normal | zeros | ones | embed)
+    and logical sharding axes (one a dim, or ``()``: none named)."""
     shape: tuple[int, ...]
     dtype: Any
     init: str = "normal"
+    axes: tuple[str | None, ...] = ()
     scale: float | None = None
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank != shape {self.shape} rank")
+
+
+def map_defs(fn, defs):
+    """``fn`` over the leaves of a definition tree (sorted keys: the
+    reference's flatten order)."""
+    if isinstance(defs, dict):
+        return {k: map_defs(fn, defs[k]) for k in sorted(defs)}
+    return fn(defs)
+
+
+def stack_defs(defs, n: int, axis_name: str | None = "layers"):
+    """Add a leading stacked dim of ``n`` (logical axis ``axis_name``)."""
+    def one(d: ParamDef) -> ParamDef:
+        return dataclasses.replace(
+            d, shape=(n,) + d.shape,
+            axes=(axis_name,) + (d.axes or (None,) * len(d.shape)))
+    return map_defs(one, defs)
+
+
+def axes_to_pspec(axes, rules: dict) -> tuple:
+    """Logical axes -> a mesh spec (a tuple of ``None``, a mesh-dimension
+    name or a tuple of names, trailing ``None`` dropped) under ``rules``
+    (logical name -> mesh name, tuple of names, or None).  A mesh
+    dimension already taken by an earlier dim is dropped: one may appear
+    at most once in a spec."""
+    used: set[str] = set()
+    out: list = []
+    for ax in axes or ():
+        r = rules.get(ax) if ax is not None else None
+        if r is None:
+            out.append(None)
+            continue
+        cand = r if isinstance(r, tuple) else (r,)
+        keep = tuple(m for m in cand if m not in used)
+        used.update(keep)
+        out.append(None if not keep else keep[0] if len(keep) == 1
+                   else keep)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def param_pspecs(defs, rules: dict):
+    """The mesh spec of every leaf under ``rules``."""
+    return map_defs(lambda d: axes_to_pspec(d.axes, rules), defs)
+
+
+def abstract_params(defs, mesh=None, rules: dict | None = None,
+                    memory_kind: str | None = None):
+    """The tree as ``meta`` tensors (no allocation): without a mesh plain
+    meta tensors of the global shapes; with one, DTensors on ``meta``
+    whose placements are the leaves' pruned specs under ``rules``
+    (:func:`repro_torch.distributed.sharding.abstract`)."""
+    from repro_torch.distributed import sharding as shd
+
+    def one(d: ParamDef):
+        if mesh is None:
+            return shd.abstract(d.shape, d.dtype)
+        spec = shd.prune_spec(axes_to_pspec(d.axes, rules or {}), d.shape,
+                              mesh)
+        return shd.abstract(d.shape, d.dtype,
+                            shd.NamedSharding(mesh, spec, memory_kind))
+    return map_defs(one, defs)
 
 
 # ---------------------------------------------------------------------------
 # Definition tree (same keys / shapes / families as the reference)
 # ---------------------------------------------------------------------------
 
-def _norm(dim: int, dt) -> ParamDef:
-    return ParamDef((dim,), dt, "zeros")           # zero-centred (1 + w)
+def _norm(dim: int, dt, axis: str | None = "embed") -> ParamDef:
+    return ParamDef((dim,), dt, "zeros", (axis,))   # zero-centred (1 + w)
 
 
 def _mlp_def(d: int, f: int, dt) -> dict:
-    return {"wo": ParamDef((f, d), dt), "wi_gate": ParamDef((d, f), dt),
-            "wi_up": ParamDef((d, f), dt)}
+    return {"wo": ParamDef((f, d), dt, axes=("ff", "embed")),
+            "wi_gate": ParamDef((d, f), dt, axes=("embed", "ff")),
+            "wi_up": ParamDef((d, f), dt, axes=("embed", "ff"))}
 
 
 def _mla_def(cfg: ArchConfig) -> dict:
@@ -62,34 +139,42 @@ def _mla_def(cfg: ArchConfig) -> dict:
     d, H = cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "w_dq": ParamDef((d, m.q_lora_rank), dt),
-        "q_norm": _norm(m.q_lora_rank, dt),
-        "w_uq": ParamDef((m.q_lora_rank, H, qk), dt),
-        "w_dkv": ParamDef((d, m.kv_lora_rank), dt),
-        "kv_norm": _norm(m.kv_lora_rank, dt),
-        "w_kr": ParamDef((d, m.qk_rope_head_dim), dt),
-        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim), dt),
-        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim), dt),
-        "wo": ParamDef((H, m.v_head_dim, d), dt),
+        "w_dq": ParamDef((d, m.q_lora_rank), dt, axes=("embed", "lora")),
+        "q_norm": _norm(m.q_lora_rank, dt, "lora"),
+        "w_uq": ParamDef((m.q_lora_rank, H, qk), dt,
+                         axes=("lora", "heads", None)),
+        "w_dkv": ParamDef((d, m.kv_lora_rank), dt, axes=("embed", "lora")),
+        "kv_norm": _norm(m.kv_lora_rank, dt, "lora"),
+        "w_kr": ParamDef((d, m.qk_rope_head_dim), dt, axes=("embed", None)),
+        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim), dt,
+                         axes=("lora", "heads", None)),
+        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim), dt,
+                         axes=("lora", "heads", None)),
+        "wo": ParamDef((H, m.v_head_dim, d), dt,
+                       axes=("heads", None, "embed")),
     }
 
 
 def _indexer_def(cfg: ArchConfig) -> dict:
     i, dt, d = cfg.dsa, cfg.param_dtype, cfg.d_model
-    return {"w_iq": ParamDef((d, i.index_heads, i.index_dim), dt),
-            "w_ik": ParamDef((d, i.index_dim), dt),
-            "w_iw": ParamDef((d, i.index_heads), dt, scale=0.02)}
+    return {"w_iq": ParamDef((d, i.index_heads, i.index_dim), dt,
+                             axes=("embed", "idx", None)),
+            "w_ik": ParamDef((d, i.index_dim), dt, axes=("embed", None)),
+            "w_iw": ParamDef((d, i.index_heads), dt, axes=("embed", "idx"),
+                             scale=0.02)}
 
 
 def _moe_def(cfg: ArchConfig) -> dict:
     mo, dt = cfg.moe, cfg.param_dtype
     d, E, f = cfg.d_model, mo.num_experts, mo.d_expert
-    p = {"router": ParamDef((d, E), torch.float32),
-         "w_gate": ParamDef((E, d, f), dt),
-         "w_up": ParamDef((E, d, f), dt),
-         "w_down": ParamDef((E, f, d), dt)}
+    p = {"router": ParamDef((d, E), torch.float32,
+                            axes=("embed", "experts")),
+         "w_gate": ParamDef((E, d, f), dt, axes=("experts", "embed", "ff")),
+         "w_up": ParamDef((E, d, f), dt, axes=("experts", "embed", "ff")),
+         "w_down": ParamDef((E, f, d), dt, axes=("experts", "ff", "embed"))}
     if mo.router_bias:
-        p["router_bias"] = ParamDef((E,), torch.float32, "zeros")
+        p["router_bias"] = ParamDef((E,), torch.float32, "zeros",
+                                    ("experts",))
     if mo.num_shared:
         p["shared"] = _mlp_def(d, f * mo.num_shared, dt)
     return p
@@ -118,17 +203,12 @@ def _block_def(cfg: ArchConfig, *, moe: bool, dense_ff: int | None = None,
     return p
 
 
-def _stack(defs: dict, n: int) -> dict:
-    return {k: (_stack(v, n) if isinstance(v, dict) else
-                dataclasses.replace(v, shape=(n,) + v.shape))
-            for k, v in defs.items()}
-
-
 def model_def(cfg: ArchConfig) -> dict:
     """Definition tree of the whole model (the reference's layout): the
     ``lm`` stack's ``dense_layers`` / ``layers`` / ``mtp``; the SSM stack's
     ``layers``; the hybrid's ``layers`` and its ``shared_attn`` blocks
-    (stacked on an axis of ``num_shared_attn``); the encoder-decoder's
+    (stacked on an unnamed axis of ``num_shared_attn``); the
+    encoder-decoder's
     ``encoder``, ``decoder`` (with cross-attention) and ``enc_norm``."""
     from repro_torch.models.blocks import ssm_block_def
     from repro_torch.models.transformer import stack_plan
@@ -136,35 +216,39 @@ def model_def(cfg: ArchConfig) -> dict:
     kind = stack_plan(cfg).kind
     defs: dict[str, Any] = {"final_norm": _norm(cfg.d_model, dt)}
     if not cfg.embedding_inputs or kind == "encdec":
-        defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
+        defs["embed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed",
+                                 ("vocab", "embed"))
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt, "embed")
+        defs["unembed"] = ParamDef((cfg.vocab_size, cfg.d_model), dt,
+                                   "embed", ("vocab", "embed"))
     if kind == "ssm":
-        defs["layers"] = _stack(ssm_block_def(cfg), cfg.num_layers)
+        defs["layers"] = stack_defs(ssm_block_def(cfg), cfg.num_layers)
         return defs
     if kind == "hybrid":
-        defs["layers"] = _stack(ssm_block_def(cfg), cfg.num_layers)
-        defs["shared_attn"] = _stack(_block_def(cfg, moe=False),
-                                     cfg.hybrid.num_shared_attn)
+        defs["layers"] = stack_defs(ssm_block_def(cfg), cfg.num_layers)
+        defs["shared_attn"] = stack_defs(_block_def(cfg, moe=False),
+                                         cfg.hybrid.num_shared_attn,
+                                         axis_name=None)
         return defs
     if kind == "encdec":
-        defs["encoder"] = _stack(_block_def(cfg, moe=False),
-                                 cfg.encdec.encoder_layers)
-        defs["decoder"] = _stack(_block_def(cfg, moe=False, cross=True),
-                                 cfg.num_layers)
+        defs["encoder"] = stack_defs(_block_def(cfg, moe=False),
+                                     cfg.encdec.encoder_layers)
+        defs["decoder"] = stack_defs(_block_def(cfg, moe=False, cross=True),
+                                     cfg.num_layers)
         defs["enc_norm"] = _norm(cfg.d_model, dt)
         return defs
     nd = cfg.moe.first_dense_layers if cfg.moe else 0
     if nd:
-        defs["dense_layers"] = _stack(
+        defs["dense_layers"] = stack_defs(
             _block_def(cfg, moe=False,
                        dense_ff=cfg.moe.dense_d_ff or cfg.d_ff), nd)
-    defs["layers"] = _stack(_block_def(cfg, moe=cfg.moe is not None),
-                            cfg.num_layers - nd)
+    defs["layers"] = stack_defs(_block_def(cfg, moe=cfg.moe is not None),
+                                cfg.num_layers - nd)
     if cfg.mtp_depth:
-        defs["mtp"] = _stack({
+        defs["mtp"] = stack_defs({
             "ln_h": _norm(cfg.d_model, dt), "ln_e": _norm(cfg.d_model, dt),
-            "proj": ParamDef((2 * cfg.d_model, cfg.d_model), dt),
+            "proj": ParamDef((2 * cfg.d_model, cfg.d_model), dt,
+                             axes=(None, "embed")),
             "block": _block_def(cfg, moe=cfg.moe is not None)},
             cfg.mtp_depth)
     return defs
@@ -209,12 +293,6 @@ def _materialize(d: ParamDef, g: torch.Generator, device) -> torch.Tensor:
     return out
 
 
-def _map_defs(fn, defs):
-    if isinstance(defs, dict):
-        return {k: _map_defs(fn, defs[k]) for k in sorted(defs)}
-    return fn(defs)
-
-
 # the MTP modules' generator is seeded with the model's seed plus this
 MTP_SEED_OFFSET = 1 << 20
 
@@ -238,7 +316,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0,
         else generator
     defs = model_def(cfg)
     mtp = defs.pop("mtp", None)
-    params = _map_defs(lambda d: _materialize(d, g, dev), defs)
+    params = map_defs(lambda d: _materialize(d, g, dev), defs)
     if mtp is not None:
         seed = generator if isinstance(generator, int) \
             else generator.initial_seed()
@@ -254,7 +332,7 @@ def init_mtp_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     if not cfg.mtp_depth:
         raise ValueError(f"{cfg.name} has no MTP module (mtp_depth 0)")
     g = _generator(seed + MTP_SEED_OFFSET, dev)
-    return _map_defs(lambda d: _materialize(d, g, dev),
+    return map_defs(lambda d: _materialize(d, g, dev),
                      model_def(cfg)["mtp"])
 
 

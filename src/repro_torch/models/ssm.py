@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef
 
@@ -36,17 +37,19 @@ def ssm_def(cfg: ArchConfig) -> dict:
     s, dt, d = cfg.ssm, cfg.param_dtype, cfg.d_model
     din, H, gn = s.d_inner(d), s.nheads(d), s.ngroups * s.state_dim
     return {
-        "w_z": ParamDef((d, din), dt), "w_x": ParamDef((d, din), dt),
-        "w_B": ParamDef((d, gn), dt), "w_C": ParamDef((d, gn), dt),
-        "w_dt": ParamDef((d, H), dt),
-        "dt_bias": ParamDef((H,), torch.float32, "zeros"),
-        "A_log": ParamDef((H,), torch.float32, "zeros"),
-        "D": ParamDef((H,), torch.float32, "ones"),
-        "conv_x": ParamDef((s.conv_width, din), dt),
+        "w_z": ParamDef((d, din), dt, axes=("embed", "ff")),
+        "w_x": ParamDef((d, din), dt, axes=("embed", "ff")),
+        "w_B": ParamDef((d, gn), dt, axes=("embed", None)),
+        "w_C": ParamDef((d, gn), dt, axes=("embed", None)),
+        "w_dt": ParamDef((d, H), dt, axes=("embed", "heads")),
+        "dt_bias": ParamDef((H,), torch.float32, "zeros", ("heads",)),
+        "A_log": ParamDef((H,), torch.float32, "zeros", ("heads",)),
+        "D": ParamDef((H,), torch.float32, "ones", ("heads",)),
+        "conv_x": ParamDef((s.conv_width, din), dt, axes=(None, "ff")),
         "conv_B": ParamDef((s.conv_width, gn), dt),
         "conv_C": ParamDef((s.conv_width, gn), dt),
-        "norm": ParamDef((din,), dt, "zeros"),
-        "w_out": ParamDef((din, d), dt),
+        "norm": ParamDef((din,), dt, "zeros", ("ff",)),
+        "w_out": ParamDef((din, d), dt, axes=("ff", "embed")),
     }
 
 
@@ -233,6 +236,7 @@ def ssm_forward(p: dict, cfg: ArchConfig, u: torch.Tensor,
         y = torch.stack(ys, 1)
     elif mode in ("train", "prefill"):
         xh = L.silu(_causal_conv(xr, p["conv_x"])).view(B_, S, H, P)
+        xh = shard(xh, "batch", None, "heads", None)
         Bh = L.silu(_causal_conv(Br, p["conv_B"])).view(B_, S, g, N)
         Ch = L.silu(_causal_conv(Cr, p["conv_C"])).view(B_, S, g, N)
         a_dt = dt * A                                            # [B,S,H]

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -220,13 +221,14 @@ def _embed_in(params: dict, cfg: ArchConfig, inputs: torch.Tensor
     x = inputs if cfg.embedding_inputs else L.embed(params["embed"], inputs)
     if cfg.scale_embeddings:
         x = x * L.const(math.sqrt(cfg.d_model), x.dtype)
-    return x.to(cfg.param_dtype)
+    return shard(x.to(cfg.param_dtype), "batch", "seq_sp", "embed_act")
 
 
 def _unembed(params: dict, cfg: ArchConfig, x: torch.Tensor
              ) -> torch.Tensor:
     w = params["unembed"] if "unembed" in params else params["embed"]
-    return L.unembed(w, x, cap=cfg.logit_softcap)
+    return shard(L.unembed(w, x, cap=cfg.logit_softcap),
+                 "batch", "seq_sp", "vocab")
 
 
 def _cache_positions(csl: B.GQACache | None) -> torch.Tensor | None:
@@ -404,10 +406,11 @@ def _enc_layer(lp, cfg, e, epos, zero):
     """One encoder layer: dense unmasked attention, then the MLP."""
     h = L.rmsnorm(lp["ln1"], e, cfg.norm_eps)
     q, k, v = A.project_qkv(lp["attn"], cfg, h, epos)
+    q = shard(q, "batch", "seq_sp", None, None)
     o = A.mha_dense(q, k, v, zero, cfg.head_dim ** -0.5, None)
     e = e + L.proj(o, lp["attn"]["wo"], 2)
-    return e + L.mlp(lp["ffn"], L.rmsnorm(lp["ln2"], e, cfg.norm_eps),
-                     cfg.act)
+    e = e + L.mlp(lp["ffn"], L.rmsnorm(lp["ln2"], e, cfg.norm_eps), cfg.act)
+    return shard(e, "batch", "seq_sp", None)
 
 
 def _encode(params, cfg, enc_inputs, dtype, mode):
@@ -449,6 +452,7 @@ def _forward_encdec(params, cfg, x, positions, mode, caches, enc_inputs):
             kind="global", cache=csl, lens=lens,
             cache_positions=_cache_positions(csl),
             enc_kv=_layer_cache(enc_kv, i))
+        x = shard(x, "batch", "seq_sp", None)
         kvs.append(kv_new)
     if mode != "prefill":
         return x, {}

@@ -46,6 +46,7 @@ from repro_torch.core.overlap import (ESSLayerState, Fork, _attend_rows,
                                       ess_sparse_attention_staged,
                                       side_stream)
 from repro_torch.distributed import compression as cmp
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import blocks as MB
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
@@ -234,6 +235,7 @@ def ess_decode(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     synchronous round's."""
     B, Q = tokens.shape
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
+    x = shard(x, "batch", None, "embed_act")
     lens = caches.lens
     live = torch.ones((B,), dtype=torch.bool, device=tokens.device) \
         if slot_mask is None else slot_mask
@@ -358,6 +360,7 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     nv = C if n_valid is None else n_valid
     start = caches.lens[b0:b0 + Bc]                               # [Bc]
     x = L.embed(params["embed"], tokens).to(cfg.param_dtype)
+    x = shard(x, "batch", None, "embed_act")
     cpos = torch.arange(C, device=dev)
     widx = torch.where(cpos[None, :] < nv, start[:, None] + cpos[None, :],
                        -1)                                        # [Bc,C]

@@ -58,18 +58,25 @@ def _key(path: tuple) -> str:
 
 
 def to_host(leaf: Any) -> HostLeaf:
-    """A tensor (any device; the copy waits for it) or a host array."""
+    """A copy of a tensor (any device; the copy waits for it) or of a host
+    array, which owns its memory: an in-place update of the leaf after the
+    call leaves the snapshot as it was.  A CUDA tensor is copied once, by
+    ``.cpu()``; a CPU tensor, which ``.cpu()`` returns as it is, is
+    cloned."""
     if isinstance(leaf, HostLeaf):
         return leaf
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
+        if t.untyped_storage().data_ptr() == \
+                leaf.untyped_storage().data_ptr():
+            t = t.clone()
         name = str(t.dtype).removeprefix("torch.")
         if name in VIEW_DTYPES:
             view = VIEW_DTYPES[name][0]
             return HostLeaf(t.view(_INT_VIEW[t.element_size()]).numpy()
                             .view(view), name)
         return HostLeaf(t.numpy(), str(t.numpy().dtype))
-    arr = np.asarray(leaf, order="C")
+    arr = np.array(leaf, order="C", copy=True)
     return HostLeaf(arr, str(arr.dtype))
 
 

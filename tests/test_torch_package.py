@@ -214,7 +214,15 @@ def test_kernel_wrappers_raise_on_cuda_tensors_they_cannot_launch(name):
 
 
 def test_meta_tensors_are_refused():
+    """A meta tensor has no data to launch a kernel on: the wrapper
+    refuses it the kernel and takes its plain version (the dry run's
+    route, ``kernels.PLAIN_DEVICES``), counting no launch and returning a
+    meta tensor of the kernel's shape."""
     from repro_torch.kernels.gather_cache import ops as g
-    with pytest.raises(ValueError):
-        g.gather_rows(torch.zeros((4, 8), device="meta"),
-                      torch.zeros(2, dtype=torch.long, device="meta"))
+    n = (g.gather_rows.launches, g.gather_rows.launches_direct,
+         g.gather_rows.launches_staged)
+    out = g.gather_rows(torch.zeros((4, 8), device="meta"),
+                        torch.zeros(2, dtype=torch.long, device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 8)
+    assert (g.gather_rows.launches, g.gather_rows.launches_direct,
+            g.gather_rows.launches_staged) == n

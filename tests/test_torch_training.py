@@ -55,7 +55,7 @@ from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             global_norm, init_opt_state,
                                             lr_at)
 from repro_torch.training.train_loop import LoopConfig, train_loop
-from repro_torch.training.tree import flatten, leaves
+from repro_torch.training.tree import flatten, leaves, tree_map
 from test_torch_archs import _ref_params_f32, ref_compiled, ref_params
 
 pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
@@ -299,6 +299,29 @@ def test_checkpoint_roundtrip_integrity_and_gc(tmp_path):
     saver.save(gc_dir, 6, {"x": torch.ones(3)}, keep=2)
     saver.wait()
     assert ckpt.latest_step(gc_dir) == 6
+
+
+def test_async_save_snapshots_cpu_leaves_before_in_place_update(tmp_path):
+    """A CPU tree saved by ``AsyncSaver`` and then updated in place (as a
+    donated train step's AdamW does) restores its pre-save values bit for
+    bit: the snapshot owns its memory before the writer thread starts."""
+    g = torch.Generator().manual_seed(3)
+    tree = {"w": torch.randn((512, 1024), generator=g),
+            "b": torch.randn((4096,), generator=g).to(torch.bfloat16),
+            "t": torch.randn((64, 96), generator=g).t(),   # non-contiguous
+            "n": torch.arange(4096, dtype=torch.int32),
+            "opt": {"m": torch.randn((256, 256), generator=g),
+                    "step": torch.tensor(7, dtype=torch.int32)}}
+    before = tree_map(lambda t: t.clone(), tree)
+    saver = ckpt.AsyncSaver()
+    saver.save(str(tmp_path), 1, tree)
+    for leaf in flatten(tree):
+        leaf[1].add_(1)
+    saver.wait()
+    back = ckpt.restore(str(tmp_path), 1, tree)
+    for (p, want), (_, got) in zip(flatten(before), flatten(back)):
+        assert got.dtype == want.dtype, p
+        assert torch.equal(got, want), p
 
 
 def test_restore_places_leaves_by_device_fn(tmp_path):
