@@ -181,8 +181,16 @@ the script exits non-zero without a result line):
    runs it (4 requests, graph rounds) without and then inside
    ``use_sharding(make_host_mesh(), PROFILES[cfg.sharding_profile]
    (False))``: equal greedy streams, the rounds replayed from CUDA
-   graphs, the gather, indexer and sparse-MLA kernels launched; the
-   checks that need several ranks are printed as CPU-only.
+   graphs, the gather, indexer and sparse-MLA kernels launched.  Then
+   the ESS decode over two ranks on the one card
+   (:func:`two_rank_phase`): the serve model's 3 dense layers at
+   published widths, the phase's 4 requests run once on one rank, then
+   by two processes (a ``cpu:gloo,cuda:gloo`` group, a ``data 2 x model
+   1`` mesh, 2 slots and their own pinned tier shard a rank), prefill on
+   each slot's rank, eager decode rounds teacher-forced with the one-rank
+   stream: every rank launches the gather, indexer, sparse-MLA, merge and
+   scatter kernels and no collective, and its streams equal the one-rank
+   run's but for near-ties.
 
 The audits (``repro_torch.analysis.audit``; :func:`audit_run` in the
 session phases).  Every session run of ``graph_and_eager`` (A, B, E, C, F)
@@ -3348,6 +3356,12 @@ def archs_phase(torch, dev, args, card, counted, records):
 # the sharding phase (17): a world of one on the card
 SHARD_PROMPTS = (4096, 2048, 3000, 1000)
 SHARD_NEW = 16
+# its two-rank part: the serve model cut to its 3 dense layers (a MoE
+# layer's capacity dispatch spans the whole batch, so DTensor gathers its
+# routing across ranks, and DTensor's functional all-gather does not run
+# on a gloo group over CUDA tensors), two processes of 2 slots each
+SHARD_RANK_LAYERS = 3
+SHARD_WORLD = 2
 
 
 def sharding_phase(torch, dev, serve, args, card, counted):
@@ -3367,8 +3381,9 @@ def sharding_phase(torch, dev, serve, args, card, counted):
     ``use_sharding(host mesh, PROFILES[cfg.sharding_profile](False))``:
     the greedy streams must be equal, the context run's rounds replayed
     from CUDA graphs, and its gather, indexer and sparse-MLA launches
-    above 0.  The multi-rank checks run only on the CPU (8 gloo ranks,
-    the 512-rank fake group), printed as such."""
+    above 0.  Last, the ESS decode over two ranks on this card
+    (:func:`two_rank_phase`).  The other multi-rank checks run only on
+    the CPU (8 gloo ranks, the 512-rank fake group), printed as such."""
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding as shd
@@ -3438,13 +3453,14 @@ def sharding_phase(torch, dev, serve, args, card, counted):
         require(exact and err <= 0.02 * max(float(t.abs().max())
                                             for t in grads.values()),
                 "the compressed all-reduce is off")
-        print("sharding: ran on the CPU only (this card is a world of "
-              "one): pipeline_apply over 4 stages, sharded_flash_decode "
+        print("sharding: ran on the CPU only (NCCL takes one rank a "
+              "card): pipeline_apply over 4 stages, sharded_flash_decode "
               "over 8 shards and the compressed all-reduce over 8 ranks "
-              "(tests/test_torch_distributed.py, 8 gloo ranks); every "
-              "cell's shard shapes on the 16x16 and 2x16x16 meshes "
-              "(tests/test_torch_sharding.py) and the dry run "
-              "(tests/test_torch_dryrun.py; 512-rank fake group)",
+              "(tests/test_torch_distributed.py, 8 gloo ranks); the ESS "
+              "decode over data 2 x model 2 (tests/test_torch_ess_ranks.py, "
+              "4 gloo ranks); every cell's shard shapes on the 16x16 and "
+              "2x16x16 meshes (tests/test_torch_sharding.py) and the dry "
+              "run (tests/test_torch_dryrun.py; 512-rank fake group)",
               flush=True)
         del q, k, v, s, w, want, wl, x, got, grads, mean, deq
 
@@ -3496,8 +3512,288 @@ def sharding_phase(torch, dev, serve, args, card, counted):
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_rank_phase(torch, dev, serve, card, counted)
     print(f"sharding phase: {time.perf_counter() - t_phase:.1f} s  "
           f"[{card}]", flush=True)
+
+
+def shard_prefill(torch, E, params, cfg, caches, prompts, slots, dev):
+    """Each of ``slots`` prefilled alone, chunk by chunk, as a session's
+    bucketed prefill runs it (chunks of ``PREFILL_CHUNK``, a ragged last
+    chunk padded to its power-of-two bucket); returns ``(first tokens
+    {slot: token}, caches)``.  Over several ranks the caller passes its
+    own slots, and each chunk runs on this rank's tensors alone."""
+    from repro_torch.serving.step import chunk_bucket
+    firsts = {}
+    for slot in slots:
+        toks = torch.as_tensor(prompts[slot], device=dev).long()
+        n = toks.shape[1]
+        for c0 in range(0, n, PREFILL_CHUNK):
+            ck = min(PREFILL_CHUNK, n - c0)
+            C = chunk_bucket(ck, PREFILL_CHUNK)
+            t = torch.nn.functional.pad(toks[:, c0:c0 + ck], (0, C - ck))
+            last = c0 + ck >= n
+            lg, caches, _, _ = E.ess_prefill_chunk(
+                params, cfg, t, c0 + torch.arange(C, device=dev)[None],
+                caches, slot=slot, want_logits=last, n_valid=ck)
+        firsts[slot] = int(lg[0, ck - 1].argmax())
+    return firsts, caches
+
+
+def shard_rank_config(serve):
+    """The two-rank part's model: the serve's arguments, cut to its
+    dense layers."""
+    args = serve.build_parser().parse_args(
+        SERVE_ARGS + ["--layers", str(SHARD_RANK_LAYERS)])
+    return args, serve.config_from_args(args)
+
+
+def shard_rank_main(rank: int, world: int, d: str) -> int:
+    """One rank of :func:`two_rank_phase`, in its own process: joins the
+    group through a file store in ``d``, makes its caches (its 2 slots, its
+    pinned tier shard), prefills its own slots, then runs the decode
+    rounds teacher-forced with the one-rank stream, and writes its rows'
+    logits, launches, round times and collectives to ``d``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import counters
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import _counter_mode
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import distribute_params, init_params
+    from repro_torch.serving import engine as E
+
+    if not torch.cuda.is_available():
+        return fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("cpu:gloo,cuda:gloo",
+                            init_method=f"file://{d}/store", rank=rank,
+                            world_size=world)
+    try:
+        spec = json.loads(Path(d, "spec.json").read_text())
+        prompts = [np.asarray(p) for p in spec["prompts"]]
+        stream = np.asarray(spec["stream"])                # [R + 1, B]
+        args, cfg = shard_rank_config(serve)
+        mesh = make_mesh((world, 1), ("data", "model"), "cuda")
+        rules = shd.PROFILES["tp"](False)
+        out = {"rank": rank}
+        with shd.use_sharding(mesh, rules), implicit_replication(), \
+                torch.no_grad():
+            params = distribute_params(init_params(cfg, args.seed, dev),
+                                       cfg, mesh, rules)
+            B = len(prompts)
+            caches = LC.init_ess_caches(cfg, B, SESSION_MAX_SEQ, device=dev)
+            r0, nb = shd.batch_block(mesh, B)
+            out.update(rows=[r0, r0 + nb],
+                       tier=list(caches.host_latent.shape),
+                       tier_pinned=caches.host_latent.is_pinned(),
+                       tier_plain=type(caches.host_latent) is torch.Tensor,
+                       dtensor_caches=shd.is_dtensor(caches.lens))
+            before = counters.snapshot()
+            t0 = time.perf_counter()
+            firsts, caches = shard_prefill(torch, E, params, cfg, caches,
+                                           prompts, range(r0, r0 + nb), dev)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["firsts"] = [firsts[s_] for s_ in range(r0, r0 + nb)]
+            out["prefill_launches"] = {
+                k[0]: v for k, v in counters.diff(
+                    counters.snapshot(), before).items()
+                if k[1] == "launches"}
+            before = counters.snapshot()
+            logits, ms, colls = [], [], None
+            for r in range(len(stream) - 1):
+                tok = torch.as_tensor(stream[r], device=dev).long()
+                counter = _counter_mode() if r == 0 else \
+                    contextlib.nullcontext()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with counter:
+                    o = E.ess_decode(params, cfg, tok[:, None],
+                                     caches.lens[:, None], caches,
+                                     slot_mask=None)
+                    lo = shd.to_local_batch(o.logits)[:, 0]
+                torch.cuda.synchronize()
+                if r == 0:
+                    colls = dict(counter.coll_count)
+                else:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                caches = o.caches
+                logits.append(lo.float().cpu().numpy())
+            out["decode_launches"] = {
+                k[0]: v for k, v in counters.diff(
+                    counters.snapshot(), before).items()
+                if k[1] == "launches"}
+            out.update(round_ms=ms, collectives=colls)
+        n = out["decode_launches"]
+        print(f"sharding rank {rank} of {world}: slots {r0}-{r0 + nb - 1}, "
+              f"decode {np.mean(ms):.2f} ms/round (eager, rounds "
+              f"2-{len(ms) + 1}); launches gather_rows {n['gather_rows']}, "
+              f"indexer_scores {n['indexer_scores']}, sparse_mla_partial "
+              f"{n['partial_attend']}, sparse_mla_merge {n['merge_splits']}, "
+              f"scatter_rows {n['scatter_rows']}; collectives {colls}",
+              flush=True)
+        np.save(Path(d, f"logits_{rank}.npy"), np.stack(logits))
+        Path(d, f"rank_{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(torch, dev, serve, card, counted):
+    """Phase 17's two ranks on the one card.
+
+    The model: the serve's weights (``args.seed``) cut to its 3 dense
+    layers at published widths.  The phase's 4 requests, each slot
+    prefilled alone (:func:`shard_prefill`), then ``SHARD_NEW`` eager
+    decode rounds over the 4 slots, first on one rank here (the greedy
+    stream and its logits), then by ``SHARD_WORLD`` processes
+    (:func:`shard_rank_main`), a gloo group carrying CUDA tensors and a
+    ``data 2 x model 1`` mesh: each rank holds 2 slots, its own pinned
+    tier shard and DTensor caches, prefills its own slots and runs every
+    round teacher-forced with the one-rank stream.  Each rank must exit
+    0, launch the gather, indexer, sparse-MLA, merge and scatter kernels
+    in its decode rounds, issue no collective in a round, and keep its
+    logits within ``MONO_LOGIT_REL`` of the one-rank run's, greedy tokens
+    equal but where the one-rank top-2 gap is within the two runs' own
+    logit distance there (a near-tie)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+
+    from repro_torch.serving.scheduler import Request
+    args, cfg = shard_rank_config(serve)
+    prompts = session_prompts(cfg, [Request(rid=i, prompt_len=p,
+                                            max_new_tokens=SHARD_NEW)
+                                    for i, p in enumerate(SHARD_PROMPTS)])
+    B = len(prompts)
+    params = init_params(cfg, args.seed, dev)
+    caches = LC.init_ess_caches(cfg, B, SESSION_MAX_SEQ, device=dev)
+    with torch.no_grad():
+        firsts, caches = shard_prefill(torch, E, params, cfg, caches,
+                                       prompts, range(B), dev)
+        stream = [[firsts[b] for b in range(B)]]
+        ref, ms = [], []
+
+        def rounds():
+            nonlocal caches
+            for r in range(SHARD_NEW):
+                tok = torch.tensor(stream[r], device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = E.ess_decode(params, cfg, tok[:, None],
+                                 caches.lens[:, None], caches,
+                                 slot_mask=None)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                caches = o.caches
+                ref.append(o.logits[:, 0].float().cpu().numpy())
+                stream.append(ref[-1].argmax(-1).tolist())
+        _, n1 = counted(rounds)
+    ref = np.stack(ref)                                   # [R, B, V]
+    print(f"sharding two ranks: one rank first, {cfg.num_layers} dense "
+          f"layers at published widths, {B} slots, prompts "
+          f"{SHARD_PROMPTS}, {SHARD_NEW} eager rounds: {np.mean(ms[1:]):.2f}"
+          f" ms/round (rounds 2-{SHARD_NEW}); launches gather_rows "
+          f"{n1['gather_rows']}, indexer_scores {n1['indexer_scores']}, "
+          f"sparse_mla_partial {n1['sparse_mla_partial']}, sparse_mla_merge "
+          f"{n1['sparse_mla_merge']}, scatter_rows {n1['scatter_rows']}  "
+          f"[{card}]", flush=True)
+    del params, caches
+    torch.cuda.empty_cache()
+
+    d = tempfile.mkdtemp(prefix="ess_ranks_")
+    Path(d, "spec.json").write_text(json.dumps(
+        {"prompts": [p.tolist() for p in prompts], "stream": stream}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(Path(d, f"rank_{r}.log"), "w") for r in range(SHARD_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+         str(r), str(SHARD_WORLD), d], env=env, cwd=str(ROOT), stdout=log,
+        stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        log = Path(d, f"rank_{r}.log").read_text()
+        print(log[-4000:] if rc else "\n".join(
+            f"{line}  [{card}]" for line in log.splitlines()
+            if line.startswith("sharding rank")), flush=True)
+        require(rc == 0, f"sharding two ranks: rank {r} exited {rc} (the "
+                         f"world must form; there is no world of one "
+                         f"instead)")
+    need = ("gather_rows", "indexer_scores", "partial_attend",
+            "merge_splits", "scatter_rows")
+    for r in range(SHARD_WORLD):
+        got = json.loads(Path(d, f"rank_{r}.json").read_text())
+        lg = np.load(Path(d, f"logits_{r}.npy"))          # [R, nb, V]
+        b0, b1 = got["rows"]
+        want = ref[:, b0:b1]
+        diff = np.abs(lg - want)
+        rel = float(diff.max() / np.abs(want).max())
+        top = want.argmax(-1)
+        mine = lg.argmax(-1)
+        gap = np.take_along_axis(want, top[..., None], -1)[..., 0] \
+            - np.take_along_axis(want, mine[..., None], -1)[..., 0]
+        flips = mine != top
+        near = flips & (gap <= 2 * diff.max(-1))
+        n = got["decode_launches"]
+        ms = got["round_ms"]
+        print(f"sharding two ranks: rank {r} of {SHARD_WORLD} (slots "
+              f"{b0}-{b1 - 1}, tier {got['tier']} pinned "
+              f"{got['tier_pinned']}, caches DTensors "
+              f"{got['dtensor_caches']}): prefill {got['prefill_s']:.2f} s; "
+              f"decode {np.mean(ms):.2f} ms/round (rounds 2-{SHARD_NEW}, "
+              f"eager; min {min(ms):.2f}, max {max(ms):.2f}); launches "
+              f"gather_rows {n['gather_rows']}, indexer_scores "
+              f"{n['indexer_scores']}, sparse_mla_partial "
+              f"{n['partial_attend']}, sparse_mla_merge {n['merge_splits']}, "
+              f"scatter_rows {n['scatter_rows']} (prefill: "
+              + ", ".join(f"{k} {v}" for k, v in
+                          got["prefill_launches"].items() if v)
+              + f"); collectives in a round "
+              f"{got['collectives']}; logits vs one rank max |diff| / "
+              f"max|ref| {rel:.3g} (limit {MONO_LOGIT_REL}); greedy "
+              f"disagreements {int(flips.sum())} of {flips.size}, near-ties "
+              f"{int(near.sum())}  [{card}]", flush=True)
+        require(got["tier_plain"] and got["tier_pinned"]
+                and got["tier"][1] * SHARD_WORLD == B * (-(-SESSION_MAX_SEQ
+                    // cfg.ess.host_page_rows)),
+                f"rank {r}: its tier must be its own pinned shard")
+        missing = [k for k in need if n[k] == 0]
+        require(not missing, f"rank {r}: not launched {missing}")
+        require(not got["collectives"],
+                f"rank {r}: collectives in a decode round "
+                f"{got['collectives']}")
+        require(rel <= MONO_LOGIT_REL, f"rank {r}: logits off by {rel}")
+        require(bool((near == flips).all()),
+                f"rank {r}: greedy tokens differ beyond near-ties")
+    print(f"sharding two ranks: {SHARD_WORLD} processes, {wall:.1f} s "
+          f"wall  [{card}]", flush=True)
 
 
 def mirrors_phase(card):
@@ -4311,4 +4607,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
     sys.exit(main())

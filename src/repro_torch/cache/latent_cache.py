@@ -101,7 +101,26 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
     maps slot ``b`` onto pages ``[b*NB, (b+1)*NB)`` (the layout for
     fixed-batch callers); ``map_slots=False`` leaves every block table
     unmapped (-1), for a serve loop that maps pages at admission
-    (:class:`HostPageAllocator`, :func:`map_slot`)."""
+    (:class:`HostPageAllocator`, :func:`map_slot`).
+
+    Under a sharding context of ``n > 1`` data ranks each rank allocates
+    its own ``batch / n`` slots (and ``num_pages / n`` pages): the tier
+    and its scales a plain pinned tensor of the rank's rows (dense ``[L,
+    B/n, S, D]``, paged its batch-major pages ``[L, NP/n, R, D]``, block
+    tables of rank-local page ids), and ``lens``, ``ikeys``, the pools
+    and the block tables DTensors sharded on batch, as
+    :func:`abstract_ess_caches` lays them out."""
+    nd = shd.data_ranks()
+    if nd > 1:
+        if batch % nd or (num_pages is not None and num_pages % nd):
+            raise ValueError(f"{batch} slots / {num_pages} pages do not "
+                             f"split over {nd} data ranks")
+        with shd.use_sharding(None, None):
+            local = init_ess_caches(
+                cfg, batch // nd, max_seq, dtype, device=device,
+                num_pages=None if num_pages is None else num_pages // nd,
+                map_slots=map_slots)
+        return on_mesh(local, shd.current().mesh, batch)
     dev = resolve_device(device)
     dtype = cfg.param_dtype if dtype is None else dtype
     qdt, sdt = host_storage_dtype(cfg, dtype)
@@ -142,6 +161,40 @@ def init_ess_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=None,
                for _ in range(Lh)],
         block_tables=block_tables,
         host_scales=None if sdt is None else tier(1, sdt))
+
+
+def on_mesh(local: ESSCaches, mesh, batch: int) -> ESSCaches:
+    """One rank's caches of ``batch / n`` slots as its part of a global
+    batch of ``batch`` over ``mesh``: the device leaves become DTensors
+    sharded on batch over the data dimensions (the pools' clock
+    replicated), with no collective; the host tier stays the rank's own
+    plain tensor."""
+    def b(t):
+        return shd.from_local_batch(t, mesh, batch)
+
+    def pool(p):
+        return LP.PoolState(b(p.data), b(p.ids), b(p.last_use),
+                            b(p.slot_of),
+                            shd.from_local_replicated(p.step, mesh),
+                            b(p.evicted))
+    return local._replace(
+        lens=b(local.lens), ikeys=[b(k) for k in local.ikeys],
+        pools=[pool(p) for p in local.pools],
+        block_tables=None if local.block_tables is None
+        else b(local.block_tables))
+
+
+def local_part(caches: ESSCaches) -> ESSCaches:
+    """This rank's caches as plain tensors (the inverse of
+    :func:`on_mesh`): its rows of every DTensor leaf, sharing their
+    storage, so in-place updates reach the DTensors."""
+    def loc(t):
+        return t.to_local() if shd.is_dtensor(t) else t
+    return caches._replace(
+        lens=loc(caches.lens), ikeys=[loc(k) for k in caches.ikeys],
+        pools=[LP.PoolState(*map(loc, p)) for p in caches.pools],
+        block_tables=None if caches.block_tables is None
+        else loc(caches.block_tables))
 
 
 def abstract_ess_caches(cfg: ArchConfig, batch: int, max_seq: int,

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.distributed.sharding import is_dtensor, put_drop_sharded
+from repro_torch.distributed.sharding import (is_dtensor, local_call,
+                                              put_drop_sharded)
 from repro_torch.models.mla import topk_desc
 
 
@@ -108,7 +109,13 @@ def lookup(pool: PoolState, req_ids: torch.Tensor, req_valid: torch.Tensor,
     place).  req_ids [B,K] score-descending, req_valid [B,K]; returns a miss
     buffer of fixed width ``max_misses``.  ``slot_mask`` [B] (required,
     keyword-only; ``None`` = every row live) gates frozen rows.  ``dedup``
-    makes duplicate requests share one miss-buffer entry (Q>1 steps)."""
+    makes duplicate requests share one miss-buffer entry (Q>1 steps).
+    A pool of DTensors (several data ranks) runs on each rank's own rows
+    (:func:`~repro_torch.distributed.sharding.local_call`), as every
+    transition here does."""
+    if is_dtensor(pool.ids):
+        return local_call(lookup, pool, req_ids, req_valid, max_misses,
+                          slot_mask=slot_mask, dedup=dedup)
     B, K = req_ids.shape
     if slot_mask is not None:
         req_valid = req_valid & slot_mask[:, None]
@@ -158,6 +165,9 @@ def admit(pool: PoolState, miss_ids: torch.Tensor, rows: torch.Tensor, *,
     miss_ids [B,M] (-1 padding ignored), rows [B,M,D].  ``slot_mask``
     (required, keyword-only) voids masked rows' admissions.  A miss
     envelope wider than the pool admits its first ``P`` entries."""
+    if is_dtensor(pool.ids):
+        return local_call(admit, pool, miss_ids, rows, slot_mask=slot_mask,
+                          protect_slots=protect_slots)
     B, M = miss_ids.shape
     if slot_mask is not None:
         miss_ids = torch.where(slot_mask[:, None], miss_ids, -1)
@@ -194,6 +204,9 @@ def batch_rows(pool: PoolState, rows: slice) -> PoolState:
 
 
 def tick(pool: PoolState) -> PoolState:
+    if is_dtensor(pool.step):
+        pool.step.to_local().add_(1)       # each rank's copy of the clock
+        return pool
     pool.step.add_(1)
     return pool
 
@@ -204,6 +217,8 @@ def invalidate_beyond(pool: PoolState, lens: torch.Tensor) -> PoolState:
     pool rows must not survive).  Clears the forward map (``ids`` /
     ``last_use``) and the inverse map (``slot_of``) alike, so it is
     idempotent; a row whose ``lens`` did not move keeps its entries."""
+    if is_dtensor(pool.ids):
+        return local_call(invalidate_beyond, pool, lens)
     stale = pool.ids >= lens[:, None]                            # [B,P]
     pool.ids.masked_fill_(stale, -1)
     pool.last_use.masked_fill_(stale, -1)
@@ -237,6 +252,8 @@ def check_consistent(pool: PoolState) -> bool:
 def gather_resident(pool: PoolState, slot: torch.Tensor, hit: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather hit rows [B,K,D] from the pool (miss rows zero)."""
+    if is_dtensor(pool.ids):
+        return local_call(gather_resident, pool, slot, hit)
     safe = torch.where(hit, slot, 0)
     rows = pool.data.gather(
         1, safe[..., None].expand(*safe.shape, pool.data.shape[-1]))

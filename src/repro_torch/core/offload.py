@@ -20,13 +20,21 @@ plus an f16 scale per row) moves compressed both ways:
 only the fetched rows, and :func:`scatter_tier_rows` quantizes at append
 width on the device before writing payload and scales.
 
-Under a sharding context (:mod:`repro_torch.distributed.sharding`) the
-tier's batch (or, paged, its batch-major pages) is sharded over the data
-dimensions, and each rank runs these same routes over its own batch rows
-of its own shard: the reference's host-side ``device_put`` branches have
-no other counterpart.  On one card that is the whole tier.
-:func:`abstract_host` and :func:`host_sharding_for` build the dry run's
-host-tier leaves (``memory_kind`` ``"pinned_host"``).
+Over several data ranks (:mod:`repro_torch.distributed.sharding`) each
+rank's tier holds its own batch rows only: dense ``[L, B/n, S, D]``, paged
+its batch-major pages ``[L, NP/n, R, D]`` with rank-local page ids in the
+block tables (:func:`~repro_torch.cache.latent_cache.init_ess_caches`), a
+plain pinned tensor (the dry run's: a ``meta`` DTensor, whose local shard
+is the rank's).  The ids, rows and block tables of a whole-batch call are
+DTensors sharded on batch; each route takes their local tensors, runs the
+same translation and kernel over the rank's rows and returns rows as a
+DTensor sharded on batch, with no collective (the reference's mesh
+branches, which keep the host buffer batch-sharded: "zero host-buffer
+all-gathers").  A call on one slot (a per-slot prefill) runs on the
+slot's rank with plain tensors and a rank-local ``batch_offset``.  On one
+card the tier is the whole tier.  :func:`abstract_host` and
+:func:`host_sharding_for` build the dry run's host-tier leaves
+(``memory_kind`` ``"pinned_host"``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,48 @@ def abstract_host(shape, dtype, *axes) -> torch.Tensor:
     ``meta`` under a context) tagged ``memory_kind == "pinned_host"``."""
     return shd.abstract(shape, dtype, host_sharding_for(shape, axes),
                         memory_kind=HOST)
+
+
+class _OnRank:
+    """One rank's side of a route call: the local tier (and scales), the
+    local ids and block table, and ``wrap`` for what the route returns.
+    Without a DTensor among them everything is taken as it is.  DTensor
+    ids (batch at dim ``bdim``) are the whole batch: their rows of it are
+    this rank's rows of the tier, so ``batch_offset`` must be 0."""
+
+    def __init__(self, host, scales, ids, block_table, batch_offset,
+                 bdim: int = 0):
+        self.host, self.scales = host, scales
+        self.ids, self.block_table = ids, block_table
+        self.batch_offset, self.mesh = batch_offset, None
+        dts = [t for t in (ids, block_table, host, scales)
+               if shd.is_dtensor(t)]
+        if not dts:
+            return
+        self.mesh, self.bdim = dts[0].device_mesh, bdim
+        if shd.is_dtensor(ids):
+            if int(batch_offset):
+                raise ValueError("a DTensor batch of ids is the whole "
+                                 "batch: batch_offset must be 0")
+            self.n = ids.shape[bdim]
+            self.ids = shd.to_local_batch(ids, bdim)
+        self.block_table = shd.to_local_batch(block_table)
+        # the tier's own shard, never moved: a plain tensor is the rank's
+        self.host = host.to_local() if shd.is_dtensor(host) else host
+        self.scales = scales.to_local() if shd.is_dtensor(scales) \
+            else scales
+
+    def local(self, t, dim: int = 0):
+        """Another batch-major argument (rows, a mask, an ``out``) at this
+        rank's rows; an ``out`` DTensor must already be there, so that the
+        route writes into its storage."""
+        return shd.to_local_batch(t, dim) if self.mesh is not None else t
+
+    def wrap(self, t):
+        """Rows this rank gathered -> a DTensor of the ids' global batch."""
+        if self.mesh is None or not hasattr(self, "n"):
+            return t
+        return shd.from_local_batch(t, self.mesh, self.n, self.bdim)
 
 
 def _batch_slice(t: torch.Tensor, batch_offset: int, B: int) -> torch.Tensor:
@@ -119,9 +169,11 @@ def host_gather_rows(host_cache: torch.Tensor, ids: torch.Tensor, *,
 
     dense: host_cache [B,S,D] / [L,B,S,D]; paged: [NP,R,D] / [L,NP,R,D]
     with ``block_table``."""
-    flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
-    return gops.gather_rows(_layer_flat(host_cache, layer), flat_ids,
-                            out=out)
+    r = _OnRank(host_cache, None, ids, block_table, batch_offset)
+    flat_ids = _gather_flat_ids(r.host, r.ids, r.batch_offset,
+                                r.block_table)
+    return r.wrap(gops.gather_rows(_layer_flat(r.host, layer), flat_ids,
+                                   out=r.local(out)))
 
 
 def _scatter_targets(host_cache, ids, block_table, batch_offset, drop_oob):
@@ -149,9 +201,11 @@ def host_scatter_rows(host_cache: torch.Tensor, ids: torch.Tensor,
     drops masked rows' writes.  Paged writes to unmapped pages drop."""
     if slot_mask is not None:
         ids = torch.where(slot_mask[:, None], ids, -1)
-    tgt, _ = _scatter_targets(host_cache, ids, block_table, batch_offset,
+    r = _OnRank(host_cache, None, ids, block_table, batch_offset)
+    tgt, _ = _scatter_targets(r.host, r.ids, r.block_table, r.batch_offset,
                               drop_oob=False)
-    gops.scatter_rows(_layer_flat(host_cache, layer),
+    rows = r.local(rows)
+    gops.scatter_rows(_layer_flat(r.host, layer),
                       tgt.reshape(-1), rows.reshape(-1, rows.shape[-1]))
     return host_cache
 
@@ -189,12 +243,14 @@ def host_scatter_rows_stacked(host_cache: torch.Tensor, ids: torch.Tensor,
     of a stacked tier in one launch, in place; returns the tier."""
     if slot_mask is not None:
         ids = torch.where(slot_mask[:, None], ids, -1)
-    Lh, D = host_cache.shape[0], host_cache.shape[-1]
-    tgt, _ = _scatter_targets(host_cache, ids, block_table, batch_offset,
+    r = _OnRank(host_cache, None, ids, block_table, batch_offset)
+    Lh, D = r.host.shape[0], r.host.shape[-1]
+    tgt, _ = _scatter_targets(r.host, r.ids, r.block_table, r.batch_offset,
                               drop_oob=True)
-    flat, stride = _stacked_flat(host_cache)
+    flat, stride = _stacked_flat(r.host)
     tgt_all = _stacked_ids(tgt[None].expand(Lh, *tgt.shape), stride)
-    gops.scatter_rows(flat, tgt_all.reshape(-1), rows.reshape(-1, D))
+    gops.scatter_rows(flat, tgt_all.reshape(-1),
+                      r.local(rows, 1).reshape(-1, D))
     return host_cache
 
 
@@ -215,15 +271,18 @@ def gather_into_slab(host_cache: torch.Tensor,
     keyword-only; None = every slot) drops masked slots' ids."""
     if slot_mask is not None:
         ids = torch.where(slot_mask[None, :, None], ids, -1)
-    Lh, B, P = ids.shape
-    per = _gather_flat_ids(host_cache, ids.permute(1, 0, 2).reshape(B, -1),
-                           batch_offset, block_table)
-    flat, stride = _stacked_flat(host_cache)
+    r = _OnRank(host_cache, host_scales, ids, block_table, batch_offset,
+                bdim=1)
+    Lh, B, P = r.ids.shape
+    per = _gather_flat_ids(r.host, r.ids.permute(1, 0, 2).reshape(B, -1),
+                           r.batch_offset, r.block_table)
+    flat, stride = _stacked_flat(r.host)
     idx = _stacked_ids(per.view(B, Lh, P).permute(1, 0, 2).contiguous(),
                        stride)
-    sflat = None if host_scales is None else _stacked_flat(host_scales)[0]
-    return gops.gather_rows_raw(flat, sflat, idx, out=out,
-                                out_scales=out_scales)
+    sflat = None if r.scales is None else _stacked_flat(r.scales)[0]
+    rows, sc = gops.gather_rows_raw(flat, sflat, idx, out=r.local(out, 1),
+                                    out_scales=r.local(out_scales, 1))
+    return r.wrap(rows), None if sc is None else r.wrap(sc)
 
 
 def scatter_from_slab(host_cache: torch.Tensor,
@@ -273,11 +332,13 @@ def gather_tier_rows(host_cache: torch.Tensor,
                                 batch_offset=batch_offset,
                                 block_table=block_table, out=out)
         return rows if out_dtype is None else rows.to(out_dtype)
-    flat_ids = _gather_flat_ids(host_cache, ids, batch_offset, block_table)
-    return gops.gather_rows_dequant(
-        _layer_flat(host_cache, layer), _layer_flat(host_scales, layer),
+    r = _OnRank(host_cache, host_scales, ids, block_table, batch_offset)
+    flat_ids = _gather_flat_ids(r.host, r.ids, r.batch_offset,
+                                r.block_table)
+    return r.wrap(gops.gather_rows_dequant(
+        _layer_flat(r.host, layer), _layer_flat(r.scales, layer),
         flat_ids, torch.bfloat16 if out_dtype is None else out_dtype,
-        out=out)
+        out=r.local(out)))
 
 
 def scatter_tier_rows(host_cache: torch.Tensor,

@@ -41,6 +41,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lru_pool as LP
 from repro_torch.core import offload
 from repro_torch.core import transfer as TR
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.sparse_mla import ops as sk
 from repro_torch.models import mla as M
 
@@ -119,9 +120,8 @@ def _attend_rows(q_comb: torch.Tensor, rows: torch.Tensor,
     (``kernels/sparse_mla/ops.tc_route``).  Rows of another dtype (a
     quantized tier's bf16 misses under fp32 params) widen to the query's,
     as the reference's promotion does."""
-    return sk.partial_attend(q_comb, rows.to(q_comb.dtype), valid,
-                             M.mla_scale(cfg),
-                             cfg.mla.kv_lora_rank)
+    return shd.local_call(sk.partial_attend, q_comb, rows.to(q_comb.dtype),
+                          valid, M.mla_scale(cfg), cfg.mla.kv_lora_rank)
 
 
 def ess_sparse_attention(mla_p: dict, idx_p: dict, cfg: ArchConfig,
@@ -158,8 +158,9 @@ def _fork_fetch(state: ESSLayerState, miss_ids: torch.Tensor,
     before reading the rows."""
     dt = offload.tier_rows_dtype(state.host_latent, state.host_scales) \
         if out_dtype is None else out_dtype
-    rows = torch.empty((*miss_ids.shape, state.host_latent.shape[-1]),
-                       dtype=dt, device=miss_ids.device)
+    rows = shd.empty_batch(miss_ids,
+                           (*miss_ids.shape, state.host_latent.shape[-1]),
+                           dt)
     with Fork(stream, miss_ids, rows) as fork:
         offload.gather_tier_rows(
             state.host_latent, state.host_scales, miss_ids,

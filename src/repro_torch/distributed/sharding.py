@@ -29,6 +29,18 @@ The reference's ``shard_map_compat`` papers over two JAX versions'
 ``shard_map`` spellings and has no counterpart: the port's per-rank
 programs (:mod:`.collectives`, :mod:`.pipeline`) run on a process group
 directly.
+
+Over several data ranks (the ESS decode, each rank on its own batch rows
+and host-tier shard) a kernel wrapper never sees a DTensor: it raises on
+one.  :func:`local_call` hands it one rank's local tensors of a
+batch-major call and wraps the results back as DTensors sharded on batch
+(the reference's ``axes_out``), with no collective; the LRU pool's
+transitions run the same way, and :func:`local_mm` takes the products
+DTensor has no strategy for.  :func:`batch_placements`,
+:func:`batch_block`, :func:`to_local_batch` and :func:`from_local_batch`
+are the batch layout they share with the host-tier routes
+(:mod:`repro_torch.core.offload`) and the caches
+(:func:`repro_torch.cache.latent_cache.init_ess_caches`).
 """
 
 from __future__ import annotations
@@ -346,3 +358,185 @@ def put_drop_sharded(dst, idx: torch.Tensor, vals, keep: torch.Tensor,
     i = i - off[1]
     k = k & (i >= 0) & (i < d.shape[1])
     local_put(d, i.clamp(0, max(d.shape[1] - 1, 0)), v, k)
+
+
+# ---------------------------------------------------------------------------
+# One rank's local tensors: kernel calls and the host tier
+# ---------------------------------------------------------------------------
+
+#: the mesh dimensions a batch (and the cache tier's batch) splits over
+DATA_AXES = ("pod", "data")
+
+
+def batch_split(mesh, n: int) -> tuple[int, ...]:
+    """Indices of the mesh dimensions a batch of ``n`` rows splits over:
+    the data dimensions, outer first, each kept while the product divides
+    ``n`` (:func:`prune_spec`'s rule; a batch of 1 splits over none)."""
+    out, prod = [], 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name in DATA_AXES and n % (prod * mesh.size(i)) == 0:
+            out.append(i)
+            prod *= mesh.size(i)
+    return tuple(out)
+
+
+def batch_placements(mesh, n: int, dim: int = 0) -> tuple:
+    """DTensor placements of a tensor whose dim ``dim`` is a batch of ``n``
+    rows: ``Shard(dim)`` on the dimensions of :func:`batch_split`,
+    ``Replicate()`` on the others (``model`` included)."""
+    from torch.distributed.tensor import Replicate, Shard
+    split = batch_split(mesh, n)
+    return tuple(Shard(dim) if i in split else Replicate()
+                 for i in range(mesh.ndim))
+
+
+def batch_block(mesh, n: int) -> tuple[int, int]:
+    """``(first row, rows)`` of this rank's block of a batch of ``n``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        (n,), mesh, batch_placements(mesh, n))
+    return int(off[0]), int(shape[0])
+
+
+def data_ranks() -> int:
+    """Ranks the batch splits over under the current context: the product
+    of its mesh's data dimensions (1 outside a context)."""
+    ctx = current()
+    if ctx is None or ctx.mesh is None:
+        return 1
+    sizes = mesh_sizes(ctx.mesh)
+    n = 1
+    for a in DATA_AXES:
+        n *= sizes.get(a, 1)
+    return n
+
+
+def to_local_batch(t, dim: int = 0):
+    """This rank's rows of ``t``'s batch (dim ``dim``) as a plain tensor: a
+    DTensor is first brought to :func:`batch_placements` (nothing moves
+    when it is there already, as every batch-sharded tensor of the serve
+    path is); anything else is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    pl = batch_placements(t.device_mesh, t.shape[dim] if t.dim() else 1,
+                          dim)
+    if tuple(t.placements) != pl:
+        t = t.redistribute(t.device_mesh, pl)
+    return t.to_local()
+
+
+def from_local_batch(t: torch.Tensor, mesh, n: int, dim: int = 0):
+    """A DTensor of global batch ``n`` (dim ``dim``) from this rank's rows
+    ``t``, at :func:`batch_placements` (no collective)."""
+    from torch.distributed.tensor import DTensor
+    shape = list(t.shape)
+    shape[dim] = n
+    return DTensor.from_local(
+        t, mesh, batch_placements(mesh, n, dim), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def from_local_replicated(t: torch.Tensor, mesh):
+    """A DTensor replicated over ``mesh`` from this rank's copy ``t`` (no
+    collective: each rank holds the same value, such as the pools'
+    clock)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _map_tensors(fn, out):
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, (tuple, list)):
+        vals = [_map_tensors(fn, o) for o in out]
+        if hasattr(out, "_fields"):
+            return type(out)(*vals)
+        return type(out)(vals)
+    return out
+
+
+def _tensors(tree) -> list:
+    out: list = []
+    _map_tensors(out.append, tree)
+    return out
+
+
+def local_call(fn, *args, **kwargs):
+    """``fn`` (a kernel wrapper, or a batch-row-local step such as the
+    LRU pool's) on this rank's local tensors.
+
+    Every tensor argument, also inside a tuple or NamedTuple, is
+    batch-major (dim 0) or a scalar.  Without a DTensor among them this is
+    ``fn(*args, **kwargs)`` itself.  With one, each DTensor is taken at
+    :func:`batch_placements` (its rows of the batch, whole over
+    ``model``) and handed over as its local tensor (a replicated scalar
+    as its own copy); a plain tensor holds the whole batch (a replicated
+    value) and is cut to this rank's rows.  The results come back as
+    DTensors of the global batch at the same placements (scalars
+    replicated), the reference's ``axes_out=("cache_batch", ...)``: each
+    rank computes its own rows, so no collective runs on the way out, and
+    what ``fn`` updates in place is the DTensors' own storage."""
+    dts = [a for a in _tensors((args, tuple(kwargs.values())))
+           if is_dtensor(a)]
+    if not dts:
+        return fn(*args, **kwargs)
+    mesh = dts[0].device_mesh
+    n = next((a.shape[0] for a in dts if a.dim()), 1)
+    start, rows = batch_block(mesh, n)
+
+    def local(a):
+        if not a.dim():
+            return a.to_local() if is_dtensor(a) else a
+        if a.shape[0] != n:
+            raise ValueError(f"local_call: batch {a.shape[0]} beside {n}")
+        if is_dtensor(a):
+            return to_local_batch(a)
+        return a if rows == n else a[start:start + rows]
+    out = fn(*_map_tensors(local, args),
+             **{k: _map_tensors(local, v) for k, v in kwargs.items()})
+
+    return _map_tensors(lambda t: from_local_batch(t, mesh, n) if t.dim()
+                        else from_local_replicated(t, mesh), out)
+
+
+def empty_batch(like, shape, dtype) -> torch.Tensor:
+    """``torch.empty(shape)`` on ``like``'s device, batch-major: a DTensor
+    at :func:`batch_placements` when ``like`` (whose dim 0 is the same
+    batch) is one, its local tensor allocated here (on the current
+    stream)."""
+    if not is_dtensor(like):
+        return torch.empty(shape, dtype=dtype, device=like.device)
+    rows = batch_block(like.device_mesh, shape[0])[1]
+    t = torch.empty((rows, *shape[1:]), dtype=dtype, device=like.device)
+    return from_local_batch(t, like.device_mesh, shape[0])
+
+
+def local_mm(a, b, fn):
+    """``a [M, K] @ b [K, N]`` of DTensors (a plain operand is taken as
+    replicated) as ``fn(a_local, b_local)``, for a product DTensor has no
+    strategy for (``torch.mm(..., out_dtype=)``): the contraction dim is
+    made whole, each mesh dimension splits at most one of ``M`` and ``N``,
+    and the result comes back at those placements (no collective when the
+    operands are there already: a batch-sharded ``a``, a replicated or
+    ``N``-sharded ``b``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    a, b = (t if is_dtensor(t) else from_local_replicated(t, mesh)
+            for t in (a, b))
+    pa, pb, po = list(a.placements), list(b.placements), []
+    for i in range(mesh.ndim):
+        if pa[i] != Shard(0):
+            pa[i] = Replicate()
+        if pb[i] != Shard(1) or pa[i] == Shard(0):
+            pb[i] = Replicate()
+        po.append(Shard(0) if pa[i] == Shard(0) else
+                  Shard(1) if pb[i] == Shard(1) else Replicate())
+    a = _as_dtensor(a, mesh, tuple(pa))
+    b = _as_dtensor(b, mesh, tuple(pb))
+    out = fn(a.to_local(), b.to_local())
+    shape = (a.shape[0], b.shape[1])
+    return DTensor.from_local(out, mesh, po, run_check=False,
+                              shape=torch.Size(shape), stride=(shape[1], 1))

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import PLAIN_DEVICES, _build
+from repro_torch.kernels import PLAIN_DEVICES, _build, refuse_dtensors
 from repro_torch.kernels.gather_cache import ref
 
 _P = ctypes.c_void_p
@@ -198,6 +198,7 @@ def gather_rows(cache: torch.Tensor, ids: torch.Tensor, *,
     ``route``).  ``out`` (optional, ``[..., D]`` of ``ids``' shape)
     receives the rows: memory the caller allocated, on the stream that
     consumes them."""
+    refuse_dtensors("gather_rows", cache, ids, fetched, out)
     cache, ids = _flat_ids(cache, ids)
     m, s = ids.numel(), cache.shape[0]
     staged = _pick_route(route, m, s, not cache.is_cuda)
@@ -253,6 +254,8 @@ def gather_rows_raw(cache: torch.Tensor, scales: torch.Tensor | None,
     round's staging slab, which dequantizes later at miss width).
     ``out`` / ``out_scales`` receive the results; ``fetched`` as
     :func:`gather_rows`."""
+    refuse_dtensors("gather_rows_raw", cache, scales, ids, out, out_scales,
+                    fetched)
     if scales is not None and (
             scales.dtype != torch.float16
             or scales.shape != (*cache.shape[:-1], 1)):
@@ -301,6 +304,7 @@ def scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
     Float rows are cast to a float ``dst``; a quantized (integer or fp8)
     ``dst`` takes only rows of its own dtype, so an unquantized row can
     never be truncated into the tier."""
+    refuse_dtensors("scatter_rows", dst, tgt, rows)
     if rows.dtype != dst.dtype and not _is_float(dst.dtype):
         raise TypeError(f"scatter_rows: {rows.dtype} rows into a "
                         f"{dst.dtype} destination; quantize them first")
@@ -347,6 +351,7 @@ def gather_rows_dequant(cache: torch.Tensor, scales: torch.Tensor,
     ``float(q) * float(s)`` of row ``clip(ids)``, zero rows where
     ``ids < 0``.  Routes, ``fetched`` and ``out`` as :func:`gather_rows`;
     the staged route widens each distinct row once."""
+    refuse_dtensors("gather_rows_dequant", cache, scales, ids, fetched, out)
     _check_quant(cache, scales, out_dtype, "gather_rows_dequant")
     m, s = ids.numel(), cache.shape[0]
     if ids.device.type in PLAIN_DEVICES:
@@ -465,6 +470,8 @@ def gather_pages(cache: torch.Tensor, block_ids: torch.Tensor,
     ``(pages, page_scales)``.  ``out`` / ``out_scales`` receive them: the
     caller's memory, on the card or pinned on the host (the kernel writes
     it through its UVA pointer)."""
+    refuse_dtensors("gather_pages", cache, block_ids, scales, out,
+                    out_scales)
     c3, ids, _ = _page_args(cache, block_ids, block_rows)
     Lh, _, D = c3.shape
     nb = ids.shape[1]
@@ -509,6 +516,7 @@ def put_pages(dst: torch.Tensor, dst_ids: torch.Tensor, src: torch.Tensor,
     in the same launch.  In place, verbatim bits; returns ``dst``.  Either
     side may be on the card or pinned on the host; the launch runs on
     ``dst_ids``' device (the plain version for CPU ids)."""
+    refuse_dtensors("put_pages", dst, dst_ids, src, dst_scales, src_scales)
     if src.dtype != dst.dtype:
         raise TypeError(f"put_pages: {src.dtype} pages into a {dst.dtype} "
                         f"destination")
@@ -549,6 +557,7 @@ def gather_pages_dequant(cache: torch.Tensor, scales: torch.Tensor,
     """:func:`gather_pages` of a quantized tier, widened per row:
     cache [S,D] (or [L,S,D]) int8/fp8 + scales [S,1] (or [L,S,1]) f16 ->
     ``out_dtype`` pages ``float(q) * float(s)``."""
+    refuse_dtensors("gather_pages_dequant", cache, scales, block_ids)
     _check_quant(cache, scales, out_dtype, "gather_pages_dequant")
     c3, ids, npages = _page_args(cache, block_ids, block_rows)
     Lh, S, D = c3.shape

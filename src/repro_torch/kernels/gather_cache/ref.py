@@ -36,9 +36,26 @@ def rows_read(ids: torch.Tensor, s: int, staged: bool) -> int:
 def scatter_rows_ref(dst: torch.Tensor, tgt: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """In place: ``dst[tgt[i]] = rows[i]`` where ``0 <= tgt[i] < len(dst)``;
-    the other rows are dropped.  dst [N, D], tgt [M], rows [M, D]."""
-    keep = (tgt >= 0) & (tgt < dst.shape[0])
-    dst[tgt[keep]] = rows[keep].to(dst.dtype)
+    the other rows are dropped.  dst [N, D], tgt [M], rows [M, D].
+
+    Fixed shapes (no boolean index, so it runs on ``meta``): a dropped
+    row is written onto the last kept row's target with that row's value,
+    which the kept write leaves in place whatever the order (the last write
+    to a row wins, as before); with nothing kept, onto row 0 with its
+    current value."""
+    N = dst.shape[0]
+    if tgt.numel() == 0:
+        return dst
+    keep = (tgt >= 0) & (tgt < N)
+    pos = torch.arange(tgt.shape[0], device=tgt.device)
+    last = torch.where(keep, pos, -1).amax(0, keepdim=True).clamp_min(0)
+    any_kept = keep.any(0, keepdim=True)
+    rows = rows.to(dst.dtype)
+    tgt_l = torch.where(any_kept, tgt.gather(0, last), 0)
+    row_l = torch.where(any_kept[:, None], rows.index_select(0, last),
+                        dst[:1])
+    dst.index_put_((torch.where(keep, tgt, tgt_l),),
+                   torch.where(keep[:, None], rows, row_l))
     return dst
 
 

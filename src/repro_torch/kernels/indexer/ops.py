@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import PLAIN_DEVICES, _build
+from repro_torch.kernels import PLAIN_DEVICES, _build, refuse_dtensors
 from repro_torch.kernels.indexer import ref
 
 _P = ctypes.c_void_p
@@ -150,6 +150,7 @@ def indexer_scores(q: torch.Tensor, w: torch.Tensor, keys: torch.Tensor,
     """q [B,Q,Hi,Di], w [B,Q,Hi], keys [B,S,Di], valid [B,S] / [B,Q,S] bool
     (or None: every key valid) -> scores [B,Q,S] fp32, ``-2e38`` where
     invalid.  On CUDA, :func:`tc_route` picks the kernel."""
+    refuse_dtensors("indexer_scores", q, w, keys, valid)
     if q.device.type in PLAIN_DEVICES:
         return ref.indexer_scores_ref(q, w, keys, valid)
     if q.device.type != "cuda":

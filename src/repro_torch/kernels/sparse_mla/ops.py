@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import PLAIN_DEVICES, _build
+from repro_torch.kernels import PLAIN_DEVICES, _build, refuse_dtensors
 from repro_torch.kernels.sparse_mla import ref
 
 _P = ctypes.c_void_p
@@ -140,6 +140,7 @@ def tc_splits(q_comb: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
 def merge_splits(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
     """Combine the partials of disjoint K splits stacked on dim 0 (o
     [S,...,rank], m / l [S,...] fp32) into one ``(o, m, l)``."""
+    refuse_dtensors("merge_splits", o, m, l)
     if o.device.type in PLAIN_DEVICES:
         return ref.merge_splits_ref(o, m, l)
     if o.device.type != "cuda":
@@ -176,6 +177,7 @@ def partial_attend(q_comb: torch.Tensor, rows: torch.Tensor,
     On CUDA, :func:`tc_route` picks the kernel.
     """
     from repro_torch.models.mla import Partial
+    refuse_dtensors("partial_attend", q_comb, rows, valid)
     B, Q, H, D = q_comb.shape
     if q_comb.device.type in PLAIN_DEVICES:
         if rows.dim() == 3:
@@ -269,6 +271,8 @@ def sparse_mla_gather_attend(q_comb: torch.Tensor, latent_cache: torch.Tensor,
     ``valid_s`` at the ids, and one :func:`partial_attend` (plus its split
     merge) attends to them."""
     from repro_torch.kernels.gather_cache import ops as gops
+    refuse_dtensors("sparse_mla_gather_attend", q_comb, latent_cache, ids,
+                    valid_s)
     B, Q, K = ids.shape
     S, D = latent_cache.shape[1:]
     flat = ids.reshape(B, Q * K) + torch.arange(

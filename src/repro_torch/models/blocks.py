@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.lru_pool import put_drop
+from repro_torch.distributed.sharding import local_call
 from repro_torch.kernels.sparse_mla import ops as sk_ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -194,8 +195,8 @@ def mla_dense_decode(p: dict, cfg: ArchConfig, h: torch.Tensor,
     S = cache.latent.shape[1]
     valid = torch.arange(S, device=h.device)[None, :] < new_len[:, None]
     if M._use_kernel(use_kernel, h):
-        part = sk_ops.partial_attend(q, cache.latent, valid, M.mla_scale(cfg),
-                                     cfg.mla.kv_lora_rank)
+        part = local_call(sk_ops.partial_attend, q, cache.latent, valid,
+                          M.mla_scale(cfg), cfg.mla.kv_lora_rank)
     else:
         part = M.partial_sparse_attend(q, cache.latent, valid, cfg)
     return M.output_proj(p["mla"], cfg, M.finalize_partial(part, h.dtype))

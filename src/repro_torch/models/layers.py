@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import fit_unflatten, shard
+from repro_torch.distributed.sharding import (fit_unflatten, is_dtensor,
+                                              local_mm, shard)
 from repro_torch.models.params import ParamDef
 
 
@@ -54,6 +55,45 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
 
 
+class _Flat2d(torch.autograd.Function):
+    """``t.reshape(k, -1)`` (its first ``n`` dims into one, the rest into
+    another) of a DTensor whose gradient comes back at ``t``'s own
+    placements.  The gradient may split a flattened dim where ``t``'s own
+    dims cannot (8 kv heads of a weight ``[d, 8, 128]`` over a 16-wide
+    model axis; 64 sequences of ``[64 x 4096]`` tokens over 16 x 16
+    ranks), which DTensor cannot unflatten: it is fitted first
+    (:func:`fit_unflatten`, as XLA's partitioner reshards), unflattened,
+    then redistributed to ``t``'s placements."""
+
+    @staticmethod
+    def forward(ctx, t, k: int, n: int):
+        ctx.shape, ctx.n = tuple(t.shape), n
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return t.reshape(k, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, n = ctx.shape, ctx.n
+        if n > 1:
+            g = fit_unflatten(g, 0, shape[0])
+        if len(shape) > n + 1:
+            g = fit_unflatten(g, 1, shape[n])
+        g = g.reshape(shape)
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None, None
+
+
+def flat2d(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t``'s first ``n`` dims flattened into one and the rest into
+    another: ``t.reshape(k, -1)``, for a DTensor through :class:`_Flat2d`
+    (its gradient unflattens)."""
+    k = 1
+    for s in t.shape[:n]:
+        k *= s
+    return _Flat2d.apply(t, k, n) if is_dtensor(t) else t.reshape(k, -1)
+
+
 def proj(x: torch.Tensor, w: torch.Tensor, n: int = 1) -> torch.Tensor:
     """``x``'s last ``n`` axes contracted with ``w``'s first ``n`` (the
     reference's projection einsums ``"bsd,dhk->bshk"``,
@@ -61,10 +101,7 @@ def proj(x: torch.Tensor, w: torch.Tensor, n: int = 1) -> torch.Tensor:
     dims, the kind remat ``"dots"`` keeps.  ``einsum`` would run it as a
     ``bmm`` over a batch of 1, which at batch 1 looks the same as
     attention's scores."""
-    k = 1
-    for s in w.shape[:n]:
-        k *= s
-    out = x.reshape(-1, k) @ w.reshape(k, -1)
+    out = flat2d(x, x.dim() - n) @ flat2d(w, n)
     if w.dim() > n + 1:
         out = fit_unflatten(out, 1, w.shape[n])
     return out.view(*x.shape[:x.dim() - n], *w.shape[n:])
@@ -191,7 +228,10 @@ def unembed(w: torch.Tensor, x: torch.Tensor,
     output (``out_dtype``); on the CPU the operands widen exactly to fp32."""
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        def mm(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+        out = local_mm(x2, w.t(), mm) if is_dtensor(x2) or is_dtensor(w) \
+            else mm(x2, w.t())
     else:
         out = x2.float() @ w.float().t()
     return softcap(out.reshape(*x.shape[:-1], w.shape[0]), cap)

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import local_call, shard
 from repro_torch.kernels.indexer import ops as idx_ops
 from repro_torch.kernels.indexer import ref as idx_ref
 from repro_torch.kernels.sparse_mla import ops as sk_ops
@@ -104,7 +104,7 @@ def indexer_scores(iq: IndexerQuery, keys: torch.Tensor,
     """score[b,q,s] = sum_h w[b,q,h] * relu(q[b,q,h] . k[b,s]) (fp32),
     through the indexer kernel; ``-2e38`` where ``valid`` [B,S]/[B,Q,S]
     is False (the kernel then skips those keys)."""
-    return idx_ops.indexer_scores(iq.q, iq.w, keys, valid)
+    return local_call(idx_ops.indexer_scores, iq.q, iq.w, keys, valid)
 
 
 def topk_desc(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -193,10 +193,11 @@ def sparse_mla_decode(p: dict, pi: dict, cfg: ArchConfig, x: torch.Tensor,
     k = min(cfg.dsa.index_topk, S)
     q_comb = absorbed_query(p, cfg, x, positions)               # [B,Q,H,D]
     if _use_kernel(use_kernel, x):
-        _, ids = idx_ops.topk_select(iq.q, iq.w, idx_keys, valid, k)
-        out_lat = sk_ops.sparse_mla_gather_attend(
-            q_comb, latent_cache, ids, valid, mla_scale(cfg),
-            cfg.mla.kv_lora_rank)
+        _, ids = local_call(idx_ops.topk_select, iq.q, iq.w, idx_keys,
+                            valid, k)
+        out_lat = local_call(sk_ops.sparse_mla_gather_attend, q_comb,
+                             latent_cache, ids, valid, mla_scale(cfg),
+                             cfg.mla.kv_lora_rank)
     else:
         sc = idx_ref.indexer_scores_ref(iq.q, iq.w, idx_keys)
         ids = topk_ids(sc, k, valid[:, None, :])                # [B,Q,K]
@@ -335,11 +336,13 @@ def _prefill_ids(p, pi, cfg, x, positions, lat, ikeys):
         xs, ps = x[:, c0:c0 + C], positions[:, c0:c0 + C]
         causal = positions[:, None, :] <= ps[:, :, None]        # [B,C,S]
         iq = indexer_query(pi, xs)
-        _, ids = idx_ops.topk_select(iq.q, iq.w, ikeys, causal, k)
+        _, ids = local_call(idx_ops.topk_select, iq.q, iq.w, ikeys, causal,
+                            k)
         q_comb = shard(absorbed_query(p, cfg, xs, ps),
                        "batch", None, "heads", None)
-        o_lat = sk_ops.sparse_mla_gather_attend(
-            q_comb, lat, ids, causal, mla_scale(cfg), cfg.mla.kv_lora_rank)
+        o_lat = local_call(sk_ops.sparse_mla_gather_attend, q_comb, lat,
+                           ids, causal, mla_scale(cfg),
+                           cfg.mla.kv_lora_rank)
         outs.append(output_proj(p, cfg, o_lat.to(x.dtype)))
     return torch.cat(outs, dim=1)
 
@@ -354,9 +357,9 @@ def _prefill_causal(p, cfg, x, positions, lat):
     for c0 in range(0, S, C):
         xs, ps = x[:, c0:c0 + C], positions[:, c0:c0 + C]
         causal = positions[:, None, :] <= ps[:, :, None]        # [B,C,S]
-        part = sk_ops.partial_attend(absorbed_query(p, cfg, xs, ps), lat,
-                                     causal, mla_scale(cfg),
-                                     cfg.mla.kv_lora_rank)
+        part = local_call(sk_ops.partial_attend,
+                          absorbed_query(p, cfg, xs, ps), lat, causal,
+                          mla_scale(cfg), cfg.mla.kv_lora_rank)
         outs.append(output_proj(p, cfg, finalize_partial(part, x.dtype)))
     return torch.cat(outs, dim=1)
 

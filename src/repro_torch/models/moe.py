@@ -72,7 +72,7 @@ def _moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     mo = cfg.moe
     B, S, d = x.shape
     T, E, K = B * S, mo.num_experts, mo.top_k
-    x2 = x.reshape(T, d)
+    x2 = L.flat2d(x, 2)                                       # [T,d]
 
     sel, gates = router_probs(p, cfg, x2)
     top_ids = topk_desc(sel, K)                              # [T,K]
@@ -114,7 +114,10 @@ def _aux(sel, gates, top_ids, keep, E: int) -> MoEAux:
     ``mean(me * ce)`` (routed fraction x mean normalized selection score,
     each times E), the gates' entropy and the dropped share of the T*K
     assignments."""
-    me = torch.bincount(top_ids.reshape(-1), minlength=E).float() \
+    # the experts' counts as a one-hot sum (the reference's one-hot mean):
+    # DTensor has no strategy for ``bincount``; the counts are exact
+    experts = torch.arange(E, device=top_ids.device)
+    me = (top_ids.reshape(-1, 1) == experts).float().sum(0) \
         / top_ids.numel() * E
     ce = (sel / sel.sum(-1, keepdim=True).clamp_min(1e-20)).mean(0) * E
     ent = -torch.where(gates > 0, gates * torch.log(gates + 1e-20),

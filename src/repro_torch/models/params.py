@@ -120,6 +120,26 @@ def abstract_params(defs, mesh=None, rules: dict | None = None,
     return map_defs(one, defs)
 
 
+def distribute_params(params: dict, cfg, mesh, rules: dict) -> dict:
+    """Whole parameters, the same on every rank (one seed, or the
+    reference's converted pytree), as DTensors over ``mesh`` at each
+    leaf's pruned spec under ``rules``: every rank keeps its own shards of
+    its own copy, so nothing moves between ranks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding as shd
+
+    def one(p, d):
+        if isinstance(p, dict):
+            return {k: one(v, d[k]) for k, v in p.items()}
+        spec = shd.prune_spec(axes_to_pspec(d.axes, rules), tuple(p.shape),
+                              mesh)
+        return distribute_tensor(p, mesh,
+                                 shd.NamedSharding(mesh, spec).placements,
+                                 src_data_rank=None)
+    return one(params, model_def(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Definition tree (same keys / shapes / families as the reference)
 # ---------------------------------------------------------------------------

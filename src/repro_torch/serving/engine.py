@@ -46,6 +46,7 @@ from repro_torch.core.overlap import (ESSLayerState, Fork, _attend_rows,
                                       ess_sparse_attention_staged,
                                       side_stream)
 from repro_torch.distributed import compression as cmp
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import blocks as MB
 from repro_torch.models import layers as L
@@ -56,6 +57,7 @@ from repro_torch.serving import step as SP
 from repro_torch.serving.api import TokenEvent
 from repro_torch.serving.sampling import greedy, request_key, sample
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.training.tree import tree_map
 
 
 class DecodeOut(NamedTuple):
@@ -354,6 +356,11 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     layer's post-ln1 hidden states of the last ``collect_tail`` positions
     (the LRU warmup's input) and ``hidden_last`` the post-final-norm hidden
     at the last valid position (``None`` unless ``want_logits``)."""
+    if slot is not None and shd.is_dtensor(caches.lens):
+        return _prefill_slot_on_rank(params, cfg, tokens, positions, caches,
+                                     slot=slot, want_logits=want_logits,
+                                     collect_tail=collect_tail,
+                                     n_valid=n_valid)
     b0, Bc = (0, tokens.shape[0]) if slot is None else (slot, 1)
     C = tokens.shape[1]
     dev = tokens.device
@@ -429,6 +436,37 @@ def ess_prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         logits = L.unembed(params.get("unembed", params["embed"]), xf)
         hidden_last = xf[:, max(nv - 1, 0)]                       # [Bc,d]
     return logits, caches._replace(lens=new_lens), tuple(tails), hidden_last
+
+
+def _prefill_slot_on_rank(params, cfg, tokens, positions, caches, *, slot,
+                          **kw):
+    """:func:`ess_prefill_chunk` of one slot over several data ranks: the
+    rank that holds the slot runs it alone on its own tensors (its tier,
+    rows and weights), at the slot's rank-local row, and fills its own
+    tier; no other rank takes part and nothing moves between ranks.  The
+    weights must be whole on the rank (replicated, as on a data-only
+    mesh)."""
+    mesh, B = caches.lens.device_mesh, caches.lens.shape[0]
+    r0, nb = shd.batch_block(mesh, B)
+    if not r0 <= slot < r0 + nb:
+        raise ValueError(f"slot {slot} is held by another rank (this one "
+                         f"holds {r0}..{r0 + nb - 1})")
+
+    def whole(t):
+        if not shd.is_dtensor(t):
+            return t
+        local = t.to_local()
+        if local.shape != t.shape:
+            raise ValueError("a per-slot prefill runs on one rank: its "
+                             "weights must be whole there")
+        return local
+    lp = tree_map(whole, params)
+    with shd.use_sharding(None, None):
+        logits, lc, tails, hidden = ess_prefill_chunk(
+            lp, cfg, whole(tokens), whole(positions), LC.local_part(caches),
+            slot=slot - r0, **kw)
+    return logits, caches._replace(
+        lens=shd.from_local_batch(lc.lens, mesh, B)), tails, hidden
 
 
 def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -18,6 +18,16 @@ kernel's limit of 65530 maps a process, and XLA's next compile aborts
 :func:`pytest_runtest_protocol` below for the whole run: after the last
 test of each file, whichever package it tests, it collects garbage and
 clears JAX's caches, so each file starts from the maps it needs itself.
+
+The reference's eager serve paths compile each primitive at each new
+shape, and those compiles dominate the files that drive its sessions and
+layers (``test_torch_session``, ``test_torch_overlap``, ``test_torch_tbo``:
+1029 XLA compiles, 186 of 335 s, in ``test_torch_session``'s four stream
+runs).  A file that marks itself with ``pytest.mark.usefixtures(
+"quick_xla")`` has them compiled with ``jax_disable_most_optimizations``
+(XLA's backend at its lowest optimization level, LLVM's expensive passes
+off: the same operations, compiled in half the time), set for that file
+only and restored after it.
 """
 
 import gc
@@ -27,6 +37,17 @@ import pytest
 import torch
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def quick_xla():
+    """XLA's quick compiles (``jax_disable_most_optimizations``) for the
+    tests of one file; the flag's value before it is restored after."""
+    import jax
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", prev)
 
 
 @pytest.hookimpl(hookwrapper=True)

@@ -76,6 +76,38 @@ def test_scatter_rows_plain_drops_out_of_range():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_scatter_rows_plain_fixed_shape_equals_boolean_index():
+    """The plain scatter writes dropped rows back onto the last kept
+    row's target (a fixed shape, so it runs on ``meta``): bit for bit the
+    boolean-index version it replaced, duplicate targets (the last write
+    wins, on this file's one torch thread), all-dropped and empty calls,
+    bf16 rows into fp32 included."""
+    from repro_torch.kernels.gather_cache.ref import scatter_rows_ref
+
+    def boolean_index(dst, tgt, rows):
+        keep = (tgt >= 0) & (tgt < dst.shape[0])
+        dst[tgt[keep]] = rows[keep].to(dst.dtype)
+        return dst
+    g = torch.Generator().manual_seed(0)
+    for case in range(400):
+        N = int(torch.randint(1, 12, (1,), generator=g))
+        M = int(torch.randint(0, 20, (1,), generator=g))
+        dst = torch.randn(N, 3, generator=g)
+        tgt = torch.randint(-3, N + 3, (M,), generator=g)
+        if case % 7 == 0:
+            tgt = tgt.clamp_max(-1)                  # nothing kept
+        rows = torch.randn(M, 3, generator=g)
+        if case % 2:
+            rows = rows.to(torch.bfloat16)
+        assert torch.equal(scatter_rows_ref(dst.clone(), tgt, rows),
+                           boolean_index(dst.clone(), tgt, rows)), case
+    meta = torch.empty((100, 4), device="meta")
+    out = scatter_rows_ref(meta, torch.empty((7,), dtype=torch.int64,
+                                             device="meta"),
+                           torch.empty((7, 4), device="meta"))
+    assert out.device.type == "meta" and out.shape == (100, 4)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("Hi,Di,S", [(64, 128, 300), (10, 48, 64),
                                      (4, 32, 1000)])

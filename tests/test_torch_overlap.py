@@ -48,6 +48,8 @@ from repro_torch.models.params import from_jax_params
 from repro_torch.serving import engine as TE
 
 pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
+# the reference's many eager compiles at XLA's quick settings
+pytestmark = pytest.mark.usefixtures("quick_xla")
 
 CFG = "deepseek-v32-exp-ess-smoke"
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

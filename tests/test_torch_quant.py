@@ -134,6 +134,72 @@ def test_quantize_rows_bitwise_with_edge_cases(name, src):
     assert (TC.dequantize_rows(tq, ts)[4:9] <= 0).all()
 
 
+# the reference quantizer's corners (``tests/test_distributed.py``'s four
+# edge cases), each on the port and bit for bit against the reference
+
+
+def test_quantize_rows_all_zero_page_roundtrips_exactly():
+    x = np.zeros((2, 4, 8), np.float32)               # an all-zero page
+    for name, dt in TC.CACHE_QUANT_DTYPES.items():
+        q, s = TC.quantize_rows(T(x).to(torch.bfloat16), dt)
+        assert tuple(s.shape) == (2, 4, 1) and s.dtype == TC.SCALE_DTYPE
+        assert (q.float() == 0).all() and (s.float() == 0).all()
+        assert (TC.dequantize_rows(q, s, torch.bfloat16).float() == 0).all()
+        jq, js = jquant(jnp.asarray(x, jnp.bfloat16),
+                        JC.CACHE_QUANT_DTYPES[name])
+        assert_bits(q, jq)
+        assert_bits(s, js)
+
+
+def test_quantize_rows_sentinel_rows_keep_zero_scale():
+    # zero rows among live rows stay exactly zero (the paged tier's
+    # unwritten rows survive the round trip)
+    x = np.stack([np.zeros(8), np.full(8, 3.0), np.zeros(8)]).astype(
+        np.float32)
+    q, s = TC.quantize_rows(T(x).to(torch.bfloat16), torch.int8)
+    sf = s.float().view(-1)
+    assert sf[0] == 0.0 and sf[2] == 0.0 and sf[1] > 0.0
+    deq = TC.dequantize_rows(q, s, torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(deq[0], 0.0)
+    np.testing.assert_array_equal(deq[2], 0.0)
+    np.testing.assert_allclose(deq[1], 3.0, rtol=2e-2)
+    jq, js = jquant(jnp.asarray(x, jnp.bfloat16), jnp.int8)
+    assert_bits(q, jq)
+    assert_bits(s, js)
+
+
+def test_quantize_rows_max_magnitude_clips_not_wraps():
+    # the f16-rounded scale can land below amax / qmax: the payload clips
+    # to the dtype's largest magnitude and never wraps
+    x = np.array([[1000.0, -1000.0, 999.9, 0.25]], np.float32)
+    for name, dt in TC.CACHE_QUANT_DTYPES.items():
+        q, s = TC.quantize_rows(T(x), dt)
+        qf, m = q.float().numpy(), TC.quant_max(dt)
+        assert np.abs(qf).max() <= m
+        assert qf[0, 0] == m and qf[0, 1] == -m
+        deq = TC.dequantize_rows(q, s, torch.float32).numpy()
+        np.testing.assert_allclose(deq[0, :2], [1000.0, -1000.0], rtol=1e-2)
+        assert abs(deq[0, 3] - 0.25) <= float(s[0, 0])
+        jq, js = jquant(jnp.asarray(x), JC.CACHE_QUANT_DTYPES[name])
+        assert_bits(q, jq)
+        assert_bits(s, js)
+
+
+def test_quantize_rows_negative_only_rows():
+    # amax from a negative extremum: no sign bias, no one-sided saturation
+    rng = np.random.default_rng(3)
+    x = (-np.abs(rng.standard_normal((5, 16))) - 0.1).astype(np.float32)
+    xb = T(x).to(torch.bfloat16)
+    q, s = TC.quantize_rows(xb, torch.int8)
+    deq = TC.dequantize_rows(q, s, torch.float32).numpy()
+    assert (deq <= 0).all()
+    err = np.abs(deq - x)
+    assert (err <= s.float().numpy() * 0.5 + np.abs(x) * 0.01).all()
+    jq, js = jquant(jnp.asarray(x, jnp.bfloat16), jnp.int8)
+    assert_bits(q, jq)
+    assert_bits(s, js)
+
+
 def test_wire_nbytes_and_row_bytes_match_reference():
     for tier in TIERS:
         jcfg, tcfg = cfgs(tier, "bf16")
