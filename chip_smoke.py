@@ -17,7 +17,9 @@ the script exits non-zero without a result line):
    same function, and compute the card's lower bound for the work (for
    the UVA kernels: the larger of the bytes that cross the host link over
    its peak, PCIe Gen5 x16, and the device bytes over HBM; a contiguous
-   copy of the same bytes is timed beside them).  The row gathers run on both routes: the decode miss fetch (direct) and
+   copy of the same bytes is timed beside them; the indexer's keys count
+   only the rows that some query of their slot may see).  The row
+   gathers run on both routes: the decode miss fetch (direct) and
    a prefill chunk's per-query rows (staged; each distinct row must be
    read once, by the kernel's own count), and the pipelined round's slab
    gather (``gather_rows_raw``: ids [4, 4, 256] over every layer of the
@@ -133,6 +135,24 @@ the script exits non-zero without a result line):
    ``audit.ClusterWatch`` (ESS107: one host wait a pack, each rid packed
    once, prefill rounds waiting only to pack, decode rounds at one fetch,
    none in an install, none outside a worker round);
+13b. long prompt — after the cluster (:func:`long_prompt_phase`): the
+   serve's model, weights and tier (bf16), a compiled 2-slot session of
+   ``max_seq`` 32776 and chunk 256; rid 0 (8192 tokens + 160 new) decodes
+   while rid 1 (32768 tokens + 2 new), submitted after rid 0's first
+   token, prefills in 128 chunks, one a round.  Both must finish, rid 0
+   must emit in every round in which rid 1 prefills, rid 1's tier rows
+   and first token must equal a standalone ``ess_prefill`` of its prompt
+   at chunk 256 (bit for bit; the first token otherwise within a bf16 ulp
+   of the standalone logits' top), rid 0's stream must equal the same
+   session's with rid 1 never submitted, the prefill's tier fetches all
+   staged and the decode's direct, every indexer and sparse-MLA launch on
+   the tensor-core route at the launches per shape the rounds and chunks
+   give.  Prints rid 1's prefill tok/s (over its chunks' own time, and
+   from submit to its first token) and TTFT, rid 0's decode ms/round
+   while rid 1 prefills and after, the hits and misses of the rounds at
+   32K context, and the pinned tier against the device bytes per slot.
+   Phase 3 times the indexer at its shapes (rows ``decode-32k``,
+   ``prefill-32k``);
 11. session D — every weight zeroed in place, so every argmax is token 0
    and every draft is accepted: 2 requests (``SESSION_D``) at depth 1 in
    graph mode must show accept rate 1.0, 2 tokens per live slot-round
@@ -213,7 +233,7 @@ install's ``put_pages`` (pinned packet -> pinned tier), each against its
 plain version, the copy engine on the same bytes and its bound (the larger
 direction over the link's peak).
 
-Each of phases 5-13 sets every launch count to 0 just before it runs and
+Each of phases 5-13b sets every launch count to 0 just before it runs and
 reads them just after (9b's replays count nothing: it prints the eager
 rounds' and the captures' launches); the kernels line's
 ``launches_session_e`` are session E's eager run's, its
@@ -228,8 +248,9 @@ eager run's (the verify shapes), the grafts' (the page gathers), the
 monolithic run's prefill (the HBM gather at the prefill shape) and eager
 decode rounds (the HBM gather at the decode shape, ``topk_select``'s
 indexer, the mono-decode partial), the
-cluster runs' (the pack's page gather and the install's page write) and
-T2's steps (the train mask's indexer); every
+cluster runs' (the pack's page gather and the install's page write), the
+long prompt's (the indexer over 32776 keys, ``launches_long`` for every
+kernel) and T2's steps (the train mask's indexer); every
 kernel of the line must have one: counted where the wrappers launch, not derived
 from a graph's replays, which the graph runs' equal counts then confirm.
 
@@ -334,6 +355,15 @@ def bound_ms(nbytes: float, ops: float, dtype: str,
     tb = max(nbytes / HBM_BYTES_S, host_bytes / LINK_BYTES_S) * 1e3
     to = ops / PEAK_OPS_S[dtype] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def key_bytes(keys, valid) -> int:
+    """Bytes of the indexer's keys that its scores need: each slot's key
+    rows that some query may see (``valid`` [B,S] or [B,Q,S]).  A key that
+    no query sees scores -2e38 unread, so a slot filled to ``n`` of ``S``
+    rows counts ``n`` of them."""
+    v = valid if valid.dim() == 2 else valid.any(dim=1)
+    return int(v.sum()) * keys.shape[-1] * keys.element_size()
 
 
 def copy_rates(torch, dev, nbytes=256 * 2**20):
@@ -851,16 +881,18 @@ def check_kernels(torch, dev):
     #    dots alone (bmm) and the stable-sort top-k of the scores --------
     from repro_torch.models.mla import topk_desc
 
-    def indexer_case(tag, Q, causal):
-        q = randn((B, Q, Hi, Di))
-        w = randn((B, Q, Hi))
-        keys = randn((B, S, Di))
+    def indexer_case(tag, Q, causal, nb=B, ns=S, at=lens):
+        """``nb`` slots of ``ns`` keys, each slot ``at`` its length."""
+        q = randn((nb, Q, Hi, Di))
+        w = randn((nb, Q, Hi))
+        keys = randn((nb, ns, Di))
         if causal:
-            qpos = lens[:, None] - Q + torch.arange(Q, device=dev)
-            valid = torch.arange(S, device=dev)[None, None] <= qpos[..., None]
+            qpos = at[:, None] - Q + torch.arange(Q, device=dev)
+            valid = torch.arange(ns, device=dev)[None, None] \
+                <= qpos[..., None]
         else:
-            valid = (torch.arange(S, device=dev)[None, None]
-                     < lens[:, None, None]).expand(B, Q, S)
+            valid = (torch.arange(ns, device=dev)[None, None]
+                     < at[:, None, None]).expand(nb, Q, ns)
         require(iops.tc_route(q, keys), f"indexer {tag}: not the tc route")
         got = iops.indexer_scores(q, w, keys, valid)
         gen = iops.general_scores(q, w, keys, valid)
@@ -882,11 +914,11 @@ def check_kernels(torch, dev):
         overlap = float(hit.float().mean())
         del want, ia, ib, hit, live
         nvalid = int(valid.sum())
-        nbytes = (q.numel() + w.numel() + keys.numel()) * 2 \
+        nbytes = (q.numel() + w.numel()) * 2 + key_bytes(keys, valid) \
             + valid.numel() + 4 * got.numel()
         bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
         it = 3 if Q > 2 else 20
-        qh = q.reshape(B, Q * Hi, Di).transpose(1, 2)           # [B,Di,Q*Hi]
+        qh = q.reshape(nb, Q * Hi, Di).transpose(1, 2)         # [B,Di,Q*Hi]
         rec = dict(
             name=f"indexer_scores[{tag}]", route="cuda",
             source="src/repro_torch/kernels/indexer/csrc/indexer_tc.cu",
@@ -919,6 +951,14 @@ def check_kernels(torch, dev):
 
     indexer_case("decode", 1, False)
     indexer_case("prefill", C, True)
+    # the long-prompt phase's shapes, keys over its max_seq: the round in
+    # which rid 1 decodes (rid 0 about 130 tokens into its decode), and
+    # rid 1's last prefill chunk (queries at 32512..32767, causal)
+    indexer_case("decode-32k", 1, False, nb=LONG_SLOTS, ns=LONG_MAX_SEQ,
+                 at=torch.tensor([LONG_PROMPTS[0] + 130, LONG_PROMPTS[1] + 1],
+                                 device=dev))
+    indexer_case("prefill-32k", C, True, nb=1, ns=LONG_MAX_SEQ,
+                 at=torch.tensor([LONG_PROMPTS[1]], device=dev))
     torch.cuda.empty_cache()
 
     # -- sparse_mla_partial: the tensor-core route at the serve's three
@@ -1161,8 +1201,8 @@ def check_monolithic_kernels(torch, dev, records):
                                atol=1e-3)
     err = float((vals - want.gather(2, ids)).abs().max())
     nvalid = int(valid_d.sum())
-    nbytes = (q.numel() + w.numel() + keys.numel()) * 2 + valid_d.numel() \
-        + B * K * (4 + 8)
+    nbytes = (q.numel() + w.numel()) * 2 + key_bytes(keys, valid_d) \
+        + valid_d.numel() + B * K * (4 + 8)
     bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "bf16")
     scores = iops.indexer_scores(q, w, keys, valid_d)
     records["indexer_scores[topk_select]"] = dict(
@@ -2321,8 +2361,9 @@ SESSION_D_MAX_SEQ = 1088
 
 def session_phases(torch, dev, serve, params, args, qargs, records, counted,
                    card):
-    """Phases 8-11 (see the module docstring); sets the kernel records'
-    launches from session A's eager run and session B's."""
+    """Phases 8-13b and 11 (see the module docstring); sets the kernel
+    records' launches from session A's eager run, session B's and the long
+    prompt's."""
     import dataclasses
 
     import numpy as np
@@ -2731,6 +2772,12 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
         records[f"put_pages[install{sfx}]"]["launches"] = n["put_pages"]
     print(f"cluster: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 13b. the long prompt: a 32K-token prompt admitted in chunks beside a
+    #      decoding slot, against a standalone prefill and rid 0 alone
+    t0 = time.perf_counter()
+    long_prompt_phase(torch, dev, params, scfg, card, counted, records)
+    print(f"long prompt: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 11. session D: every weight zeroed in place, so every argmax is token
     #     0 and every draft is accepted; graph mode, against Q = 1 rounds
     for t in leaves(params):
@@ -2769,6 +2816,225 @@ def session_phases(torch, dev, serve, params, args, qargs, records, counted,
           + ", ".join(f"rid {r} {[c for q, _, c in emits if q == r]}"
                       for r in range(len(SESSION_D)))
           + "), streams equal to the Q = 1 session's", flush=True)
+
+
+# the long-prompt phase: rid 0 (a prompt, its budget) decodes while rid 1,
+# submitted after rid 0's first token, admits a 32K-token prompt in 256-token
+# chunks beside it; 2 slots of max_seq the long prompt + 8
+LONG_PROMPTS = (8192, 32768)
+LONG_NEW = (160, 2)
+LONG_SLOTS, LONG_MAX_SEQ = 2, 32776
+
+
+def long_prompt_phase(torch, dev, params, cfg, card, counted, records):
+    """Phase 13b (see the module docstring); sets the kernel records'
+    ``launches_long``, and the 32K indexer rows' ``launches``."""
+    import numpy as np
+
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n)) for n in LONG_PROMPTS]
+    L, R = cfg.num_layers, cfg.ess.host_page_rows
+    nb1 = -(-LONG_PROMPTS[1] // R)
+
+    def tier_rows(caches, slot):
+        """The pinned tier's rows of ``slot``'s first ``LONG_PROMPTS[1]``
+        positions, copied on the host (no kernel)."""
+        bt = caches.block_tables[slot].cpu()[:nb1]
+        host = caches.host_latent
+        return host[:, bt].reshape(L, nb1 * R, host.shape[-1])[
+            :, :LONG_PROMPTS[1]].clone()
+
+    def drive(with_long):
+        """One compiled session's rounds; rid 1 submitted after rid 0's
+        first token when ``with_long``.  Returns the session and a record
+        per round: the prefill chunk's rid and seconds (between two
+        synchronizes), the decode round's wall ms (host clock, ending in
+        its fetch), decode tokens, hit and miss rows, whether it captured
+        a graph, and rid 1's tier rows at its promotion."""
+        sess = E.ServeSession(
+            params, cfg, num_slots=LONG_SLOTS, max_seq=LONG_MAX_SEQ,
+            prompt_fn=lambda r: prompts[r.rid],
+            prefill_chunk=PREFILL_CHUNK, compiled=True, device=dev)
+        real_prefill, real_decode = sess.prefill_round, sess.decode_round
+        rep, cur, snap = sess.report, {}, {}
+
+        def prefill_round():
+            slot, task = next(iter(sess._prefill.items()), (None, None))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ran = real_prefill()
+            torch.cuda.synchronize()
+            if task is not None:
+                cur["prefill"] = (task.req.rid, time.perf_counter() - t0)
+                if task.req.rid == 1 and slot not in sess._prefill:
+                    snap["rows"] = tier_rows(sess.caches, slot)
+            return ran
+
+        def decode_round():
+            d0, h0, m0 = rep.decode_tokens, rep.hit_rows, rep.h2d_rows
+            k, caps = rep.rounds, sess.programs.captures
+            live = sorted(sess.sched.slots[i].rid
+                          for i in sess.sched.active_slots())
+            t0 = time.perf_counter()
+            done = real_decode()
+            if rep.rounds > k:
+                cur["decode"] = dict(
+                    ms=1e3 * (time.perf_counter() - t0),
+                    tokens=rep.decode_tokens - d0,
+                    hits=rep.hit_rows - h0, misses=rep.h2d_rows - m0,
+                    captured=sess.programs.captures > caps, live=live)
+            return done
+
+        sess.prefill_round, sess.decode_round = prefill_round, decode_round
+        sess.submit(Request(rid=0, prompt_len=LONG_PROMPTS[0],
+                            max_new_tokens=LONG_NEW[0]))
+        log, submitted = [], not with_long
+        while sess.sched.running or sess.sched.queue:
+            if not submitted and sess.outputs.get(0):
+                sess.submit(Request(rid=1, prompt_len=LONG_PROMPTS[1],
+                                    max_new_tokens=LONG_NEW[1]))
+                submitted = True
+            cur.clear()
+            sess.step_round()
+            log.append(dict(cur))
+            require(len(log) < 4 * sum(LONG_NEW) + 400,
+                    "long: the session does not finish")
+        return sess, log, snap
+
+    t0 = time.perf_counter()
+    (sess, log, snap), n = counted(lambda: drive(True))
+    wall = time.perf_counter() - t0
+    rep = sess.report
+    finished = sorted(r.rid for r in sess.sched.finished)
+    require(finished == [0, 1] and [len(sess.outputs[r]) for r in (0, 1)]
+            == list(LONG_NEW), f"long: finished {finished}, streams "
+            f"{[len(sess.outputs.get(r, ())) for r in (0, 1)]}")
+    long_idx = [i for i, e in enumerate(log)
+                if e.get("prefill", (None,))[0] == 1]
+    long_rounds = [log[i] for i in long_idx]
+    chunks1 = len(long_rounds)
+    require(chunks1 >= LONG_PROMPTS[1] // PREFILL_CHUNK,
+            f"long: rid 1 prefilled in {chunks1} chunks")
+    stalled = [i for i in long_idx
+               if log[i].get("decode", {}).get("tokens", 0) < 1]
+    require(not stalled, f"long: rounds in which rid 1 prefilled and rid 0 "
+            f"decoded nothing: {stalled}")
+    ch = sum(-(-p // PREFILL_CHUNK) for p in LONG_PROMPTS)
+    require(rep.prefill_chunks == ch, f"long: {rep.prefill_chunks} chunks")
+    require_tc_only(n, "long")
+    got = check_shapes(n, cfg, {
+        "indexer_scores[decode]": L * rep.rounds,
+        "indexer_scores[prefill]": L * ch,
+        "sparse_mla_partial[attn0]": L * rep.rounds,
+        "sparse_mla_partial[attn1]": L * rep.rounds,
+        "sparse_mla_partial[prefill]": L * ch}, "long")
+    want = {"gather_rows_staged": L * ch, "gather_rows_direct": L * rep.rounds,
+            "gather_rows_dequant": 0, "scatter_rows": ch + L * rep.rounds}
+    require(all(n[k] == v for k, v in want.items())
+            and n["gather_rows"] == L * (ch + rep.rounds)
+            and n["sparse_mla_merge"] > 0,
+            f"long: launches {n}, expected {want}")
+    state = latent_state_bytes(torch, sess.caches)
+    t1 = sess.outputs[1][0]
+    a_out = list(sess.outputs[0])
+    del sess
+    torch.cuda.empty_cache()
+
+    # rid 1 against a standalone prefill of its prompt at the same chunk
+    tok = torch.as_tensor(prompts[1], device=dev)
+    pos = torch.arange(LONG_PROMPTS[1], device=dev)[None]
+    lg, donor = E.ess_prefill(params, cfg, tok, pos, LONG_MAX_SEQ,
+                              do_warmup=False, prefill_chunk=PREFILL_CHUNK,
+                              last_logits_only=True)
+    lg = lg[0, -1].float()
+    torch.cuda.synchronize()
+    ref_rows = tier_rows(donor, 0)
+    del donor
+    t_ref = int(lg.argmax())
+    same = torch.equal(snap["rows"].view(torch.int16),
+                       ref_rows.view(torch.int16))
+    if not same:
+        d = (snap["rows"].float() - ref_rows.float()).abs()
+        print(f"long: rid 1's tier rows differ from a standalone prefill's: "
+              f"max |diff| {float(d.max()):.4g} at (layer, position, dim) "
+              f"{np.unravel_index(int(d.argmax()), d.shape)} of "
+              f"host_latent {list(ref_rows.shape)}", flush=True)
+        pair = torch.tensor([t1, t_ref], device=dev)
+        gap = float((lg[pair[1]] - lg[pair[0]]).abs())
+        require(t1 == t_ref or gap <= bf16_ulp(float(lg[t_ref])),
+                f"long: rid 1's first token {t1}, standalone {t_ref}, "
+                f"logit gap {gap:.4g} beyond a bf16 ulp")
+    else:
+        require(t1 == t_ref, f"long: rid 1's first token {t1}, a "
+                f"standalone prefill's {t_ref} from equal rows")
+    del ref_rows, lg
+
+    # rid 0 alone: a prefilling, then a live slot 1 must not move its stream
+    alone, _, _ = drive(False)
+    require(list(alone.outputs[0]) == a_out,
+            "long: rid 0's stream differs from the same session's without "
+            "rid 1")
+    del alone
+    torch.cuda.empty_cache()
+
+    # prints
+    pre1 = sum(e["prefill"][1] for e in long_rounds)
+    dec = [e["decode"] for e in log if "decode" in e
+           and not e["decode"]["captured"]]
+    during = [e["decode"]["ms"] for e in long_rounds
+              if "decode" in e and not e["decode"]["captured"]]
+    last1 = max(i for i, e in enumerate(log)
+                if 1 in e.get("decode", {}).get("live", ()))
+    after = [e["decode"]["ms"] for e in log[last1 + 1:]
+             if "decode" in e and not e["decode"]["captured"]]
+    at32 = [d for d in dec if 1 in d["live"]]
+    alone_r = [d for d in dec if d["live"] == [0]]
+    print(f"long: deepseek-v32-exp-ess as the serve, 2 slots, max_seq "
+          f"{LONG_MAX_SEQ}, chunk {PREFILL_CHUNK}: rid 0 {LONG_PROMPTS[0]} "
+          f"+ {LONG_NEW[0]} tokens, rid 1 {LONG_PROMPTS[1]} + {LONG_NEW[1]} "
+          f"after rid 0's first token; {rep.rounds} decode rounds, "
+          f"{rep.prefill_chunks} chunks, wall {wall:.2f} s  [{card}]",
+          flush=True)
+    print(f"long: rid 1 prefill {chunks1} chunks, {LONG_PROMPTS[1] / pre1:.1f} "
+          f"tok/s over its chunks' own time ({pre1:.3f} s), "
+          f"{LONG_PROMPTS[1] / rep.ttft_s[1]:.1f} tok/s from submit to first "
+          f"token (the decode rounds between its chunks included); TTFT "
+          f"{rep.ttft_rounds[1]} rounds, {1e3 * rep.ttft_s[1]:.1f} ms from "
+          f"submit  [{card}]", flush=True)
+    print(f"long: rid 0 decode {np.mean(during):.3f} ms/round while rid 1 "
+          f"prefills ({len(during)} rounds; median "
+          f"{float(np.median(during)):.3f}), {np.mean(after):.3f} ms/round "
+          f"after ({len(after)} rounds)  [{card}]", flush=True)
+    print(f"long: at 32K context (the rounds in which rid 1 decodes, both "
+          f"slots live): hits / misses per round "
+          + ", ".join(f"{d['hits']} / {d['misses']}" for d in at32)
+          + f"; rid 0 alone: {np.mean([d['hits'] for d in alone_r]):.1f} / "
+          f"{np.mean([d['misses'] for d in alone_r]):.1f} per round (mean of "
+          f"{len(alone_r)})  [{card}]", flush=True)
+    dev_b = state["indexer"] + state["pool_rows"] + state["pool_maps"]
+    print(f"long: per slot, pinned host tier "
+          f"{state['host_tier'] / LONG_SLOTS / 2**20:.2f} MiB against device "
+          f"{dev_b / LONG_SLOTS / 2**20:.2f} MiB (indexer keys "
+          f"{state['indexer'] / LONG_SLOTS / 2**20:.2f} + pools "
+          f"{(state['pool_rows'] + state['pool_maps']) / LONG_SLOTS / 2**20:.2f}"
+          f"); rid 1's tier rows {'equal' if same else 'NOT equal'} to a "
+          f"standalone prefill's bit for bit, first token {t1} ({t_ref}); "
+          f"rid 0's {len(a_out)} tokens equal to its run alone  [{card}]",
+          flush=True)
+    counts = dict(got, gather_rows=n["gather_rows_direct"],
+                  scatter_rows=n["scatter_rows"],
+                  sparse_mla_merge=n["sparse_mla_merge"])
+    counts["gather_rows[prefill]"] = n["gather_rows_staged"]
+    # every indexer launch of this phase reads keys over max_seq 32776
+    for tag in ("decode", "prefill"):
+        counts[f"indexer_scores[{tag}-32k]"] = got[f"indexer_scores[{tag}]"]
+        records[f"indexer_scores[{tag}-32k]"]["launches"] = \
+            counts[f"indexer_scores[{tag}-32k]"]
+    for name, r in records.items():
+        r["launches_long"] = counts.get(name, 0)
 
 
 # the cluster phase: one prefill worker (2 slots) and two decode workers
@@ -4166,7 +4432,8 @@ def t2_dsa(torch, dev, card, counted, records):
           f"score)  [{card}]", flush=True)
     nvalid = int(valid.sum())
     Hi, Di = q.shape[2], q.shape[3]
-    nbytes = (q.numel() + w.numel() + keys.numel()) * 4 + valid.numel() \
+    nbytes = (q.numel() + w.numel()) * 4 + key_bytes(keys, valid) \
+        + valid.numel() \
         + sc.numel() * 4
     bms, bby = bound_ms(nbytes, nvalid * Hi * (2 * Di + 2), "fp32_simt")
     records["indexer_scores[train]"] = dict(
@@ -4597,7 +4864,7 @@ def main() -> int:
             "route_b_ms", "pack_shape_ms", "pack_shape_device_ms",
             "pack_shape_bound_ms", "pack_shape_copy_ms", "staged_ms",
             "staged_device_ms", "direct_device_ms", "sort_ms",
-            "launches_monolithic")
+            "launches_monolithic", "launches_long")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {

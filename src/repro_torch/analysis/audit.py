@@ -20,7 +20,9 @@ counts (tests feed it sabotaged data) beside a driver.
   no op takes a narrow tensor of at least one layer's tier elements
   together with a bf16 / f16 / f32 tensor (a widening copy, a scale
   multiply over the whole tier).  A graph replay hides its ops, so the
-  profiled round runs eager.
+  profiled round runs eager.  A session whose state holds no int8 / fp8
+  tensor is not profiled: it is flagged, as the reference flags a bf16
+  tier ("no quantized state leaf").
 * **ESS107 the PD pack** — a 1-prefill + 1-decode
   :class:`~repro_torch.cluster.EssCluster`: each ``pack_migration``
   makes exactly :data:`~contracts.PACK_BUDGET_PER_MIGRATION` host wait,
@@ -347,6 +349,11 @@ class SessionWatch:
         self.profile_decode = profile_decode
         self.profiled_ops: Optional[list] = None
         self.threshold = tier_threshold(session.state)
+        # ESS106 audits a quantized tier; a session without one is flagged
+        # instead of profiled (the reference's "no quantized state leaf")
+        self.quantized = any(
+            str(t.dtype).removeprefix("torch.") in C.ESS106_NARROW_DTYPES
+            for _, t in state_leaves(session.state))
         self._fetches = [0]
         self._stack = None
 
@@ -387,8 +394,9 @@ class SessionWatch:
     def _decode_round(self, real):
         def decode_round(*a, **k):
             k_round = self.session.report.rounds - self.rounds0
-            if k_round != self.profile_decode or self.profiled_ops \
-                    is not None or not self.session.sched.active_slots():
+            if k_round != self.profile_decode or not self.quantized \
+                    or self.profiled_ops is not None \
+                    or not self.session.sched.active_slots():
                 return real(*a, **k)
             compiled = self.session.compiled
             self.session.compiled = False        # an eager round: ops seen
@@ -457,7 +465,12 @@ class SessionWatch:
         fs += check_state_dtypes(self.name, self.dtypes_in,
                                  state_dtypes(s.state))
         if self.profile_decode is not None:
-            if self.profiled_ops is None:
+            if not self.quantized:
+                fs.append(_finding(
+                    "ESS106", self.name,
+                    f"{self.name}: no quantized state leaf — audit the "
+                    f"quantized tier config (host_cache_dtype)"))
+            elif self.profiled_ops is None:
                 fs.append(_finding("ESS106", self.name,
                                    "the decode round to profile never ran"))
             else:

@@ -14,9 +14,9 @@ def indexer_scores_ref(q: torch.Tensor, w: torch.Tensor, keys: torch.Tensor,
 
     q [B,Q,Hi,Di], w [B,Q,Hi], keys [B,S,Di] -> [B,Q,S]."""
     dots = torch.einsum("bqhk,bsk->bqhs", q.float(), keys.float())
-    sc = torch.einsum("bqh,bqhs->bqs", w.float(), torch.relu(dots))
+    sc = torch.einsum("bqh,bqhs->bqs", w.float(), torch.relu_(dots))
     if valid is None:
         return sc
     if valid.dim() == 2:
         valid = valid[:, None, :]
-    return torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    return sc.masked_fill_(valid.logical_not(), NEG_INF)

@@ -107,18 +107,50 @@ def indexer_scores(iq: IndexerQuery, keys: torch.Tensor,
     return local_call(idx_ops.indexer_scores, iq.q, iq.w, keys, valid)
 
 
+# rows of a CPU top-k keyed at once: 2**20 int64 keys (8 MiB) a block
+_TOPK_BLOCK = 1 << 20
+_KEYED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def topk_desc(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest along the last axis with ``lax.top_k``'s
-    tie order (the lowest index wins among equal values)."""
+    tie order (the lowest index wins among equal values).  A stable
+    descending sort, but for plain CPU tensors of a float dtype of 32 bits
+    or fewer: there :func:`_topk_keyed`, the sort's indices without
+    sorting whole rows.  Both take ``-0.0`` as equal to ``0.0``, where
+    ``lax.top_k`` ranks ``0.0`` above ``-0.0``."""
+    if type(x) is torch.Tensor and x.device.type == "cpu" \
+            and x.dtype in _KEYED_DTYPES and 0 < x.shape[-1] < 2**31:
+        return _topk_keyed(x, k)
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _topk_keyed(x: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`topk_desc` as one ``torch.topk`` over distinct int64 keys,
+    a block of rows at a time: the high 32 bits order the value (its
+    float32 bits, ``-0.0`` made ``0.0`` as the sort compares them, mapped
+    to a signed int that orders as the floats do), the low 32 bits
+    ``S - 1 - index``, so equal values rank the lower index higher and no
+    two keys tie."""
+    S = x.shape[-1]
+    k = min(k, S)
+    flat = x.reshape(-1, S)
+    out = torch.empty((flat.shape[0], k), dtype=torch.int64)
+    tie = torch.arange(S - 1, -1, -1, dtype=torch.int64)
+    rows = max(1, _TOPK_BLOCK // S)
+    for r0 in range(0, flat.shape[0], rows):
+        bits = (flat[r0:r0 + rows].float() + 0.0).view(torch.int32)
+        key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+        key.bitwise_left_shift_(32).bitwise_or_(tie)
+        out[r0:r0 + rows] = key.topk(k, dim=-1).indices
+    return out.view(*x.shape[:-1], k)
 
 
 def topk_ids(scores: torch.Tensor, k: int,
              valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Top-k cache indices per query row. scores [B,Q,S] -> ids [B,Q,k]."""
     if valid_mask is not None:
-        scores = torch.where(valid_mask, scores,
-                             torch.full_like(scores, NEG_INF))
+        scores = scores.masked_fill(valid_mask.logical_not(), NEG_INF)
     return topk_desc(scores, k)
 
 

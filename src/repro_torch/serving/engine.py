@@ -471,20 +471,22 @@ def _prefill_slot_on_rank(params, cfg, tokens, positions, caches, *, slot,
 
 def ess_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, max_seq: int, *,
+                do_warmup: bool = True,
                 prefill_chunk: Optional[int] = None,
                 last_logits_only: bool = False
                 ) -> tuple[torch.Tensor, LC.ESSCaches]:
     """Prefill + LRU warmup (paper section 3.2) on ``tokens.device``.
 
     The first ``S - W`` tokens stream through :func:`ess_prefill_chunk` in
-    ``prefill_chunk``-token chunks (default ``min(S - W, 512)``); the last
-    ``W = warmup_windows`` tokens are replayed as single-token
+    ``prefill_chunk``-token chunks (default ``min(S - W, 512)``; at bf16
+    any chunk size gives the same bits); the last ``W = warmup_windows``
+    tokens (none without ``do_warmup``) are replayed as single-token
     :func:`ess_decode` steps at ``max_miss_ratio = 1.0``, which LRU-admits
     each window's true top-k.  Returns ``(logits [B,S,V], caches)``, or
     only the last position's logits ``[B,1,V]`` with ``last_logits_only``
     (full-width prompts: ``[B,S,V]`` fp32 would not fit the card)."""
     B, S = tokens.shape
-    W = min(cfg.ess.warmup_windows, S - 1)
+    W = min(cfg.ess.warmup_windows, S - 1) if do_warmup else 0
     Sp = S - W
     caches = LC.init_ess_caches(cfg, B, max_seq, cfg.param_dtype,
                                 device=tokens.device)

@@ -8,9 +8,10 @@ there is none:
 
 * ``"none: ..."`` -- nothing in the port to test: a jaxpr-level audit
   (ESS003, ESS004, ESS101, ESS105, the dtype goldens), or donation, which
-  the port's in-place state has no counterpart of;
-* ``"none yet: ..."`` -- behaviour the port has and no port test holds
-  yet (ROADMAP Queue 1 item 3 lists them).
+  the port's in-place state has no counterpart of.
+
+No entry may read ``"none yet: ..."`` (behaviour the port has and no port
+test holds): ``tests/test_torch_reference_map.py`` refuses one.
 """
 
 MAP = {
@@ -157,23 +158,33 @@ MAP = {
         'tests/test_torch_api.py::test_latency_stats_match_reference',
     ),
     # tests/test_chunked_prefill.py
-    'tests/test_chunked_prefill.py::test_32k_prompt_admits_without_decode_stall':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_chunked_prefill.py::test_chunked_prefill_bitwise_parity':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_chunked_prefill.py::test_freed_slot_does_not_alias_live_slot_pages':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_chunked_prefill.py::test_masked_decode_writes_nothing':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
+    'tests/test_chunked_prefill.py::test_32k_prompt_admits_without_decode_stall': (
+        'tests/test_torch_chunked_prefill.py::test_32k_prompt_admits_without_decode_stall',
+    ),
+    'tests/test_chunked_prefill.py::test_chunked_prefill_bitwise_parity': (
+        'tests/test_torch_chunked_prefill.py::test_chunked_prefill_bitwise_parity',
+        'tests/test_torch_cuda.py::test_cuda_chunked_prefill_matches_oneshot',
+    ),
+    'tests/test_chunked_prefill.py::test_freed_slot_does_not_alias_live_slot_pages': (
+        'tests/test_torch_chunked_prefill.py::test_freed_slot_does_not_alias_live_slot_pages',
+        'tests/test_torch_cuda.py::test_cuda_freed_slot_does_not_alias_live_slot_pages',
+    ),
+    'tests/test_chunked_prefill.py::test_masked_decode_writes_nothing': (
+        'tests/test_torch_chunked_prefill.py::test_masked_decode_writes_nothing',
+        'tests/test_torch_cuda.py::test_cuda_masked_decode_writes_nothing',
+    ),
     'tests/test_chunked_prefill.py::test_preempt_resets_generated_and_readmit_serves_full_budget': (
         'tests/test_torch_session.py::test_preempt_readmit_no_stale_pool_entries',
     ),
-    'tests/test_chunked_prefill.py::test_serve_loop_freed_slot_rounds_leave_it_untouched':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_chunked_prefill.py::test_serve_session_chunked_prefill_matches_oneshot_first_token':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_chunked_prefill.py::test_serve_warmup_depth_independent_of_chunking':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
+    'tests/test_chunked_prefill.py::test_serve_loop_freed_slot_rounds_leave_it_untouched': (
+        'tests/test_torch_chunked_prefill.py::test_serve_loop_freed_slot_rounds_leave_it_untouched',
+    ),
+    'tests/test_chunked_prefill.py::test_serve_session_chunked_prefill_matches_oneshot_first_token': (
+        'tests/test_torch_chunked_prefill.py::test_serve_session_chunked_prefill_matches_oneshot_first_token',
+    ),
+    'tests/test_chunked_prefill.py::test_serve_warmup_depth_independent_of_chunking': (
+        'tests/test_torch_chunked_prefill.py::test_serve_warmup_depth_independent_of_chunking',
+    ),
     'tests/test_chunked_prefill.py::test_serve_warmup_replays_after_last_chunk': (
         'tests/test_torch_session.py::test_serve_run_streams_match_reference',
         'tests/test_torch_slots.py::test_lru_warmup_pool_matches_reference',
@@ -238,8 +249,9 @@ MAP = {
     'tests/test_compiled_serve.py::test_step_programs_compile_once_per_shape_bucket': (
         'tests/test_torch_cuda.py::test_cuda_capture_audit_one_graph_per_key',
     ),
-    'tests/test_compiled_serve.py::test_ttft_submit_stamp_unconditional':
-        "none yet: the port's latency stats are held to the reference's (test_torch_api.py::test_latency_stats_match_reference), not the missing-rid error",
+    'tests/test_compiled_serve.py::test_ttft_submit_stamp_unconditional': (
+        'tests/test_torch_chunked_prefill.py::test_ttft_submit_stamp_unconditional',
+    ),
     # tests/test_distributed.py
     'tests/test_distributed.py::test_compression_under_psum': (
         'tests/test_torch_distributed.py::test_compression_under_all_reduce_matches_reference',
@@ -511,10 +523,12 @@ MAP = {
     'tests/test_quant_cache.py::test_admission_blocks_on_bytes_not_pages': (
         'tests/test_torch_session.py::test_host_byte_budget_gates_admission',
     ),
-    'tests/test_quant_cache.py::test_byte_budget_floors_pages_by_storage_dtype':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_quant_cache.py::test_engine_state_gains_only_scale_leaves':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
+    'tests/test_quant_cache.py::test_byte_budget_floors_pages_by_storage_dtype': (
+        'tests/test_torch_quant_tier.py::test_byte_budget_floors_pages_by_storage_dtype',
+    ),
+    'tests/test_quant_cache.py::test_engine_state_gains_only_scale_leaves': (
+        'tests/test_torch_quant_tier.py::test_engine_state_gains_only_scale_leaves',
+    ),
     'tests/test_quant_cache.py::test_ess106_checker_flags_tier_sized_dequant': (
         'tests/test_torch_analysis.py::test_tier_dequant_finder_on_profiled_ops',
         'tests/test_torch_analysis.py::test_tier_dequant_audit_catches_whole_tier_dequant',
@@ -523,17 +537,26 @@ MAP = {
         'tests/test_torch_analysis.py::test_tier_dequant_golden_int8_round',
         'tests/test_torch_analysis.py::test_tier_dequant_golden_fp8_round',
     ),
-    'tests/test_quant_cache.py::test_ess106_flags_bf16_tier_as_unquantized':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
+    'tests/test_quant_cache.py::test_ess106_flags_bf16_tier_as_unquantized': (
+        'tests/test_torch_quant_tier.py::test_ess106_flags_bf16_tier_as_unquantized',
+    ),
     'tests/test_quant_cache.py::test_find_big_dequants_on_synthetic_jaxpr': (
         'tests/test_torch_analysis.py::test_tier_dequant_finder_on_profiled_ops',
     ),
-    'tests/test_quant_cache.py::test_greedy_streams_match_bf16':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3); fails in the reference on this JAX',
-    'tests/test_quant_cache.py::test_host_tier_rows_drift_is_scale_bounded':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3)',
-    'tests/test_quant_cache.py::test_mtp_acceptance_within_2pct_of_bf16':
-        'none yet: a port test to write (ROADMAP Queue 1 item 3); fails in the reference on this JAX',
+    # the bf16-equality claim fails in both packages (random weights, a
+    # near-tie at the same rid and token); the port test holds each tier's
+    # streams equal to the reference's and where the two tiers part
+    'tests/test_quant_cache.py::test_greedy_streams_match_bf16': (
+        'tests/test_torch_quant_tier.py::test_tier_streams_and_rounds_match_reference',
+    ),
+    'tests/test_quant_cache.py::test_host_tier_rows_drift_is_scale_bounded': (
+        'tests/test_torch_quant_tier.py::test_host_tier_rows_drift_is_scale_bounded',
+    ),
+    # as above: the bf16-equality claim fails in both packages; accept rate,
+    # speculative rounds and streams held equal to the reference's per tier
+    'tests/test_quant_cache.py::test_mtp_acceptance_within_2pct_of_bf16': (
+        'tests/test_torch_quant_tier.py::test_mtp_spec_rounds_and_accept_rate_match_reference',
+    ),
     'tests/test_quant_cache.py::test_quantized_programs_donate_all_leaves':
         "none: ESS101 (donation): the port's rounds update one state in place",
     'tests/test_quant_cache.py::test_roundtrip_bf16_rows_land_on_grid': (

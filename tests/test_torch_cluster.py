@@ -47,6 +47,8 @@ from repro_torch.serving import scheduler as TS
 from repro_torch.simulator import costmodel as TCM
 
 pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
+# the reference's many eager compiles at XLA's quick settings
+pytestmark = pytest.mark.usefixtures("quick_xla")
 
 CFG = "deepseek-v32-exp-ess-smoke"
 MAX_SEQ = 32

@@ -704,6 +704,167 @@ def test_cuda_session_graph_replay_matches_eager(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Chunked prefill and masked decode slots on the card (the smoke config, the
+# kernels' general routes; the CPU counterparts in test_torch_chunked_prefill)
+# ---------------------------------------------------------------------------
+
+def _smoke_prefill(cuda, B, S, max_seq, **kw):
+    """The smoke config's ``ess_prefill`` (no warmup) of seeded tokens on
+    the card: ``(cfg, params, logits, caches)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import engine as E
+    cfg = get_config("deepseek-v32-exp-ess-smoke")
+    params = init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    lg, caches = E.ess_prefill(params, cfg, toks, pos, max_seq,
+                               do_warmup=False, **kw)
+    return cfg, params, lg, caches
+
+
+def _clone_ess_caches(c):
+    """A copy of ``ESSCaches``, its host tier pinned as the original."""
+    from repro_torch.core import lru_pool as LP
+    host = c.host_latent.clone()
+    return c._replace(
+        lens=c.lens.clone(),
+        host_latent=host.pin_memory() if c.host_latent.is_pinned() else host,
+        ikeys=[k.clone() for k in c.ikeys],
+        pools=[LP.PoolState(*(t.clone() for t in p)) for p in c.pools],
+        block_tables=None if c.block_tables is None
+        else c.block_tables.clone())
+
+
+def _assert_caches_unchanged(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got.lens, want.lens)
+    assert torch.equal(got.host_latent.view(torch.int16),
+                       want.host_latent.view(torch.int16))
+    for a, b in zip(got.ikeys, want.ikeys):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(got.pools, want.pools):
+        for f in ("ids", "last_use", "slot_of"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert torch.equal(a.data.view(torch.int16), b.data.view(torch.int16))
+
+
+def _bf16_ulp(x: float) -> float:
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("chunk", [7, 64])
+def test_cuda_chunked_prefill_matches_oneshot(cuda, chunk):
+    """``ess_prefill`` in chunks of 7 and 64 against one shot on the card:
+    lens equal; host rows, indexer keys and logits bit for bit, or (the
+    card's products of other shapes summing in another order) their
+    largest difference printed and held within 2e-2 of the planes' scale,
+    with the first tokens equal or a near-tie (their gap in the one-shot
+    logits within one bf16 ulp of its top)."""
+    from repro_torch.serving import engine as E
+    B, S, SMAX = 2, 24, 64
+    cfg, params, lg1, c1 = _smoke_prefill(cuda, B, S, SMAX)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda)[None].expand(B, S)
+    lgc, cc = E.ess_prefill(params, cfg, toks, pos, SMAX, do_warmup=False,
+                            prefill_chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(c1.lens, cc.lens)
+    planes = [("host_latent", c1.host_latent, cc.host_latent),
+              ("logits", lg1, lgc)] + [
+        (f"ikeys[{i}]", a, b) for i, (a, b) in enumerate(zip(c1.ikeys,
+                                                           cc.ikeys))]
+    for name, a, b in planes:
+        a, b = a.float().cpu(), b.float().cpu()
+        if not torch.equal(a, b):
+            d = float((a - b).abs().max())
+            print(f"chunk {chunk}: {name} differs from one shot by at most "
+                  f"{d:.4g}")
+            assert d <= 2e-2 * max(1.0, float(a.abs().max())), name
+    top1, topc = lg1[:, -1].argmax(-1), lgc[:, -1].argmax(-1)
+    for b in range(B):
+        t1, tc = int(top1[b]), int(topc[b])
+        row = lg1[b, -1].float()
+        assert t1 == tc or float(row[t1] - row[tc]) <= _bf16_ulp(
+            float(row[t1])), (b, t1, tc)
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+def test_cuda_masked_decode_writes_nothing(cuda, graph):
+    """Every slot masked: a decode step, eager or replayed from a CUDA
+    graph (twice), leaves host tier, lens, pools and indexer keys bit for
+    bit, with no hits and no misses."""
+    from repro_torch.serving import engine as E
+    cfg, params, _, caches = _smoke_prefill(cuda, 2, 12, 32)
+    before = _clone_ess_caches(caches)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=g, device=cuda)
+    mask = torch.zeros((2,), dtype=torch.bool, device=cuda)
+    pos = caches.lens[:, None].clone()
+    out = E.ess_decode(params, cfg, nxt, pos, caches, slot_mask=mask)
+    _assert_caches_unchanged(out.caches, before)
+    assert int(out.stats["hits"].sum()) == int(out.stats["misses"].sum()) \
+        == 0
+    if not graph:
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cap = torch.cuda.CUDAGraph()
+        cap.capture_begin(capture_error_mode="relaxed")
+        out = E.ess_decode(params, cfg, nxt, pos, caches, slot_mask=mask)
+        cap.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        cap.replay()
+        _assert_caches_unchanged(out.caches, before)
+        assert int(out.stats["hits"].sum()) == \
+            int(out.stats["misses"].sum()) == 0
+
+
+def test_cuda_freed_slot_does_not_alias_live_slot_pages(cuda):
+    """Slot 1 reset and its block table set to slot 0's: a decode masked
+    to slot 0 changes only slot 0's append row in each layer, slot 1's
+    pools stay empty and its lens 0; unmasked, the same step writes slot
+    1's phantom row into slot 0's page 0."""
+    from repro_torch.cache import latent_cache as LC
+    from repro_torch.serving import engine as E
+    S = 12
+    cfg, params, _, caches = _smoke_prefill(cuda, 2, S, 32)
+    LC.reset_slot(caches, 1)
+    caches.block_tables[1].copy_(caches.block_tables[0])
+    buggy = _clone_ess_caches(caches)
+    torch.cuda.synchronize()
+    before = caches.host_latent.clone()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=g, device=cuda)
+    out = E.ess_decode(params, cfg, nxt, caches.lens[:, None].clone(),
+                       caches, slot_mask=torch.tensor([True, False],
+                                                      device=cuda))
+    torch.cuda.synchronize()
+    after = out.caches.host_latent
+    R = cfg.ess.host_page_rows
+    bt0 = caches.block_tables[0].cpu()
+    pg, rw = int(bt0[S // R]), S % R
+    changed = (after != before).any(dim=-1)                  # [L, NP, R]
+    expect = torch.zeros_like(changed)
+    expect[:, pg, rw] = True
+    assert torch.equal(changed, changed & expect)
+    assert bool(changed[:, pg, rw].all())
+    for p in out.caches.pools:
+        assert bool((p.ids[1] == -1).all())
+    assert int(out.caches.lens[1]) == 0
+    ob = E.ess_decode(params, cfg, nxt, buggy.lens[:, None].clone(), buggy)
+    torch.cuda.synchronize()
+    p0 = int(bt0[0])
+    assert bool((ob.caches.host_latent[:, p0, 0]
+                 != before[:, p0, 0]).any())
+
+
+# ---------------------------------------------------------------------------
 # Sampling and the MTP speculative round on the card
 # ---------------------------------------------------------------------------
 

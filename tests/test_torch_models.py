@@ -199,6 +199,40 @@ def test_topk_ids_tie_order_matches_lax_top_k():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("k", [8, 2048])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_topk_desc_keyed_cpu_matches_lax_top_k(k, dt):
+    """The CPU top-k (one ``torch.topk`` over index-tiebroken keys) against
+    the stable sort, the card's route, run here on the same CPU tensors,
+    and both against ``lax.top_k``: ReLU'd indexer scores with many exact
+    0.0 ties (rows of negative head weights score -0.0 wherever the ReLU
+    is 0, so their top is nearly all ties), the -2e38 sentinel, a row of
+    one repeated value, a row where 0.0 and -0.0 tie, and a row block
+    boundary.  The two routes agree on every row; ``lax.top_k`` agrees
+    with them but on the row where 0.0 and -0.0 meet, which it ranks
+    apart and they take as equal."""
+    rng = np.random.default_rng(k)
+    R, S = 1 + M._TOPK_BLOCK // 4100, 4100
+    w = np.where(rng.random((R, 1)) < 0.5, -1.0, 1.0)
+    sc = (np.maximum(rng.standard_normal((R, S)), 0.0) * w).astype(np.float32)
+    sc[:, ::7] = -2.0e38
+    sc[3] = 0.5
+    sc[4] = 0.0
+    sc[4, ::3] = -0.0
+    x = torch.tensor(sc).to({"f32": torch.float32,
+                             "bf16": torch.bfloat16}[dt])
+    got = M.topk_desc(x, k)
+    srt = torch.sort(x, dim=-1, descending=True, stable=True).indices[:, :k]
+    np.testing.assert_array_equal(got.numpy(), srt.numpy())
+    want = np.asarray(jax.lax.top_k(jnp.asarray(x.float().numpy()), k)[1])
+    same = np.arange(R) != 4
+    np.testing.assert_array_equal(srt.numpy()[same], want[same])
+    # the +-0 row: lax.top_k takes the 0.0s first, the sort in index order
+    np.testing.assert_array_equal(srt.numpy()[4], np.arange(k))
+    np.testing.assert_array_equal(
+        want[4], np.flatnonzero(np.arange(S) % 3)[:k])
+
+
 def test_mlp_and_moe(f32):
     jcfg, tcfg, jp, tp = f32
     x = x_in((3, 7, 64), 8)

@@ -37,6 +37,8 @@ from repro_torch.serving import engine as TE
 from repro_torch.serving.scheduler import Request as TReq
 
 pytest_plugins = ("_torch_cpu",)  # one torch thread; JAX freed per file
+# the reference's many eager compiles at XLA's quick settings
+pytestmark = pytest.mark.usefixtures("quick_xla")
 
 CFG = "deepseek-v32-exp-ess-smoke"
 DEPTH = 2
